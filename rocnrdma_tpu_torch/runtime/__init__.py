@@ -1,0 +1,11 @@
+"""Runtime: device resolution, topology probe and the rank mesh."""
+
+from rocnrdma_tpu_torch.runtime.mesh import (  # noqa: F401
+    PLATFORMS,
+    RANK_AXIS,
+    RankMesh,
+    Topology,
+    detect_topology,
+    rank_mesh,
+    resolve_device,
+)

@@ -1,0 +1,186 @@
+"""The Transport interface: rank-major collectives over a rank mesh.
+
+Counterpart of ``rocnrdma_tpu/transport/api.py`` for the allreduce verb.
+Data layout contract: the leading tensor dim is the rank axis, ``x[r]`` is
+rank r's buffer, and the result keeps that layout with every rank's row
+equal. In this slice every rank lives on the mesh's one device.
+
+Algorithms (``SCHEDULES["allreduce"]``):
+
+- ``"fused"`` - one library reduction over the rank axis (XLA's psum in
+  the reference).
+- ``"ring"`` / ``"ring_bidir"`` - the explicit PyTorch ring schedules.
+- ``"cuda_ring"`` - the hand-written CUDA ring kernel (``pallas_ring`` in
+  the reference), sum only. While a chunk (a rank's buffer over n) fits
+  in one ``CUDA_RING_TILE_BYTES`` tile it runs the one-tile tier
+  (``ring_cuda.ring_allreduce``); above, the tiled tier
+  (``ring_cuda.hbm_ring_allreduce``) with the fewest tiles of at most that
+  size, on a copy, so the caller's tensor is never changed.
+- ``"auto"`` - ``RNR_ALGO`` when set and supported, else ``fused``.
+
+``RNR_DEBUG=1`` logs one stderr line per verb dispatch.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import numpy as np
+import torch
+
+from rocnrdma_tpu_torch import collectives as C
+from rocnrdma_tpu_torch.collectives.reduce_op import REDUCE_OPS
+from rocnrdma_tpu_torch.metrics import MiB
+from rocnrdma_tpu_torch.ops import ring_cuda
+from rocnrdma_tpu_torch.runtime.mesh import RankMesh, detect_topology, rank_mesh
+
+_DEBUG_LOG = os.environ.get("RNR_DEBUG", "") not in ("", "0")
+
+ALGOS = ("auto", "fused", "ring", "ring_bidir", "cuda_ring")
+
+# The largest tile of the cuda_ring arm. The kernel pays ~19 us a
+# (step, tile) hop on the H100, so time falls with the tile count until a
+# tile carries a few MiB; 16 MiB tiles were as fast as any at 256 MiB and
+# 1 GiB per rank (bench/bench_ring_tiles.py, PERF.md) and bound the comm
+# slots at two tiles a rank.
+CUDA_RING_TILE_BYTES = 16 * MiB
+
+
+def cuda_ring_tile_rows(x: torch.Tensor) -> int | None:
+    """The ``tile_rows`` the ``cuda_ring`` arm runs rank-major ``x`` with:
+    None (the one-tile tier) while a chunk fits in one tile, else the rows
+    of the fewest tiles of at most ``CUDA_RING_TILE_BYTES`` that cover it."""
+    n = x.shape[0]
+    rows = -(-(-(-x[0].numel() // n)) // ring_cuda.LANES)  # chunk rows
+    tiles = -(-rows * ring_cuda.LANES * x.element_size() // CUDA_RING_TILE_BYTES)
+    return None if tiles <= 1 else -(-rows // tiles)
+
+
+def _raise(msg: str):
+    raise ValueError(msg)
+
+
+def _cuda_ring(x: torch.Tensor) -> torch.Tensor:
+    tile_rows = cuda_ring_tile_rows(x)
+    if tile_rows is None:
+        return ring_cuda.ring_allreduce(x)
+    return ring_cuda.hbm_ring_allreduce(x.clone(), tile_rows=tile_rows)
+
+
+# THE (op, algo) table, consumed by Transport and by the bench runner's
+# algo filter. Each entry maps a rank-major tensor through the schedule.
+SCHEDULES = {
+    "allreduce": {
+        "fused": lambda x, op="sum": C.fused_allreduce(x, op=op),
+        "ring": lambda x, op="sum": C.ring_allreduce(x, op=op),
+        "ring_bidir": lambda x, op="sum": C.ring_allreduce(x, bidir=True, op=op),
+        "cuda_ring": lambda x, op="sum":
+            _cuda_ring(x) if op == "sum"
+            else _raise(f"cuda_ring allreduce is sum-only, got op={op!r}"),
+    },
+}
+
+
+def supports(op: str, algo: str) -> bool:
+    """Does ``(op, algo)`` resolve on a 1-D rank mesh?"""
+    return algo == "auto" or algo in SCHEDULES.get(op, {})
+
+
+class Transport:
+    """Collectives over a rank mesh (default: one rank per GPU)."""
+
+    def __init__(self, mesh: RankMesh | None = None):
+        self.mesh = mesh if mesh is not None else rank_mesh(detect_topology().n_devices)
+        self.n_ranks = self.mesh.n_ranks
+        self.device = self.mesh.device
+        # per-(verb, algo) dispatch counts and input bytes, read via stats()
+        self._stats: dict[tuple, dict] = {}
+
+    # -- policy ------------------------------------------------------------
+
+    def _resolve(self, algo: str, op: str) -> str:
+        if op not in SCHEDULES:
+            raise ValueError(f"unknown op {op!r}")
+        if algo not in ALGOS:
+            raise ValueError(f"unknown algo {algo!r}; know {ALGOS}")
+        if algo == "auto":
+            # RNR_ALGO env override (the NCCL_ALGO habit): replaces only the
+            # policy default, and only where (op, mesh) supports it
+            forced = os.environ.get("RNR_ALGO", "").strip().lower()
+            if forced:
+                if forced not in ALGOS:
+                    raise ValueError(f"RNR_ALGO={forced!r} is not an algorithm; "
+                                     f"know {ALGOS}")
+                if supports(op, forced):
+                    algo = forced
+        if algo == "auto":
+            algo = "fused"
+        if not supports(op, algo):
+            raise ValueError(f"op {op!r} has no {algo!r} schedule; compatible "
+                             f"here: {list(SCHEDULES[op])}")
+        return algo
+
+    def _count(self, verb: str, algo: str, x: torch.Tensor) -> None:
+        s = self._stats.setdefault((verb, algo), {"calls": 0, "bytes": 0})
+        nbytes = x.numel() * x.element_size()
+        s["calls"] += 1
+        s["bytes"] += nbytes
+        if _DEBUG_LOG:  # the NCCL_DEBUG=INFO analogue (env RNR_DEBUG=1)
+            print(f"# rnr {verb} algo={algo} bytes={nbytes} "
+                  f"ranks={self.n_ranks} device={self.device}", file=sys.stderr)
+
+    def stats(self) -> dict:
+        """Per-(verb, algo) dispatch counts and cumulative input bytes of the
+        verb methods (bare ``jit_fn`` callables are not counted)."""
+        return {f"{v}/{a}": dict(s) for (v, a), s in sorted(self._stats.items())}
+
+    def format_stats(self) -> str:
+        rows = [f"{'verb/algo':<28} {'calls':>8} {'MiB':>12}"]
+        for key, s in self.stats().items():
+            rows.append(f"{key:<28} {s['calls']:>8} {s['bytes'] / 2**20:>12.2f}")
+        return "\n".join(rows)
+
+    def shard(self, x, dtype: torch.dtype | None = None) -> torch.Tensor:
+        """Place a global buffer (numpy or tensor, ``x[r]`` = rank r's buffer)
+        on the mesh as one rank-major tensor, optionally cast to ``dtype``
+        on the device."""
+        t = torch.from_numpy(np.ascontiguousarray(x)) if isinstance(x, np.ndarray) else x
+        if t.dim() < 1 or t.shape[0] != self.n_ranks:
+            raise ValueError(f"leading dim must be the {self.n_ranks} ranks, "
+                             f"got shape {tuple(t.shape)}")
+        t = t.to(self.device)
+        return t if dtype is None else t.to(dtype)
+
+    # -- verbs -------------------------------------------------------------
+
+    def _dispatch(self, verb: str, x: torch.Tensor, algo: str, **knobs):
+        algo = self._resolve(algo, verb)
+        fn = self._jit(verb, algo, **knobs)  # validates knobs first:
+        self._count(verb, algo, x)           # rejected calls don't count
+        return fn(x)
+
+    def allreduce(self, x: torch.Tensor, algo: str = "auto",
+                  op: str = "sum") -> torch.Tensor:
+        """(ranks, ...) -> same shape; every rank row = elementwise ``op``
+        reduction (sum/prod/max/min/avg)."""
+        return self._dispatch("allreduce", x, algo, op=op)
+
+    def jit_fn(self, verb: str, algo: str = "auto", **knobs):
+        """The callable the benches time. PyTorch runs eagerly, so this is
+        the schedule bound to its knobs, with the input checks in front."""
+        return self._jit(verb, self._resolve(algo, verb), **knobs)
+
+    def _jit(self, verb: str, algo: str, op: str = "sum"):
+        if op not in REDUCE_OPS:
+            raise ValueError(f"unknown reduce op {op!r}; know {REDUCE_OPS}")
+        schedule = SCHEDULES[verb][algo]
+
+        def run(x: torch.Tensor) -> torch.Tensor:
+            if x.dim() < 1 or x.shape[0] != self.n_ranks:
+                raise ValueError(f"expected a rank-major tensor with {self.n_ranks} "
+                                 f"rows, got shape {tuple(x.shape)}")
+            if x.device != self.device:
+                raise ValueError(f"tensor is on {x.device}; the mesh is on {self.device}")
+            return schedule(x, op=op)
+        return run
