@@ -9,26 +9,46 @@ Phases, each timed, any failure exits non-zero:
 
 1. probe: the card's name and ``nvidia-smi`` name/power limit; no CUDA
    device -> exit 2 before anything else runs;
-2. build: compile every CUDA kernel of the port from ``ops/csrc`` with nvcc;
+2. build: compile every CUDA kernel of the port from ``ops/csrc`` with nvcc,
+   one process per source, all at once (the Triton kernel compiles at its
+   first launch, in phase 3);
 3. kernels: each kernel wrapper on the card against its plain PyTorch
-   version (ring: n in {2,3,4,8}, 1000 elements / 1 MiB / 64 MiB per rank,
-   fp32 and bf16, tiles of 8/64/512 rows; a 50-round stress loop; combine:
-   k in {2,3}, 1000 elements / 256 MiB, fp32 and bf16). Equality is
+   version. Ring allreduce: n in {2,3,4,8}, 1000 elements / 1 MiB / 64 MiB
+   per rank, fp32 and bf16, tiles of 8/64/512 rows, a 50-round stress loop;
+   combine: k in {2,3}, 1000 elements / 256 MiB, fp32 and bf16 (equality
    bitwise; a bf16 case that is not falls back to a stated tolerance and
-   says so;
-4. main path: ``bench_allreduce --preset ring8 --fake-devices 8 --algos
-   fused,ring,ring_bidir,cuda_ring`` (8 ranks on the one GPU, 4 KiB..256 MiB
-   per rank, fp32 and bf16, every point checked against numpy), then the
-   contract point, 1 GiB fp32 per rank through ``Transport.allreduce`` with
-   ``cuda_ring`` and ``fused``, checked on the card against the plain ring;
-   the ring kernels' launch counts are zeroed before and read after;
-5. ``bench_local`` with cuda2,cuda3,torch2,torch3 at 256 MiB per operand,
-   the combine kernel's launch count zeroed before and read after;
-6. one JSON line ``{"kernels": [...]}``: per kernel its launches on the main
-   path, its time, its plain version's and the library call's time at the
-   main path's shapes, and its bound: the larger of its bytes (each input
-   read once, each output written once) at the datasheet HBM rate and its
-   fp32 adds at the datasheet fp32 rate.
+   says so). Ring reduce-scatter and allgather: n in {2,3,4,8}, fp32 and
+   bf16, one tile and tiles of 8/64/512 rows; reduce-scatter at about 1 MiB
+   and 64 MiB per rank (rounded down to n*128 elements) and 3*n*128
+   elements, allgather at a 700-element chunk and 1 MiB / 64 MiB gathered
+   per rank. Alltoall: n in {2,3,8}, 77-element chunks, 1 MiB / 64 MiB per
+   rank. A 50-round stress loop at n=8 for reduce-scatter and alltoall.
+   Pipelined (Triton) combine: k in {2,3}, 1000 elements / 256 MiB, fp32
+   and bf16. These new kernels must be bitwise equal in every dtype;
+4. main paths, each with the launch counts zeroed before and read after,
+   8 ranks on the one GPU, every point of every sweep checked against
+   numpy (``--preset ring8 --fake-devices 8``: 4 KiB..256 MiB per rank,
+   fp32 and bf16):
+   - ``bench_allreduce --algos fused,ring,ring_bidir,cuda_ring``, then
+     1 GiB fp32 per rank through ``Transport.allreduce``, ``cuda_ring`` and
+     ``fused``, checked on the card against the plain ring;
+   - ``bench_reducescatter --algos fused,ring,cuda_ring``, then 1 GiB fp32
+     input per rank through ``Transport.reduce_scatter``;
+   - ``bench_allgather --algos fused,ring,cuda_ring``, then 1 GiB fp32
+     gathered per rank through ``Transport.allgather``;
+   - ``bench_alltoall --algos fused,ring,bruck,cuda_ring``, then 1 GiB fp32
+     per rank through ``Transport.alltoall`` (the ``BASELINE.json:2``
+     metric), and ``Transport.alltoallv`` once with ragged counts;
+   each 1 GiB point runs ``cuda_ring`` and ``fused``, held to the plain
+   version, and prints its algbw and busbw;
+5. ``bench_local`` with cuda2,cuda3,torch2,torch3,pipe2,pipe3 at 256 MiB
+   per operand, the combine kernels' launch counts zeroed before and read
+   after;
+6. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
+   main path, its time, its plain version's and the library call's time at
+   the main path's shapes, and its bound: the larger of its bytes (each
+   input read once, each output written once) at the datasheet HBM rate
+   and its fp32 adds at the datasheet fp32 rate.
 
 The last line is ``{"ok": true, "device": {...}}``. With ranks sharing one
 GPU, every bus bandwidth printed here is an HBM number, not NVLink.
@@ -68,16 +88,17 @@ def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
 
 
-def hold(what: str, got: torch.Tensor, want: torch.Tensor, hops: int = 1) -> float:
-    """Require ``got`` bitwise equal to ``want``; a bf16 mismatch is
-    accepted within one bf16 rounding (2^-8 relative) per hop, and
-    printed."""
+def hold(what: str, got: torch.Tensor, want: torch.Tensor, hops: int = 1,
+         strict: bool = False) -> float:
+    """Require ``got`` bitwise equal to ``want``; unless ``strict``, a bf16
+    mismatch is accepted within one bf16 rounding (2^-8 relative) per hop,
+    and printed."""
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{what}: {got.shape}/{got.dtype} vs {want.shape}/{want.dtype}")
     err = max_abs_err(got, want)
     if torch.equal(got, want):
         return err
-    if got.dtype == torch.bfloat16:
+    if got.dtype == torch.bfloat16 and not strict:
         tol = hops * 2.0 ** -8
         if torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
             print(f"# {what}: bf16 not bitwise (max abs err {err}); within "
@@ -136,6 +157,83 @@ def check_combine_kernel(ops) -> None:
     print("combine kernel: ok", flush=True)
 
 
+def check_rs_ag_kernels(ops) -> None:
+    for n in (2, 3, 4, 8):
+        for dtype in (torch.float32, torch.bfloat16):
+            isz = torch.finfo(dtype).bits // 8
+            align = n * 128
+            for label, elems in (("3*n*128 el", 3 * align),
+                                 ("~1 MiB", MiB // isz // align * align),
+                                 ("~64 MiB", 64 * MiB // isz // align * align)):
+                x = randn((n, elems), dtype, seed=n * 100 + elems % 991)
+                x0 = x.clone()
+                want = ops.ring_reduce_scatter_plain(x)
+                for tr in (None, 8, 64, 512):
+                    hold(f"reduce_scatter n={n} {label} {dtype} tile_rows={tr}",
+                         ops.ring_reduce_scatter(x, tile_rows=tr), want, strict=True)
+                if not torch.equal(x, x0):
+                    raise AssertionError("reduce_scatter kernel changed its input")
+                del x, x0, want
+            for label, chunk in (("700-el chunk", 700),
+                                 ("1 MiB gathered", MiB // isz // n),
+                                 ("64 MiB gathered", 64 * MiB // isz // n)):
+                x = randn((n, chunk), dtype, seed=n * 200 + chunk % 991)
+                want = ops.ring_allgather_plain(x)
+                if not torch.equal(want, x.reshape(1, -1).expand(n, -1)):
+                    raise AssertionError("allgather plain version is not the concatenation")
+                for tr in (None, 8, 64, 512):
+                    hold(f"allgather n={n} {label} {dtype} tile_rows={tr}",
+                         ops.ring_allgather(x, tile_rows=tr), want, strict=True)
+                del x, want
+        torch.cuda.synchronize()
+        print(f"reduce_scatter/allgather kernels n={n}: ok", flush=True)
+    # the reduce-scatter stress loop: many tiles, many slot reuses
+    x = randn((8, 8 * 3 * 128 * 8), torch.float32, seed=8)
+    want = ops.ring_reduce_scatter_plain(x)
+    for i in range(50):
+        hold(f"reduce_scatter stress round {i}", ops.ring_reduce_scatter(x, tile_rows=8),
+             want, strict=True)
+    torch.cuda.synchronize()
+    print("reduce_scatter stress x50: ok", flush=True)
+
+
+def check_alltoall_kernel(ops) -> None:
+    for n in (2, 3, 8):
+        for dtype in (torch.float32, torch.bfloat16):
+            isz = torch.finfo(dtype).bits // 8
+            for label, chunk in (("77-el chunks", 77), ("1 MiB", MiB // isz // n),
+                                 ("64 MiB", 64 * MiB // isz // n)):
+                x = randn((n, n, chunk), dtype, seed=n * 300 + chunk % 991)
+                got = ops.alltoall(x)
+                hold(f"alltoall n={n} {label} {dtype}", got, ops.alltoall_plain(x),
+                     strict=True)
+                hold(f"alltoall twice n={n} {label} {dtype}", ops.alltoall(got), x,
+                     strict=True)
+                del x, got
+        torch.cuda.synchronize()
+        print(f"alltoall kernel n={n}: ok", flush=True)
+    x = randn((8, 8, 1000), torch.float32, seed=9)
+    want = ops.alltoall_plain(x)
+    for i in range(50):
+        hold(f"alltoall stress round {i}", ops.alltoall(x), want, strict=True)
+    torch.cuda.synchronize()
+    print("alltoall stress x50: ok", flush=True)
+
+
+def check_pipelined_combine_kernel(ops) -> None:
+    for k in (2, 3):
+        for dtype in (torch.float32, torch.bfloat16):
+            isz = torch.finfo(dtype).bits // 8
+            for label, elems in (("1000 el", 1000), ("256 MiB", 256 * MiB // isz)):
+                xs = [randn((elems,), dtype, seed=20 * k + j) for j in range(k)]
+                hold(f"pipelined combine k={k} {label} {dtype}",
+                     ops.hbm_combine_pipelined(*xs), ops.hbm_combine_plain(*xs),
+                     strict=True)
+                del xs
+    torch.cuda.synchronize()
+    print("pipelined combine kernel: ok", flush=True)
+
+
 def bound(nbytes: float, ops: float, kind: str) -> dict:
     """The least time for the work: the larger of its bytes at the HBM rate
     and its fp32 operations at the non-tensor-core fp32 rate."""
@@ -150,6 +248,85 @@ def ms_of(fn, *args, repeats=5, iters=5) -> float:
                    calls_per_repeat=iters).mean_s * 1e3
 
 
+# collective -> (bench CLI, Transport verb, the sweep's algos, kernel counter)
+VERBS = {
+    "reducescatter": ("bench_reducescatter", "reduce_scatter", "fused,ring,cuda_ring",
+                      "ring_reduce_scatter"),
+    "allgather": ("bench_allgather", "allgather", "fused,ring,cuda_ring",
+                  "ring_allgather"),
+    "alltoall": ("bench_alltoall", "alltoall", "fused,ring,bruck,cuda_ring",
+                 "alltoall"),
+}
+
+
+def main_verb(ops, runner, collective: str, x: torch.Tensor, plain, kind: str,
+              n: int = 8) -> tuple[int, float]:
+    """Drive one verb's main path with the launch counts zeroed first: its
+    CLI's ring8 sweep, then the 1 GiB fp32 point ``x`` through ``cuda_ring``
+    (held bitwise to ``plain``) and ``fused``, timed; alltoall also runs
+    ``alltoallv`` once. Returns (the kernel's launches, the point's max abs
+    error)."""
+    from rocnrdma_tpu_torch.metrics import BenchRecord, format_table
+    from rocnrdma_tpu_torch.runtime import rank_mesh
+    from rocnrdma_tpu_torch.transport import Transport
+
+    bench, verb, algos, counter = VERBS[collective]
+    ops.reset_launch_counts()
+    argv = ["--preset", "ring8", "--fake-devices", str(n), "--algos", algos,
+            "--repeats", "3", "--iters", "5"]
+    sweep = runner.run_sweep(bench, collective,
+                             runner.make_parser(bench, collective).parse_args(argv))
+    if {r.algo for r in sweep} != set(algos.split(",")):
+        raise AssertionError(f"{bench} sweep ran {sorted({r.algo for r in sweep})}")
+
+    t = Transport(rank_mesh(n))
+    run = getattr(t, verb)
+    got = run(x, "cuda_ring")
+    want = plain(x)
+    err = hold(f"1 GiB {verb} cuda_ring vs plain", got, want, strict=True)
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"1 GiB {verb} cuda_ring: non-finite result")
+    del got
+    fused = run(x, "fused")
+    same = (torch.allclose(fused, want, rtol=1e-5, atol=1e-5)
+            if verb == "reduce_scatter" else torch.equal(fused, want))
+    if not same:
+        raise AssertionError(f"1 GiB {verb} fused vs plain: max abs err "
+                             f"{max_abs_err(fused, want)}")
+    del fused, want
+    size = x[0].numel() * x.element_size() * (n if verb == "allgather" else 1)
+    recs = []
+    for algo in ("cuda_ring", "fused"):
+        ms = ms_of(t.jit_fn(verb, algo), x, repeats=3, iters=2)
+        recs.append(BenchRecord.measure(
+            bench, collective, algo, n, size, "float32", ms / 1e3,
+            platform="gpu", device=kind, link="hbm-loopback"))
+    print(format_table(recs))
+    if verb == "alltoall":  # the ragged verb on the same kernel
+        g = torch.Generator().manual_seed(5)
+        counts = torch.randint(0, 65, (n, n), generator=g)
+        y = randn((n, n, 64, 1024), torch.float32, seed=17)
+        out, rc = t.alltoallv(y, counts, "cuda_ring")
+        want, want_rc = t.alltoallv(y, counts, "fused")
+        hold("alltoallv cuda_ring vs fused", out, want, strict=True)
+        if not torch.equal(rc, want_rc) or not torch.equal(rc.cpu(), counts.T):
+            raise AssertionError("alltoallv: recv_counts differ")
+        del y, out, want
+    stats = t.stats()
+    print(t.format_stats())
+    need = [f"{verb}/cuda_ring", f"{verb}/fused"]
+    if verb == "alltoall":
+        need += ["alltoallv/cuda_ring", "alltoallv/fused"]
+    for key in need:
+        if stats.get(key, {}).get("calls", 0) < 1:
+            raise AssertionError(f"Transport.stats shows no {key} call: {stats}")
+    launched = ops.launch_counts()
+    print(f"launches on the {bench} path: {launched}", flush=True)
+    if launched[counter] < 1:
+        raise AssertionError(f"{bench} path never launched {counter}")
+    return launched[counter], err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -157,7 +334,8 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from rocnrdma_tpu_torch import ops
     from rocnrdma_tpu_torch.bench import bench_local, runner
-    from rocnrdma_tpu_torch.collectives import fused_allreduce
+    from rocnrdma_tpu_torch.collectives import (fused_allgather, fused_allreduce,
+                                                fused_alltoall, fused_reduce_scatter)
     from rocnrdma_tpu_torch.hw import bytes_bound_ms
     from rocnrdma_tpu_torch.metrics import BenchRecord, GiB, format_table
     from rocnrdma_tpu_torch.ops import _build
@@ -183,6 +361,9 @@ def main() -> int:
     with phase("kernels"):
         check_ring_kernels(ops)
         check_combine_kernel(ops)
+        check_rs_ag_kernels(ops)
+        check_alltoall_kernel(ops)
+        check_pipelined_combine_kernel(ops)
 
     # ---- main path: bench_allreduce (ring kernels) ----
     n = 8
@@ -232,17 +413,38 @@ def main() -> int:
                 raise AssertionError(f"main path never launched {k}")
         del x
 
-    # ---- main path: bench_local (combine kernel) ----
+    # ---- main paths: bench_reducescatter, bench_allgather, bench_alltoall
+    # (the ring kernel's RS and AG modes, the alltoall kernel), each with
+    # its 1 GiB fp32 point ----
+    counts, errs = {}, {}
+    with phase("main_reducescatter"):
+        x = randn((n, GiB // 4), torch.float32, seed=11)
+        counts["ring_reduce_scatter"], errs["ring_reduce_scatter"] = main_verb(
+            ops, runner, "reducescatter", x, ops.ring_reduce_scatter_plain, kind)
+        del x
+    with phase("main_allgather"):
+        x = randn((n, GiB // 4 // n), torch.float32, seed=12)
+        counts["ring_allgather"], errs["ring_allgather"] = main_verb(
+            ops, runner, "allgather", x, ops.ring_allgather_plain, kind)
+        del x
+    with phase("main_alltoall"):
+        x = randn((n, n, GiB // 4 // n), torch.float32, seed=13)
+        counts["alltoall"], errs["alltoall"] = main_verb(
+            ops, runner, "alltoall", x, ops.alltoall_plain, kind)
+        del x
+
+    # ---- main path: bench_local (combine kernels) ----
     with phase("main_bench_local"):
         ops.reset_launch_counts()
         largs = bench_local.make_parser().parse_args(
-            ["--kernels", "cuda2,cuda3,torch2,torch3", "--size", "256M"])
+            ["--kernels", "cuda2,cuda3,torch2,torch3,pipe2,pipe3", "--size", "256M"])
         local_rows = bench_local.run(largs)
         combine_counts = ops.launch_counts()
         print(f"launches on bench_local: {combine_counts}", flush=True)
-        if combine_counts["hbm_combine"] < 1:
-            raise AssertionError("bench_local never launched hbm_combine")
-        if len(local_rows) != 4:
+        for k in ("hbm_combine", "hbm_combine_pipelined"):
+            if combine_counts[k] < 1:
+                raise AssertionError(f"bench_local never launched {k}")
+        if len(local_rows) != 6:
             raise AssertionError(f"bench_local gave {len(local_rows)} rows")
 
     # ---- the kernels line, at the main path's shapes ----
@@ -295,11 +497,73 @@ def main() -> int:
             **bound(3 * a.numel() * 4, a.numel(), kind),
             "library_ms": ms_of(torch.add, a, b),
             "shape": [2, a.numel()], "dtype": "float32"})
+        # hbm_combine_pipelined: bench_local's pipe2 row, the same operands
+        err = max_abs_err(ops.hbm_combine_pipelined(a, b), ops.hbm_combine_plain(a, b))
+        kernels.append({
+            "name": "hbm_combine_pipelined", "route": "triton",
+            "source": "rocnrdma_tpu_torch/ops/local_triton.py",
+            "replaces": "rocnrdma_tpu/ops/local_pallas.py:160",
+            "launches": combine_counts["hbm_combine_pipelined"], "max_abs_err": err,
+            "ms": ms_of(ops.hbm_combine_pipelined, a, b),
+            "plain_ms": ms_of(ops.hbm_combine_plain, a, b),
+            **bound(3 * a.numel() * 4, a.numel(), kind),
+            "library_ms": ms_of(torch.add, a, b),
+            "shape": [2, a.numel()], "dtype": "float32"})
         del a, b
+        # ring_reduce_scatter: the 1 GiB point, with the cuda_ring arm's tiles
+        x = randn((n, GiB // 4), torch.float32, seed=14)
+        S = x[0].numel() * 4
+        tr = cuda_ring_tile_rows(x, "reduce_scatter")
+        kernels.append({
+            "name": "ring_reduce_scatter", "route": "cuda",
+            "source": "rocnrdma_tpu_torch/ops/csrc/ring.cu",
+            "replaces": "rocnrdma_tpu/ops/ring_pallas.py:215",
+            "launches": counts["ring_reduce_scatter"],
+            "max_abs_err": errs["ring_reduce_scatter"],
+            "ms": ms_of(lambda v: ops.ring_reduce_scatter(v, tile_rows=tr), x,
+                        repeats=3, iters=2),
+            "plain_ms": ms_of(ops.ring_reduce_scatter_plain, x, repeats=3, iters=1),
+            **bound(n * S + S, (n - 1) * x[0].numel(), kind),
+            "library_ms": ms_of(fused_reduce_scatter, x, repeats=3, iters=2),
+            "shape": [n, x.shape[1]], "dtype": "float32", "tile_rows": tr})
+        traffic["ring_reduce_scatter"] = bytes_bound_ms(n * (5 * (n - 1) * S / n + 2 * S), kind)
+        del x
+        # ring_allgather: the 1 GiB point (1 GiB gathered per rank)
+        x = randn((n, GiB // 4 // n), torch.float32, seed=15)
+        c = x[0].numel() * 4
+        tr = cuda_ring_tile_rows(x, "allgather")
+        kernels.append({
+            "name": "ring_allgather", "route": "cuda",
+            "source": "rocnrdma_tpu_torch/ops/csrc/ring.cu",
+            "replaces": "rocnrdma_tpu/ops/ring_pallas.py:239",
+            "launches": counts["ring_allgather"], "max_abs_err": errs["ring_allgather"],
+            "ms": ms_of(lambda v: ops.ring_allgather(v, tile_rows=tr), x,
+                        repeats=3, iters=2),
+            "plain_ms": ms_of(ops.ring_allgather_plain, x, repeats=3, iters=1),
+            **bound(n * c + n * n * c, 0, kind),
+            "library_ms": ms_of(fused_allgather, x, repeats=3, iters=2),
+            "shape": [n, x.shape[1]], "dtype": "float32", "tile_rows": tr})
+        traffic["ring_allgather"] = bytes_bound_ms(n * (2 * c + 4 * (n - 1) * c), kind)
+        del x
+        # alltoall: the 1 GiB point, the BASELINE.json:2 alltoall metric
+        x = randn((n, n, GiB // 4 // n), torch.float32, seed=16)
+        S = x[0].numel() * 4
+        kernels.append({
+            "name": "alltoall", "route": "cuda",
+            "source": "rocnrdma_tpu_torch/ops/csrc/alltoall.cu",
+            "replaces": "rocnrdma_tpu/ops/ring_pallas.py:290",
+            "launches": counts["alltoall"], "max_abs_err": errs["alltoall"],
+            "ms": ms_of(ops.alltoall, x, repeats=3, iters=2),
+            "plain_ms": ms_of(ops.alltoall_plain, x, repeats=3, iters=1),
+            **bound(2 * n * S, 0, kind),
+            "library_ms": ms_of(fused_alltoall, x, repeats=3, iters=2),
+            "shape": list(x.shape), "dtype": "float32"})
+        del x
 
     print("phase seconds: " + json.dumps({k: round(v, 1) for k, v in PHASE_S.items()}))
-    print("ring kernel's own traffic, n*[(n-1)*9C + 2S] (no 2S in place), at peak "
-          "HBM, ms: " + json.dumps(traffic))
+    print("ring kernel's own traffic at peak HBM, ms (allreduce n*[(n-1)*9C + 2S], "
+          "no 2S in place; reduce-scatter n*[(n-1)*5C + 2S]; allgather "
+          "n*[2c + (n-1)*4c]): " + json.dumps(traffic))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,16 @@
 """``bench_local`` - the on-device combine, the memory-bound half of a ring
-step, timed two ways:
+step, timed three ways:
 
   torch2 / torch3   a chain of ``torch.add`` (counterpart of xla2 / xla3)
-  cuda2 / cuda3     ``ops.hbm_combine``, the hand-written combine kernel
-                    (counterpart of pallas2 / pallas3)
+  cuda2 / cuda3     ``ops.hbm_combine``, the hand-written CUDA combine
+                    kernel (counterpart of pallas2 / pallas3)
+  pipe2 / pipe3     ``ops.hbm_combine_pipelined``, the persistent Triton
+                    kernel whose loads the compiler's pipeliner overlaps
+                    (the same names as the reference's emit_pipeline rows)
 
 The trailing digit is the operand count: 2 = a ring step's fold, 3 = a
-tree node's. On the CPU (``--platform cpu``) the cudaN rows run the
-kernel's plain version: correct, not a measurement of the kernel.
+tree node's. On the CPU (``--platform cpu``) the cudaN and pipeN rows run
+the kernels' plain version: correct, not a measurement of the kernels.
 
 Timing: the two-depth chained marginal (``timing.marginal_s_per_op``);
 GB/s counts (k+1) bytes moved per element (k reads + 1 write).
@@ -27,9 +30,9 @@ from rocnrdma_tpu_torch import metrics as M
 from rocnrdma_tpu_torch.bench import cli_common
 from rocnrdma_tpu_torch.bench.runner import DTYPES, parse_size
 from rocnrdma_tpu_torch.bench.timing import marginal_s_per_op
-from rocnrdma_tpu_torch.ops import hbm_combine
+from rocnrdma_tpu_torch.ops import hbm_combine, hbm_combine_pipelined
 
-KERNELS = ("torch2", "torch3", "cuda2", "cuda3")
+KERNELS = ("torch2", "torch3", "cuda2", "cuda3", "pipe2", "pipe3")
 
 
 def kernel_n_ops(kernel: str) -> int:
@@ -50,7 +53,8 @@ def combine_fn(kernel: str):
                 out = torch.add(out, b)
             return out
         return f
-    return lambda y, *bs: hbm_combine(y, *bs[:k - 1])
+    kernel_fn = hbm_combine_pipelined if kernel.startswith("pipe") else hbm_combine
+    return lambda y, *bs: kernel_fn(y, *bs[:k - 1])
 
 
 def make_combine_chain(kernel: str, k: int):
@@ -69,7 +73,7 @@ def make_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="bench_local",
         description="on-device combine: torch.add chain vs the hand-written "
-                    "CUDA combine kernel")
+                    "CUDA and Triton combine kernels")
     p.add_argument("--size", type=str, default=None,
                    help="per-operand bytes (default: 256M on the GPU, 512K "
                         "on the CPU)")

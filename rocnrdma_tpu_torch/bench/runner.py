@@ -1,7 +1,11 @@
 """Shared sweep runner behind the bench CLIs: parse flags -> backend and
 rank mesh -> Transport -> timed loop -> bus-bandwidth report.
 
-Counterpart of ``rocnrdma_tpu/bench/runner.py`` for allreduce. Differences:
+Counterpart of ``rocnrdma_tpu/bench/runner.py`` for allreduce,
+reducescatter, allgather and alltoall, with the reference's per-collective
+shapes and size conventions (``_shape_and_bytes``: ``--sizes`` is the
+per-rank buffer S; allgather's is the gathered output, each rank
+contributing S/n). Differences:
 
 - ``--fake-devices N`` hosts N ranks on one physical device, the GPU unless
   ``--platform cpu``. A busbw measured with ranks sharing one GPU is an
@@ -11,7 +15,9 @@ Counterpart of ``rocnrdma_tpu/bench/runner.py`` for allreduce. Differences:
   does; the tensor is cast to the sweep dtype on the device, and the
   expected result is reduced with numpy from the cast inputs widened back to
   float32 (numpy has no bfloat16). The comparison itself runs on the device.
-- The self-check accepts an element within the reference's tolerance OR
+- The self-check runs on the device against a per-rank expected tensor.
+  allgather and alltoall only move data and must be exact. The reducing
+  verbs accept an element within the reference's tolerance OR
   within the worst-case rounding of an (n-1)-add sum in the sweep dtype,
   about ``(n-1) * u * sum_r |x_r|`` (u = 2^-8 in bfloat16, 2^-24 in float32).
   A ring that rounds to bfloat16 after every hop can exceed the
@@ -19,7 +25,9 @@ Counterpart of ``rocnrdma_tpu/bench/runner.py`` for allreduce. Differences:
   at 16 MiB per rank: error 0.057 on an expected -0.065); a lost or
   doubled rank contribution still fails it.
 - The reference skips its Pallas ring above a 4 MiB VMEM limit per rank;
-  ``cuda_ring`` has no such limit and runs at every size.
+  ``cuda_ring`` has no such limit and runs at every size. Like the
+  reference, it skips a reduce-scatter kernel point whose size is not a
+  multiple of ``n*128`` elements.
 - The 2-D mesh, rooted-verb and hierarchical flags (``--mesh2d``,
   ``--root``, ``--shift``, ``--cross-dtype``) wait for the slices that port
   those verbs; ``--profile DIR`` writes a ``torch.profiler`` Chrome trace.
@@ -95,7 +103,18 @@ def make_parser(bench_name: str, collective: str) -> argparse.ArgumentParser:
     return p
 
 
-_DEFAULT_ALGOS = {"allreduce": ("ring", "fused")}
+_OP = {"allreduce": "allreduce", "reducescatter": "reduce_scatter",
+       "allgather": "allgather", "alltoall": "alltoall"}
+
+# Collectives that reduce (honor --redop).
+_REDUCING = ("allreduce", "reducescatter")
+
+# Default algo pair when no preset/--algos names one: the explicit schedule
+# the collective owns, benchmarked against the fused library call.
+_DEFAULT_ALGOS = {"allreduce": ("ring", "fused"),
+                  "reducescatter": ("ring", "fused"),
+                  "allgather": ("ring", "fused"),
+                  "alltoall": ("ring", "fused")}
 
 
 def resolve_preset(args, collective: str) -> P.Preset:
@@ -125,17 +144,29 @@ def resolve_preset(args, collective: str) -> P.Preset:
     return pre
 
 
-def _shape_and_bytes(n: int, size_bytes: int, dtype: str):
-    """(global (n, elems) shape, actual bytes per rank): sizes round down to
-    whole elements."""
+def _shape_and_bytes(collective: str, n: int, size_bytes: int, dtype: str):
+    """(per-collective global shape with the rank axis first, actual bytes
+    per rank): sizes round down to whole elements and to divisibility, as
+    the reference's do."""
     itemsize = DTYPES[dtype].itemsize
     elems = max(1, size_bytes // itemsize)
-    return (n, elems), elems * itemsize
+    if collective == "allgather":
+        elems = max(n, elems // n * n)  # input chunk = S/n
+        shape = (n, elems // n)
+    elif collective == "alltoall":
+        elems = max(n, elems // n * n)
+        shape = (n, n, elems // n)
+    elif collective == "reducescatter":
+        elems = max(n, elems // n * n)
+        shape = (n, elems)
+    else:  # allreduce: full S per rank
+        shape = (n, elems)
+    return shape, elems * itemsize
 
 
-def _build_input(t: Transport, size_bytes: int, dtype: str):
+def _build_input(t: Transport, collective: str, size_bytes: int, dtype: str):
     """(tensor on the mesh device, the same values as float32 numpy, bytes)."""
-    shape, actual = _shape_and_bytes(t.n_ranks, size_bytes, dtype)
+    shape, actual = _shape_and_bytes(collective, t.n_ranks, size_bytes, dtype)
     x_np = np.random.default_rng(0).standard_normal(size=shape, dtype=np.float32)
     x = t.shard(x_np, DTYPES[dtype])
     if DTYPES[dtype] != torch.float32:
@@ -154,32 +185,56 @@ def _np_reduce(flat: np.ndarray, op: str) -> np.ndarray:
 _UNIT_ROUNDOFF = {torch.float32: 2.0 ** -24, torch.bfloat16: 2.0 ** -8}
 
 
-def _rounding_bound(x_np: np.ndarray, op: str, dtype: str) -> np.ndarray | None:
+def _expected(collective: str, x_np: np.ndarray, op: str) -> np.ndarray:
+    """What the ranks must hold after ``collective``, float32, one row per
+    rank, or one row that every rank must hold."""
+    n = x_np.shape[0]
+    flat = x_np.reshape(n, -1)
+    if collective == "allreduce":
+        return _np_reduce(flat, op)[None]
+    if collective == "reducescatter":
+        return _np_reduce(flat, op).reshape(n, -1)
+    if collective == "allgather":
+        return flat.reshape(1, -1)
+    if collective == "alltoall":
+        return x_np.transpose(1, 0, 2).reshape(n, -1)
+    raise ValueError(collective)
+
+
+def _rounding_bound(x_np: np.ndarray, op: str, dtype: str,
+                    collective: str = "allreduce") -> np.ndarray | None:
     """Worst-case rounding of any order of n-1 adds in ``dtype``, per element:
-    gamma * sum_r |x_r| with gamma = (n-1)u / (1 - (n-1)u) (sum/avg only;
-    None for the other ops)."""
-    if op not in ("sum", "avg"):
+    gamma * sum_r |x_r| with gamma = (n-1)u / (1 - (n-1)u), laid out as
+    ``_expected`` lays out the result (sum/avg only; None for the other
+    ops and for the verbs that only move data)."""
+    if op not in ("sum", "avg") or collective not in _REDUCING:
         return None
     n = x_np.shape[0]
     nu = (n - 1) * _UNIT_ROUNDOFF[DTYPES[dtype]]
-    bound = nu / (1 - nu) * np.abs(x_np).sum(axis=0)
-    return bound / n if op == "avg" else bound
+    bound = nu / (1 - nu) * np.abs(x_np.reshape(n, -1)).sum(axis=0)
+    bound = bound / n if op == "avg" else bound
+    return bound.reshape(n, -1) if collective == "reducescatter" else bound
 
 
 def _check(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float,
            what: str, bound: torch.Tensor | None = None) -> None:
-    """``got`` (n, elems) against the expected row ``want``, on the device:
-    within ``atol + rtol*|want|`` or within the rounding ``bound``."""
-    g = got.float()
+    """``got`` (n, ...) against ``want``, on the device: one expected row
+    per rank (n, E), or one row (E,) every rank must hold. An element
+    passes within ``atol + rtol*|want|`` or within the rounding ``bound``;
+    ``rtol = atol = 0`` with no bound asks for exact equality."""
+    n = got.shape[0]
+    g = got.reshape(n, -1).float()
+    want = want.reshape(-1, g.shape[1])
     tol = atol + rtol * want.abs()
     if bound is not None:
-        tol = torch.maximum(tol, bound)
+        tol = torch.maximum(tol, bound.reshape(-1, g.shape[1]))
     bad = (g - want).abs() > tol
     if bool(bad.any()):
         r, i = (int(v) for v in bad.nonzero()[0])
         raise AssertionError(
             f"{what}: {int(bad.sum())} element(s) off; first rank {r} elem {i}: "
-            f"got {float(g[r, i])}, want {float(want[i])} (rtol={rtol}, atol={atol})")
+            f"got {float(g[r, i])}, want {float(want[r % want.shape[0], i])} "
+            f"(rtol={rtol}, atol={atol})")
 
 
 def algos_for(collective: str, algos: tuple) -> tuple:
@@ -187,7 +242,7 @@ def algos_for(collective: str, algos: tuple) -> tuple:
     unknown = [a for a in algos if a not in ALGOS]
     if unknown:
         raise ValueError(f"unknown algo(s) {unknown}; know {ALGOS}")
-    kept = tuple(a for a in algos if supports(collective, a))
+    kept = tuple(a for a in algos if supports(_OP[collective], a))
     return kept or ("fused",)
 
 
@@ -227,7 +282,8 @@ def run_sweep(bench_name: str, collective: str, args) -> list:
         print(f"# algos for {collective}: {algos} (preset named {pre.algos})",
               file=sys.stderr)
 
-    knobs = {"op": args.redop} if args.redop != "sum" else {}
+    knobs = ({"op": args.redop}
+             if collective in _REDUCING and args.redop != "sum" else {})
     op = knobs.get("op", "sum")
     extra = {"device": topo.device_name}
     if pre.n_ranks > 1:
@@ -244,21 +300,28 @@ def run_sweep(bench_name: str, collective: str, args) -> list:
                         return M.record_key(bench_name, collective, algo,
                                             pre.n_ranks, nbytes, dtype,
                                             M.knob_key(knobs))
-                    actual = _shape_and_bytes(pre.n_ranks, size, dtype)[1]
+                    actual = _shape_and_bytes(collective, pre.n_ranks, size, dtype)[1]
                     if done and all(_key(a, size) in done or _key(a, actual) in done
                                     for a in algos):
                         continue
-                    x, x_np, actual = _build_input(t, size, dtype)
+                    x, x_np, actual = _build_input(t, collective, size, dtype)
                     want = bound = None
                     if pre.check:
-                        want = torch.from_numpy(_np_reduce(x_np, op)).to(t.device)
-                        b = _rounding_bound(x_np, op, dtype)
+                        want = torch.from_numpy(_expected(collective, x_np, op)).to(t.device)
+                        b = _rounding_bound(x_np, op, dtype, collective)
                         bound = None if b is None else torch.from_numpy(b).to(t.device)
                     del x_np
                     for algo in algos:
                         if _key(algo, actual) in done:
                             continue
-                        fn = t.jit_fn(collective, algo, **knobs)
+                        if (algo == "cuda_ring" and collective == "reducescatter"
+                                and (actual // DTYPES[dtype].itemsize)
+                                % (pre.n_ranks * 128) != 0):
+                            print(f"# skip {algo} at {actual} B: reduce-scatter "
+                                  f"kernel needs size % (n*128) elems == 0",
+                                  file=sys.stderr)
+                            continue
+                        fn = t.jit_fn(_OP[collective], algo, **knobs)
                         r1 = None
                         if args.paranoid:
                             # same input, same schedule: a bit difference is a
@@ -270,8 +333,12 @@ def run_sweep(bench_name: str, collective: str, args) -> list:
                                     f"at {actual} B")
                         if pre.check:
                             got = r1 if r1 is not None else fn(x)
-                            rtol, atol = ((5e-2, 5e-2) if dtype != "float32"
-                                          else (1e-4, 1e-5))
+                            if collective not in _REDUCING:
+                                rtol = atol = 0.0  # data movement: exact
+                            elif dtype != "float32":
+                                rtol, atol = 5e-2, 5e-2
+                            else:
+                                rtol, atol = 1e-4, 1e-5
                             _check(got, want, rtol, atol,
                                    f"{collective}/{algo} {dtype} {actual} B", bound)
                             del got

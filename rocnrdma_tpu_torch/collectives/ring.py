@@ -1,5 +1,6 @@
-"""Ring allreduce as an explicit PyTorch schedule (the ``ring`` and
-``ring_bidir`` arms).
+"""Ring collectives as explicit PyTorch schedules (the ``ring`` and
+``ring_bidir`` arms of allreduce, the ``ring`` arm of reduce-scatter and
+allgather).
 
 Counterpart of ``rocnrdma_tpu/collectives/ring.py``. There each step is a
 ``lax.ppermute`` between devices; here every rank is a row of one
@@ -95,3 +96,36 @@ def _bidir_partner(x: torch.Tensor, n: int, op: str = "sum") -> torch.Tensor:
     buf = _rs_phase(buf, n, shift=-1, combine=combine_fn(op))
     buf = _ag_phase(buf, n, shift=-1, owned_offset=1)
     return finalize(_unchunk(buf, size, shape), op, n)
+
+
+def ring_reduce_scatter(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+    """Reduce-scatter of rank-major ``x``: returns ``(n, S/n)``, row r the
+    fully ``op``-reduced r-th 1/n of the flattened rank buffers. Each
+    rank's buffer must flatten to a multiple of n."""
+    n = x.shape[0]
+    flat = x.reshape(n, -1)
+    combine = combine_fn(op)
+    if n == 1:
+        return finalize(flat.clone(), op, 1)
+    if flat.shape[1] % n:
+        raise ValueError(f"reduce_scatter buffer ({flat.shape[1]} elems) must "
+                         f"divide by axis size {n}")
+    buf = flat.reshape(n, n, -1).clone()
+    # offset=-1: the schedule ends with rank r owning chunk r, the
+    # conventional reduce-scatter layout, with no fixup hop
+    buf = _rs_phase(buf, n, shift=1, offset=-1, combine=combine)
+    r = torch.arange(n, device=buf.device)
+    return finalize(buf[r, r], op, n)
+
+
+def ring_allgather(x: torch.Tensor) -> torch.Tensor:
+    """Allgather of rank-major ``x`` (n, c...): returns ``(n, n*c)``, every
+    row the concatenation of all rank buffers in rank order."""
+    n = x.shape[0]
+    flat = x.reshape(n, -1)
+    if n == 1:
+        return flat.clone()
+    buf = flat.new_zeros((n, n, flat.shape[1]))
+    r = torch.arange(n, device=buf.device)
+    buf[r, r] = flat
+    return _ag_phase(buf, n, shift=1, owned_offset=0).reshape(n, -1)

@@ -25,21 +25,27 @@ import subprocess
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("combine", "ring")
+SOURCES = ("alltoall", "combine", "ring")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _VP, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # argtypes/restype of every exported C function, by library
 _SIGNATURES = {
+    "alltoall": {
+        "rnr_a2a_lanes": ([_INT, _LL, _INT], _INT),
+        "rnr_alltoall": ([_VP, _VP, _VP, _INT, _LL, _INT, _INT, _VP, _LL, _VP],
+                         _INT),
+        "rnr_a2a_error": ([_INT], ctypes.c_char_p),
+    },
     "combine": {
         "rnr_combine": ([_VP, _INT, _VP, _LL, _INT, _VP], _INT),
         "rnr_combine_error": ([_INT], ctypes.c_char_p),
     },
     "ring": {
         "rnr_ring_lanes": ([_INT, _LL, _INT], _INT),
-        "rnr_ring_allreduce": ([_VP, _VP, _VP, _VP, _INT, _LL, _LL, _INT,
-                                _INT, _VP, _LL, _VP], _INT),
+        "rnr_ring": ([_VP, _VP, _VP, _VP, _INT, _LL, _LL, _INT, _INT, _INT,
+                      _VP, _LL, _VP], _INT),
         "rnr_ring_error": ([_INT], ctypes.c_char_p),
     },
 }
@@ -105,6 +111,15 @@ def load(name: str) -> ctypes.CDLL:
         f = getattr(lib, fn)
         f.argtypes, f.restype = argtypes, restype
     return lib
+
+
+def row_pointers(t, n: int) -> ctypes.c_void_p:
+    """A C table of the addresses of rows 0..n-1 of tensor ``t`` (the
+    per-rank pointer tables the kernels take). The caller keeps ``t``
+    alive while the kernel may use it."""
+    stride = t.stride(0) * t.element_size()
+    table = (ctypes.c_void_p * n)(*(t.data_ptr() + r * stride for r in range(n)))
+    return ctypes.cast(table, ctypes.c_void_p)
 
 
 def check(lib: ctypes.CDLL, err_fn: str, rc: int, what: str) -> None:

@@ -1,5 +1,5 @@
-// Shared device helpers of the port's kernels: 16-byte vector copies and
-// the elementwise fold, in fp32 or bf16.
+// Shared device helpers of the port's kernels: the elementwise fold in
+// fp32 or bf16, the flag protocol, and 16-byte vector copies.
 //
 // The fold is `a + b` per element, computed in fp32 with __fadd_rn (no FMA,
 // no reassociation) and, for bf16, rounded back to bf16 after every add
@@ -66,4 +66,81 @@ static inline int rnr_sm_count() {
       cudaSuccess)
     return -1;
   return sms;
+}
+
+// ---------------------------------------------------------------------------
+// Flag protocol of the kernels whose blocks talk to each other (ring.cu,
+// alltoall.cu). Flags are 32-bit words in device memory, stored with
+// system-scope release and read with acquire loads, the counterpart of the
+// TPU's DMA and barrier semaphores. Blocks of these kernels run with
+// RNR_BLOCK_THREADS threads.
+
+#define RNR_BLOCK_THREADS 256
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.sys.global.u32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.sys.global.u32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void add_release(unsigned* p, unsigned v) {
+  asm volatile("red.release.sys.global.add.u32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+// One thread spins until *p >= v; the block then proceeds together.
+__device__ __forceinline__ void wait_geq(const unsigned* p, unsigned v) {
+  if (threadIdx.x == 0) {
+    while (ld_acquire(p) < v) __nanosleep(64);
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// Every thread's prior writes, then one release of the flag.
+__device__ __forceinline__ void publish(unsigned* p, unsigned v, bool add) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence_system();
+    if (add)
+      add_release(p, v);
+    else
+      st_release(p, v);
+  }
+}
+
+// dst[i] = src[i] over `bytes` (a multiple of 16). Loads bypass L1 with
+// __ldcg: the source may have been written by another block.
+__device__ __forceinline__ void copy16(void* dst, const void* src,
+                                      long long bytes) {
+  uint4* d = reinterpret_cast<uint4*>(dst);
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+  const long long nv = bytes / 16;
+  const int T = RNR_BLOCK_THREADS;
+  long long i = threadIdx.x;
+  for (; i + 3 * T < nv; i += 4 * T) {
+    uint4 v0 = __ldcg(s + i), v1 = __ldcg(s + i + T);
+    uint4 v2 = __ldcg(s + i + 2 * T), v3 = __ldcg(s + i + 3 * T);
+    __stcg(d + i, v0);
+    __stcg(d + i + T, v1);
+    __stcg(d + i + 2 * T, v2);
+    __stcg(d + i + 3 * T, v3);
+  }
+  for (; i < nv; i += T) __stcg(d + i, __ldcg(s + i));
+}
+
+__device__ __forceinline__ int wrap(int v, int n) { return ((v % n) + n) % n; }
+
+// Lane width of a kernel whose rank runs `lanes` blocks over `elems`
+// elements: a multiple of 128 elements, so every lane starts 16-byte
+// aligned.
+static inline long long rnr_lane_elems(long long elems, int lanes) {
+  long long l = (elems + lanes - 1) / lanes;
+  return (l + 127) / 128 * 128;
 }

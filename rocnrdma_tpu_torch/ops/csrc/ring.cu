@@ -1,14 +1,22 @@
-// ring.cu: ring allreduce (sum) with a slot/flag/credit protocol.
+// ring.cu: the ring collectives (sum) with a slot/flag/credit protocol, in
+// three modes of one kernel.
 //
-// Replaces, in one kernel with two chunk granularities:
-//   rocnrdma_tpu/ops/ring_pallas.py, pallas_ring_allreduce (body
-//     _ring_allreduce_kernel / _ring_hops / _neighbour_barrier): one tile
-//     per chunk, out of place (the wrapper passes `src`);
-//   rocnrdma_tpu/ops/ring_pallas.py, pallas_hbm_ring_allreduce (body
-//     _hbm_ring_kernel): chunks cut into tiles, hops walked in (step, tile)
-//     order, in place (`src` null).
+// Replaces (rocnrdma_tpu/ops/ring_pallas.py):
+//   - mode AR, pallas_ring_allreduce (body _ring_allreduce_kernel /
+//     _ring_hops / _neighbour_barrier): one tile per chunk, out of place
+//     (the wrapper passes `src`);
+//   - mode AR, pallas_hbm_ring_allreduce (body _hbm_ring_kernel): chunks cut
+//     into tiles, hops walked in (step, tile) order, in place (`src` null);
+//   - mode RS, pallas_ring_reduce_scatter (body _ring_reduce_scatter_kernel):
+//     copy in the whole buffer, then the -1-shifted reduce phase, n-1
+//     accumulate hops with send (r-s-1), recv (r-s-2); rank r keeps chunk r;
+//   - mode AG, pallas_ring_allgather (body _ring_allgather_kernel): copy the
+//     rank's one chunk into chunk r, then n-1 overwrite hops with send
+//     (r-s), recv (r-s-1).
 // On Hopper every buffer already lives in device memory, so the TPU's VMEM
-// tier and HBM tier differ here only in the tile size.
+// tier and HBM tier differ here only in the tile size. The modes differ
+// only in the hop count, the hop indices, fold or overwrite, and the
+// copy-in; barrier, slots, credits, drain, lanes and launch are shared.
 //
 // Protocol (per ring lane; the TPU semaphores become flag words):
 //   - rank buffers, 2-slot comm buffers and flag words are pointer tables
@@ -31,23 +39,31 @@
 //   - all n*lanes blocks spin on each other, so all must be resident at
 //     once: the launch is cooperative, which refuses a grid that cannot be.
 //
-// Bound on the H100: device-memory bytes. Per rank and chunk C = S/n
-// elements, a reduce-scatter hop reads the outbound chunk and writes the
-// peer slot (2C) and reads mine, reads the slot, writes mine (3C): 5C; an
-// allgather hop moves 4C; the out-of-place copy-in moves 2S. The kernel's
-// own traffic is n*[(n-1)*9C + 2S] elements (in place: no 2S); the least
-// any allreduce must move is each input read once and each output written
-// once, 2*n*S. Design against it: 16-byte vector copies, four in flight
-// per thread, and lanes sized so n*lanes blocks cover the SMs.
+// Bound on the H100: device-memory bytes. Per rank, with S the rank buffer
+// and C = S/n a chunk (elements): an accumulate hop reads the outbound
+// chunk and writes the peer slot (2C), then reads mine, reads the slot and
+// writes mine (3C): 5C. An overwrite hop moves 2C + 2C = 4C. The copy-in
+// reads and writes what it copies. So per rank:
+//   AR out of place (n-1)*9C + 2S, in place (n-1)*9C;
+//   RS (n-1)*5C + 2S;
+//   AG, with c the rank's one chunk, 2c + (n-1)*4c.
+// The least any of them must move, over all ranks, is each input read once
+// and each output written once: AR 2*n*S, RS n*S + S, AG S + n*S with S =
+// n*c the gathered row. Design against it: 16-byte vector copies, four in
+// flight per thread, and lanes sized so n*lanes blocks cover the SMs.
 #include "common.cuh"
 
 #define RNR_MAX_RANKS 32
-#define RNR_RING_THREADS 256
+#define RNR_RING_THREADS RNR_BLOCK_THREADS
 #define RNR_FLAG_WORDS 8  // per lane: recv[2], credit[2], barrier, pad
 #define RNR_RECV 0
 #define RNR_CRED 2
 #define RNR_BAR 4
 #define RNR_MIN_LANE_ELEMS 1024
+
+#define RNR_MODE_AR 0  // allreduce: n-1 accumulate, then n-1 overwrite hops
+#define RNR_MODE_RS 1  // reduce-scatter: n-1 accumulate hops, offset -1
+#define RNR_MODE_AG 2  // allgather: n-1 overwrite hops, owned offset 0
 
 struct RingArgs {
   const void* src[RNR_MAX_RANKS];  // copy-in source per rank, or null
@@ -56,68 +72,11 @@ struct RingArgs {
   unsigned* flags[RNR_MAX_RANKS];  // rank flag words, lanes * 8
   int n;
   int lanes;
+  int mode;        // RNR_MODE_*
   long long per;   // chunk elements (multiple of tile)
   long long tile;  // tile elements (multiple of 128)
   long long lane;  // lane elements (multiple of 128)
 };
-
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.sys.global.u32 %0, [%1];"
-               : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
-  asm volatile("st.release.sys.global.u32 [%0], %1;"
-               :: "l"(p), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ void add_release(unsigned* p, unsigned v) {
-  asm volatile("red.release.sys.global.add.u32 [%0], %1;"
-               :: "l"(p), "r"(v) : "memory");
-}
-
-// One thread spins until *p >= v; the block then proceeds together.
-__device__ __forceinline__ void wait_geq(const unsigned* p, unsigned v) {
-  if (threadIdx.x == 0) {
-    while (ld_acquire(p) < v) __nanosleep(64);
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-// Every thread's prior writes, then one release of the flag.
-__device__ __forceinline__ void publish(unsigned* p, unsigned v, bool add) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence_system();
-    if (add)
-      add_release(p, v);
-    else
-      st_release(p, v);
-  }
-}
-
-// dst[i] = src[i] over `bytes` (a multiple of 16). Loads of the comm slot
-// (written by another block) bypass L1 with __ldcg.
-__device__ __forceinline__ void copy16(void* dst, const void* src,
-                                      long long bytes) {
-  uint4* d = reinterpret_cast<uint4*>(dst);
-  const uint4* s = reinterpret_cast<const uint4*>(src);
-  const long long nv = bytes / 16;
-  const int T = RNR_RING_THREADS;
-  long long i = threadIdx.x;
-  for (; i + 3 * T < nv; i += 4 * T) {
-    uint4 v0 = __ldcg(s + i), v1 = __ldcg(s + i + T);
-    uint4 v2 = __ldcg(s + i + 2 * T), v3 = __ldcg(s + i + 3 * T);
-    __stcg(d + i, v0);
-    __stcg(d + i + T, v1);
-    __stcg(d + i + 2 * T, v2);
-    __stcg(d + i + 3 * T, v3);
-  }
-  for (; i < nv; i += T) __stcg(d + i, __ldcg(s + i));
-}
 
 // mine[i] = mine[i] + recvd[i] over `bytes` (a multiple of 16).
 template <typename T>
@@ -137,11 +96,9 @@ __device__ __forceinline__ void fold16(void* mine, const void* recvd,
   for (; i < nv; i += TH) __stcg(m + i, Fold<T>::add16(__ldcg(m + i), __ldcg(r + i)));
 }
 
-__device__ __forceinline__ int wrap(int v, int n) { return ((v % n) + n) % n; }
-
 template <typename T>
 __global__ void __launch_bounds__(RNR_RING_THREADS)
-    ring_allreduce_kernel(const RingArgs a) {
+    ring_kernel(const RingArgs a) {
   const int n = a.n;
   const int r = blockIdx.x / a.lanes;
   const int b = blockIdx.x % a.lanes;
@@ -158,11 +115,17 @@ __global__ void __launch_bounds__(RNR_RING_THREADS)
   unsigned* left_f = a.flags[left] + b * RNR_FLAG_WORDS;
   unsigned* right_f = a.flags[right] + b * RNR_FLAG_WORDS;
 
-  // copy in (out-of-place tier): my lane of every tile of every chunk
+  // copy in: AG the rank's one chunk into chunk r; AR (out of place) and RS
+  // the whole buffer. My lane of every tile either way.
   if (a.src[r] != nullptr) {
     const T* src = reinterpret_cast<const T*>(a.src[r]);
-    for (long long c = 0; c < (long long)n * n_tiles; ++c)
-      copy16(mine + c * a.tile + lo, src + c * a.tile + lo, bytes);
+    if (a.mode == RNR_MODE_AG) {
+      for (long long t = 0; t < n_tiles; ++t)
+        copy16(mine + r * a.per + t * a.tile + lo, src + t * a.tile + lo, bytes);
+    } else {
+      for (long long c = 0; c < (long long)n * n_tiles; ++c)
+        copy16(mine + c * a.tile + lo, src + c * a.tile + lo, bytes);
+    }
   }
 
   // entry barrier with both ring neighbours (n == 2: one neighbour, twice)
@@ -174,14 +137,27 @@ __global__ void __launch_bounds__(RNR_RING_THREADS)
   }
   wait_geq(my_f + RNR_BAR, 2u);
 
-  const long long hops = 2LL * (n - 1) * n_tiles;
+  const long long steps = a.mode == RNR_MODE_AR ? 2LL * (n - 1) : (long long)(n - 1);
+  const long long hops = steps * n_tiles;
   for (long long g = 0; g < hops; ++g) {
-    const long long step = g / n_tiles;
+    const int step = (int)(g / n_tiles);
     const long long t = g % n_tiles;
-    const bool accumulate = step < n - 1;
-    const int s = accumulate ? (int)step : (int)step - (n - 1);
-    const int send_idx = accumulate ? wrap(r - s, n) : wrap(r + 1 - s, n);
-    const int recv_idx = accumulate ? wrap(r - s - 1, n) : wrap(r - s, n);
+    bool accumulate;
+    int send_idx, recv_idx;
+    if (a.mode == RNR_MODE_RS) {  // _ring_reduce_scatter_kernel's hops
+      accumulate = true;
+      send_idx = wrap(r - step - 1, n);
+      recv_idx = wrap(r - step - 2, n);
+    } else if (a.mode == RNR_MODE_AG) {  // _ring_allgather_kernel's hops
+      accumulate = false;
+      send_idx = wrap(r - step, n);
+      recv_idx = wrap(r - step - 1, n);
+    } else {  // _ring_allreduce_kernel's hops
+      accumulate = step < n - 1;
+      const int s = accumulate ? step : step - (n - 1);
+      send_idx = accumulate ? wrap(r - s, n) : wrap(r + 1 - s, n);
+      recv_idx = accumulate ? wrap(r - s - 1, n) : wrap(r - s, n);
+    }
     const int slot = (int)(g & 1);
     const unsigned use = (unsigned)(g >> 1);  // earlier uses of this slot
 
@@ -209,17 +185,12 @@ template <typename T>
 static int max_coresident(int* total) {
   int per_sm = 0;
   cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, ring_allreduce_kernel<T>, RNR_RING_THREADS, 0);
+      &per_sm, ring_kernel<T>, RNR_RING_THREADS, 0);
   if (e != cudaSuccess) return (int)e;
   const int sms = rnr_sm_count();
   if (sms <= 0) return (int)cudaErrorInvalidDevice;
   *total = per_sm * sms;
   return 0;
-}
-
-static long long lane_elems(long long tile, int lanes) {
-  long long l = (tile + lanes - 1) / lanes;
-  return (l + 127) / 128 * 128;
 }
 
 // Lanes per rank for n ranks and this tile: enough blocks to cover the SMs
@@ -241,17 +212,20 @@ extern "C" int rnr_ring_lanes(int n, long long tile, int dtype) {
   if (lanes > cap) lanes = cap;
   if (lanes > total / n) lanes = total / n;
   if (lanes < 1) lanes = 1;
-  const long long lane = lane_elems(tile, (int)lanes);
+  const long long lane = rnr_lane_elems(tile, (int)lanes);
   return (int)((tile + lane - 1) / lane);  // no empty lanes
 }
 
-extern "C" int rnr_ring_allreduce(const void* const* src, void* const* data,
-                                  void* const* comm, void* const* flags,
-                                  int n, long long per, long long tile,
-                                  int lanes, int dtype, void* flags_base,
-                                  long long flags_bytes, void* stream) {
+// One launch of the ring kernel in `mode` (RNR_MODE_*). `src` may be null
+// only in mode AR (in place).
+extern "C" int rnr_ring(const void* const* src, void* const* data,
+                        void* const* comm, void* const* flags, int n,
+                        long long per, long long tile, int lanes, int dtype,
+                        int mode, void* flags_base, long long flags_bytes,
+                        void* stream) {
   if (n < 2 || n > RNR_MAX_RANKS || lanes < 1 || tile <= 0 || tile % 128 ||
-      per % tile)
+      per % tile || mode < RNR_MODE_AR || mode > RNR_MODE_AG ||
+      (mode != RNR_MODE_AR && src == nullptr))
     return (int)cudaErrorInvalidValue;
   RingArgs a = {};
   for (int r = 0; r < n; ++r) {
@@ -262,18 +236,19 @@ extern "C" int rnr_ring_allreduce(const void* const* src, void* const* data,
   }
   a.n = n;
   a.lanes = lanes;
+  a.mode = mode;
   a.per = per;
   a.tile = tile;
-  a.lane = lane_elems(tile, lanes);
+  a.lane = rnr_lane_elems(tile, lanes);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t e = cudaMemsetAsync(flags_base, 0, (size_t)flags_bytes, s);
   if (e != cudaSuccess) return (int)e;
   void* args[] = {&a};
   const void* fn;
   if (dtype == RNR_DTYPE_F32)
-    fn = reinterpret_cast<const void*>(ring_allreduce_kernel<float>);
+    fn = reinterpret_cast<const void*>(ring_kernel<float>);
   else if (dtype == RNR_DTYPE_BF16)
-    fn = reinterpret_cast<const void*>(ring_allreduce_kernel<__nv_bfloat16>);
+    fn = reinterpret_cast<const void*>(ring_kernel<__nv_bfloat16>);
   else
     return (int)cudaErrorInvalidValue;
   e = cudaLaunchCooperativeKernel(fn, dim3((unsigned)(n * lanes)),

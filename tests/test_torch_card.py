@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from rocnrdma_tpu_torch import ops as T
-from rocnrdma_tpu_torch.bench import bench_allreduce
+from rocnrdma_tpu_torch.bench import bench_allreduce, bench_alltoall
 from rocnrdma_tpu_torch.runtime import rank_mesh
 from rocnrdma_tpu_torch.transport import Transport, api
 
@@ -55,6 +55,60 @@ def test_combine_kernel_bitwise_equals_plain(cuda_device, k, dtype):
     assert T.launch_counts()["hbm_combine"] == before + 1
 
 
+@pytest.mark.parametrize("n", [2, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile_rows", [None, 8])
+def test_ring_reduce_scatter_kernel_bitwise_equals_plain(cuda_device, n, dtype,
+                                                         tile_rows):
+    # three 128-lane rows a chunk: 8-row tiles pad each chunk at its end
+    x = _randn((n, n * 3 * 128), dtype, 20 + n, cuda_device)
+    before = T.launch_counts()["ring_reduce_scatter"]
+    got = T.ring_reduce_scatter(x, tile_rows=tile_rows)
+    assert got.shape == (n, 3 * 128)
+    assert torch.equal(got, T.ring_reduce_scatter_plain(x, tile_rows))
+    assert T.launch_counts()["ring_reduce_scatter"] == before + 1
+    with pytest.raises(ValueError, match="n\\*128"):
+        T.ring_reduce_scatter(x[:, :-1])
+
+
+@pytest.mark.parametrize("n", [2, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile_rows", [None, 2])
+def test_ring_allgather_kernel_bitwise_equals_plain(cuda_device, n, dtype, tile_rows):
+    x = _randn((n, 700), dtype, 30 + n, cuda_device)  # unaligned chunk
+    before = T.launch_counts()["ring_allgather"]
+    got = T.ring_allgather(x, tile_rows=tile_rows)
+    assert torch.equal(got, x.reshape(1, -1).expand(n, -1))
+    assert torch.equal(got, T.ring_allgather_plain(x, tile_rows))
+    assert T.launch_counts()["ring_allgather"] == before + 1
+
+
+@pytest.mark.parametrize("n", [2, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_alltoall_kernel_bitwise_equals_plain(cuda_device, n, dtype):
+    x = _randn((n, n, 77), dtype, 40 + n, cuda_device)  # unaligned chunks
+    before = T.launch_counts()["alltoall"]
+    got = T.alltoall(x)
+    assert torch.equal(got, T.alltoall_plain(x))
+    assert torch.equal(got, x.transpose(0, 1))
+    assert torch.equal(T.alltoall(got), x)  # an involution
+    counts = torch.randint(0, 6, (n, n), generator=torch.Generator().manual_seed(n))
+    y = _randn((n, n, 5, 4), dtype, 50 + n, cuda_device)
+    out, rc = T.alltoallv(y, counts)
+    want, want_rc = Transport(rank_mesh(n, cuda_device)).alltoallv(y, counts, "fused")
+    assert torch.equal(out, want) and torch.equal(rc, want_rc)
+    assert T.launch_counts()["alltoall"] == before + 3
+
+
+@pytest.mark.parametrize("k", [2, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pipelined_combine_kernel_bitwise_equals_plain(cuda_device, k, dtype):
+    xs = [_randn((100003,), dtype, 60 + k + j, cuda_device) for j in range(k)]
+    before = T.launch_counts()["hbm_combine_pipelined"]
+    assert torch.equal(T.hbm_combine_pipelined(*xs), T.hbm_combine_plain(*xs))
+    assert T.launch_counts()["hbm_combine_pipelined"] == before + 1
+
+
 def test_kernels_raise_instead_of_falling_back(cuda_device):
     x = torch.zeros((2, 256), dtype=torch.float16, device=cuda_device)
     with pytest.raises(ValueError, match="float32/bfloat16"):
@@ -63,6 +117,12 @@ def test_kernels_raise_instead_of_falling_back(cuda_device):
         T.hbm_combine(x[0], x[1])
     with pytest.raises(ValueError, match="<= 8 operands"):
         T.hbm_combine(*[torch.zeros(16, device=cuda_device)] * 9)
+    with pytest.raises(ValueError, match="float32/bfloat16"):
+        T.ring_allgather(x)
+    with pytest.raises(ValueError, match="float32/bfloat16"):
+        T.alltoall(x.reshape(2, 2, 128))
+    with pytest.raises(ValueError, match="float32/bfloat16"):
+        T.hbm_combine_pipelined(x[0], x[1])
 
 
 @pytest.mark.parametrize("tile_bytes, one_tile",
@@ -87,4 +147,11 @@ def test_bench_allreduce_on_the_card(cuda_device):
     assert bench_allreduce.main(
         ["--fake-devices", "4", "--sizes", "4K,8M", "--dtypes", "float32,bfloat16",
          "--algos", "fused,ring,ring_bidir,cuda_ring", "--repeats", "1",
+         "--iters", "1"]) == 0
+
+
+def test_bench_alltoall_on_the_card(cuda_device):
+    assert bench_alltoall.main(
+        ["--fake-devices", "8", "--sizes", "4K,8M", "--dtypes", "float32,bfloat16",
+         "--algos", "fused,ring,bruck,cuda_ring", "--repeats", "1",
          "--iters", "1"]) == 0

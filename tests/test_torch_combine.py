@@ -1,9 +1,14 @@
-"""The port's combine kernel (``rocnrdma_tpu_torch.ops.local_cuda``).
+"""The port's combine kernels: ``ops.local_cuda`` (CUDA, counterpart of
+``pallas_hbm_combine``) and ``ops.local_triton`` (Triton, counterpart of
+``pallas_hbm_combine_pipelined``).
 
-Its plain version against ``pallas_hbm_combine`` run in TPU interpret mode,
-as ``tests/test_pallas_local.py`` runs it: bitwise in float32, and bitwise
-in bfloat16 too, because both fold left to right and round to bfloat16
-after every add. The kernel itself runs on the card:
+Their plain version against ``pallas_hbm_combine`` run in TPU interpret
+mode, as ``tests/test_pallas_local.py`` runs it: bitwise in float32, and
+bitwise in bfloat16 too, because both fold left to right and round to
+bfloat16 after every add. ``pallas_hbm_combine_pipelined`` has no
+interpret path (Mosaic's pipeline emitter needs a real TPU); it computes
+the same function as ``pallas_hbm_combine``, so the pipelined wrapper is
+held to that. The kernels themselves run on the card:
 ``tests/test_torch_card.py``.
 """
 
@@ -55,6 +60,18 @@ def test_combine_plain_bitwise_equals_pallas_bf16(devices, k):
     np.testing.assert_array_equal(_bits(got), _bits(ref))
 
 
+@needs_tpu_interpret
+@pytest.mark.parametrize("k", [2, 3, 5])
+def test_pipelined_combine_on_cpu_bitwise_equals_pallas_combine(devices, k):
+    xj, xt = _operands(k, (3 * 8 * 128 + 17,), 300 + k, jnp.float32, torch.float32)
+    ref = pallas_hbm_combine(*xj, tile_rows=8, interpret=True)
+    before = T.launch_counts()["hbm_combine_pipelined"]
+    got = T.hbm_combine_pipelined(*xt, tile_rows=8)
+    np.testing.assert_array_equal(_bits(got), _bits(ref))
+    # a CPU tensor takes the plain version: no launch is counted
+    assert T.launch_counts()["hbm_combine_pipelined"] == before
+
+
 def test_combine_validates_operands():
     a = torch.zeros(10)
     with pytest.raises(ValueError, match=">= 2 operands"):
@@ -65,3 +82,21 @@ def test_combine_validates_operands():
         T.hbm_combine(a, torch.zeros(10, dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="n_slots"):
         T.hbm_combine(a, a, n_slots=1)
+    with pytest.raises(ValueError, match=">= 2 operands"):
+        T.hbm_combine_pipelined(a)
+    with pytest.raises(ValueError, match="share shape"):
+        T.hbm_combine_pipelined(a, torch.zeros(11))
+    with pytest.raises(ValueError, match="tile_rows"):
+        T.hbm_combine_pipelined(a, a, tile_rows=0)
+
+
+def test_pipelined_combine_fits_its_pipeline_in_shared_memory():
+    from rocnrdma_tpu_torch.ops import local_triton as LT
+    # the load buffers of (stages - 1) tiles of every operand must fit
+    for k in range(2, 9):
+        for itemsize in (2, 4):
+            st = LT.stages_for(k, LT.BLOCK, itemsize)
+            assert 1 <= st <= LT.NUM_STAGES
+            assert (st - 1) * k * LT.BLOCK * itemsize <= LT.SMEM_BYTES
+    # k=8 fp32, BLOCK 4096, 3 stages asked for 262144 bytes on the H100
+    assert LT.stages_for(8, 4096, 4, 3) == 2

@@ -1,14 +1,15 @@
-"""The port's ring kernels (``rocnrdma_tpu_torch.ops.ring_cuda``).
+"""The port's ring kernels (``rocnrdma_tpu_torch.ops.ring_cuda``): the
+allreduce, reduce-scatter and allgather modes of ``ops/csrc/ring.cu``.
 
 - The plain versions against the Pallas ring kernels run in TPU interpret
   mode under ``shard_map`` on the fake CPU devices, as
   ``tests/test_pallas_ring.py`` runs them: bitwise in float32 and bfloat16
   (both fold ``mine + recvd`` per hop, rounded to the buffer dtype once per
-  hop, in the same hop order and padding).
+  hop, in the same hop order and padding; the allgather only copies).
 - A model of the CUDA kernel's flag protocol (send, flag, wait, fold,
-  credit per (rank, lane)), stepped through seeded random interleavings:
-  the stand-in for the interpret-mode backpressure test, since the kernel
-  itself runs only on the card.
+  credit per (rank, lane)) in each mode, stepped through seeded random
+  interleavings: the stand-in for the interpret-mode backpressure test,
+  since the kernel itself runs only on the card.
 - The kernels themselves run on the card: ``tests/test_torch_card.py``.
 """
 
@@ -20,7 +21,12 @@ import torch
 from jax.sharding import PartitionSpec as P
 
 from rocnrdma_tpu import runtime as rt
-from rocnrdma_tpu.ops import pallas_hbm_ring_allreduce, pallas_ring_allreduce
+from rocnrdma_tpu.ops import (
+    pallas_hbm_ring_allreduce,
+    pallas_ring_allgather,
+    pallas_ring_allreduce,
+    pallas_ring_reduce_scatter,
+)
 from rocnrdma_tpu_torch import ops as T
 from rocnrdma_tpu_torch.collectives.schedule import sim_ring_allreduce
 
@@ -95,11 +101,50 @@ def test_ring_plain_equals_numpy_simulator(n):
     np.testing.assert_array_equal(_bits(got), _bits(sim_ring_allreduce(x)))
 
 
+@needs_tpu_interpret
+@pytest.mark.parametrize("n", [2, 3, 4, 8])
+def test_ring_reduce_scatter_plain_bitwise_equals_pallas(devices, n):
+    xj, xt = _inputs(n, n * 2 * 128, "float32", seed=20 + n)  # n*128-aligned
+    ref = _shmap(lambda s: pallas_ring_reduce_scatter(s[0], RANK)[None], n)(xj)
+    got = T.ring_reduce_scatter_plain(xt)
+    assert got.shape == (n, 2 * 128)
+    np.testing.assert_array_equal(_bits(got), _bits(ref))
+    # the wrapper takes the plain version for a CPU tensor; the tiling of
+    # the chunk changes no bit
+    np.testing.assert_array_equal(_bits(T.ring_reduce_scatter(xt)), _bits(ref))
+    np.testing.assert_array_equal(_bits(T.ring_reduce_scatter(xt, tile_rows=1)),
+                                  _bits(ref))
+
+
+def test_ring_reduce_scatter_rejects_unaligned():
+    x = torch.zeros((4, 1000))
+    for fn in (T.ring_reduce_scatter, T.ring_reduce_scatter_plain):
+        with pytest.raises(ValueError, match="n\\*128"):
+            fn(x)
+    with pytest.raises(ValueError, match="tile_rows"):
+        T.ring_reduce_scatter(torch.zeros((2, 256)), tile_rows=0)
+
+
+@needs_tpu_interpret
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_ring_allgather_plain_bitwise_equals_pallas(devices, n):
+    xj, xt = _inputs(n, 700, "float32", seed=30 + n)  # unaligned chunk
+    ref = _shmap(lambda s: pallas_ring_allgather(s[0], RANK).reshape(1, -1), n)(xj)
+    got = T.ring_allgather_plain(xt)
+    assert got.shape == (n, n * 700)
+    np.testing.assert_array_equal(_bits(got), _bits(ref))
+    for tr in (None, 2):  # unpadded per chunk, whatever the tiles
+        np.testing.assert_array_equal(_bits(T.ring_allgather(xt, tile_rows=tr)),
+                                      _bits(ref))
+
+
 def test_ring_wrappers_single_rank_and_validation():
     x = torch.arange(6, dtype=torch.float32).reshape(1, 6)
     out = T.ring_allreduce(x)
     assert torch.equal(out, x) and out.data_ptr() != x.data_ptr()
     assert T.hbm_ring_allreduce(x) is x
+    assert torch.equal(T.ring_reduce_scatter(x), x)
+    assert torch.equal(T.ring_allgather(x), x)
     with pytest.raises(ValueError, match="rank-major"):
         T.ring_allreduce(torch.tensor(1.0))
     with pytest.raises(ValueError, match="tile_rows"):
@@ -115,16 +160,30 @@ def test_ring_wrappers_single_rank_and_validation():
 # the values equal the plain version.
 
 
-def _lane_program(n, r, n_tiles):
+def _steps(mode, n):
+    """Hop steps of a mode: allreduce 2(n-1), reduce-scatter and allgather n-1."""
+    return 2 * (n - 1) if mode == "ar" else n - 1
+
+
+def _hop(mode, n, r, step):
+    """(accumulate, send chunk, recv chunk) of rank r at ``step``, as ring.cu."""
+    if mode == "rs":
+        return True, (r - step - 1) % n, (r - step - 2) % n
+    if mode == "ag":
+        return False, (r - step) % n, (r - step - 1) % n
+    acc = step < n - 1
+    s = step if acc else step - (n - 1)
+    return (acc, (r - s) % n if acc else (r + 1 - s) % n,
+            (r - s - 1) % n if acc else (r - s) % n)
+
+
+def _lane_program(n, r, n_tiles, mode="ar"):
     left, right = (r - 1) % n, (r + 1) % n
     prog = [("signal_bar", (left, right)), ("wait", ("bar", r, 0), 2)]
-    hops = 2 * (n - 1) * n_tiles
+    hops = _steps(mode, n) * n_tiles
     for g in range(hops):
         step, t = divmod(g, n_tiles)
-        acc = step < n - 1
-        s = step if acc else step - (n - 1)
-        send = (r - s) % n if acc else (r + 1 - s) % n
-        recv = (r - s - 1) % n if acc else (r - s) % n
+        acc, send, recv = _hop(mode, n, r, step)
         slot, use = g % 2, g // 2
         if g >= 2:
             prog.append(("wait", ("cred", r, slot), use))
@@ -138,8 +197,11 @@ def _lane_program(n, r, n_tiles):
     return prog, hops
 
 
-def _run_protocol(x: np.ndarray, n_tiles: int, lanes: int, seed: int) -> np.ndarray:
-    """x: (n, n, n_tiles, tile) float32, tile divisible by lanes."""
+def _run_protocol(x: np.ndarray, n_tiles: int, lanes: int, seed: int,
+                  mode: str = "ar") -> np.ndarray:
+    """x: (n, n, n_tiles, tile) float32, tile divisible by lanes: the ranks'
+    working buffers after the copy-in (allgather: chunk r of rank r, the
+    rest NaN, so reading a chunk that never arrived shows)."""
     n = x.shape[0]
     tile = x.shape[3]
     w = tile // lanes
@@ -149,7 +211,7 @@ def _run_protocol(x: np.ndarray, n_tiles: int, lanes: int, seed: int) -> np.ndar
     flags = {}
     progs, pcs = {}, {}
     for r in range(n):
-        prog, hops = _lane_program(n, r, n_tiles)
+        prog, hops = _lane_program(n, r, n_tiles, mode)
         for b in range(lanes):
             progs[(r, b)], pcs[(r, b)] = prog, 0
     rng = np.random.default_rng(seed)
@@ -192,7 +254,7 @@ def _run_protocol(x: np.ndarray, n_tiles: int, lanes: int, seed: int) -> np.ndar
 
     stuck = [k for k in progs if pcs[k] != len(progs[k])]
     assert not stuck, f"deadlock: lanes {stuck} blocked"
-    hops = 2 * (n - 1) * n_tiles
+    hops = _steps(mode, n) * n_tiles
     for r in range(n):
         for b in range(lanes):
             assert flags[("bar", r, 0, b)] == 2
@@ -214,4 +276,26 @@ def test_ring_kernel_protocol_model_random_interleavings(n):
     want = T.ring_allreduce_plain(torch.from_numpy(x.reshape(n, -1))).numpy()
     for seed in range(200):
         got = _run_protocol(x, n_tiles, lanes, seed)
+        np.testing.assert_array_equal(_bits(got.reshape(n, -1)), _bits(want))
+
+
+@pytest.mark.parametrize("n", [2, 3, 8])
+@pytest.mark.parametrize("mode", ["rs", "ag"])
+def test_ring_kernel_protocol_model_rs_ag_modes(n, mode):
+    # the reduce-scatter and allgather modes of the same kernel: n-1 hops
+    # a tile, their own indices, and the drain counted for that hop count
+    n_tiles, lanes, tile = 2, 2, 64
+    rng = np.random.default_rng(40 + n)
+    if mode == "rs":
+        x = rng.standard_normal((n, n, n_tiles, tile)).astype(np.float32)
+        want = T.ring_reduce_scatter_plain(torch.from_numpy(x.reshape(n, -1))).numpy()
+    else:
+        own = rng.standard_normal((n, n_tiles, tile)).astype(np.float32)
+        x = np.full((n, n, n_tiles, tile), np.nan, np.float32)
+        x[np.arange(n), np.arange(n)] = own
+        want = T.ring_allgather_plain(torch.from_numpy(own.reshape(n, -1))).numpy()
+    for seed in range(200):
+        got = _run_protocol(x, n_tiles, lanes, seed, mode)
+        if mode == "rs":
+            got = got[np.arange(n), np.arange(n)]
         np.testing.assert_array_equal(_bits(got.reshape(n, -1)), _bits(want))

@@ -7,8 +7,9 @@ reference, on the CPU.
   reference does).
 - ``fused``: rtol = atol = 1e-5, because ``torch.sum``'s order of
   summation differs from ``psum``'s.
-- The port imports nothing of JAX or of the JAX package (checked in a
-  subprocess: this process already imported jax in conftest.py).
+- The port imports nothing of JAX or of the JAX package, and nothing of
+  Triton at import time (checked in a subprocess over every module: this
+  process already imported jax in conftest.py).
 """
 
 import json
@@ -292,7 +293,7 @@ def test_port_imports_no_jax_and_no_reference_package():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'rocnrdma_tpu'))\n"
+        "('jax', 'jaxlib', 'rocnrdma_tpu', 'triton'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
