@@ -13,18 +13,18 @@ Phases, each timed, any failure exits non-zero:
    one process per source, all at once (the Triton kernel compiles at its
    first launch, in phase 3);
 3. kernels: each kernel wrapper on the card against its plain PyTorch
-   version. Ring allreduce: n in {2,3,4,8}, 1000 elements / 1 MiB / 64 MiB
-   per rank, fp32 and bf16, tiles of 8/64/512 rows, a 50-round stress loop;
-   combine: k in {2,3}, 1000 elements / 256 MiB, fp32 and bf16 (equality
-   bitwise; a bf16 case that is not falls back to a stated tolerance and
-   says so). Ring reduce-scatter and allgather: n in {2,3,4,8}, fp32 and
-   bf16, one tile and tiles of 8/64/512 rows; reduce-scatter at about 1 MiB
-   and 64 MiB per rank (rounded down to n*128 elements) and 3*n*128
-   elements, allgather at a 700-element chunk and 1 MiB / 64 MiB gathered
-   per rank. Alltoall: n in {2,3,8}, 77-element chunks, 1 MiB / 64 MiB per
-   rank. A 50-round stress loop at n=8 for reduce-scatter and alltoall.
-   Pipelined (Triton) combine: k in {2,3}, 1000 elements / 256 MiB, fp32
-   and bf16. These new kernels must be bitwise equal in every dtype;
+   version, bitwise in fp32 and bf16. Ring allreduce: n in {2,3,4,8,12}
+   (12 takes the kernel's batched path), 1000 elements / 1 MiB / 64 MiB
+   per rank, one tile and tiles of 8/64/512 rows, a 50-round stress loop
+   with launches of n=8 and n=3 interleaved on their cached flags.
+   Combine: k in 2..8 at 1000 elements and 1 MiB + 3 elements, k in {2,3}
+   at 256 MiB. Ring reduce-scatter and allgather: n in {2,3,4,8,12}, one
+   tile and tiles of 8/64/512 rows; reduce-scatter at about 1 MiB and 64
+   MiB per rank (rounded down to n*128 elements) and 3*n*128 elements,
+   allgather at a 700-element chunk and 1 MiB / 64 MiB gathered per rank.
+   Alltoall: n in {2,3,8}, 77-element chunks, 1 MiB / 64 MiB per rank. A
+   50-round stress loop at n=8 for reduce-scatter and alltoall. Pipelined
+   (Triton) combine: k in {2,3}, 1000 elements / 256 MiB;
 4. main paths, each with the launch counts zeroed before and read after,
    8 ranks on the one GPU, every point of every sweep checked against
    numpy (``--preset ring8 --fake-devices 8``: 4 KiB..256 MiB per rank,
@@ -48,7 +48,11 @@ Phases, each timed, any failure exits non-zero:
    main path, its time, its plain version's and the library call's time at
    the main path's shapes, and its bound: the larger of its bytes (each
    input read once, each output written once) at the datasheet HBM rate
-   and its fp32 adds at the datasheet fp32 rate.
+   and its fp32 adds at the datasheet fp32 rate. Before it, the ring
+   kernel's bytes moved per mode at those shapes beside the bound's bytes,
+   and a 4 KiB-per-rank ``cuda_ring`` allreduce split into host enqueue
+   time and device time, with the kernel timed alone with and without its
+   barrier and arrivals.
 
 The last line is ``{"ok": true, "device": {...}}``. With ranks sharing one
 GPU, every bus bandwidth printed here is an HBM number, not NVLink.
@@ -88,28 +92,20 @@ def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
 
 
-def hold(what: str, got: torch.Tensor, want: torch.Tensor, hops: int = 1,
-         strict: bool = False) -> float:
-    """Require ``got`` bitwise equal to ``want``; unless ``strict``, a bf16
-    mismatch is accepted within one bf16 rounding (2^-8 relative) per hop,
-    and printed."""
+def hold(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Require ``got`` bitwise equal to ``want``, in every dtype; returns
+    the max abs error (0.0)."""
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{what}: {got.shape}/{got.dtype} vs {want.shape}/{want.dtype}")
     err = max_abs_err(got, want)
     if torch.equal(got, want):
         return err
-    if got.dtype == torch.bfloat16 and not strict:
-        tol = hops * 2.0 ** -8
-        if torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
-            print(f"# {what}: bf16 not bitwise (max abs err {err}); within "
-                  f"{hops} bf16 roundings ({tol}): accepted")
-            return err
     raise AssertionError(f"{what}: kernel disagrees with its plain version "
                          f"(max abs err {err})")
 
 
 def check_ring_kernels(ops) -> None:
-    for n in (2, 3, 4, 8):
+    for n in (2, 3, 4, 8, 12):
         for dtype in (torch.float32, torch.bfloat16):
             isz = torch.finfo(dtype).bits // 8
             for label, elems in (("1000 el", 1000), ("1 MiB", MiB // isz),
@@ -117,8 +113,7 @@ def check_ring_kernels(ops) -> None:
                 x = randn((n, elems), dtype, seed=n * 1000 + elems % 997)
                 x0 = x.clone()
                 what = f"ring n={n} {label} {dtype}"
-                hold(what, ops.ring_allreduce(x), ops.ring_allreduce_plain(x),
-                     2 * (n - 1))
+                hold(what, ops.ring_allreduce(x), ops.ring_allreduce_plain(x))
                 if not torch.equal(x, x0):
                     raise AssertionError(f"{what}: out-of-place kernel changed its input")
                 for tr in (8, 64, 512):
@@ -127,17 +122,21 @@ def check_ring_kernels(ops) -> None:
                     if ret.data_ptr() != y.data_ptr():
                         raise AssertionError(f"{what}: hbm ring did not return its input")
                     hold(f"hbm {what} tile_rows={tr}", y,
-                         ops.hbm_ring_allreduce_plain(x.clone(), tile_rows=tr),
-                         2 * (n - 1))
+                         ops.hbm_ring_allreduce_plain(x.clone(), tile_rows=tr))
                 del x, x0, y
         torch.cuda.synchronize()
         print(f"ring kernels n={n}: ok", flush=True)
-    # counterpart of test_pallas_allreduce_backpressure_stress
+    # counterpart of test_pallas_allreduce_backpressure_stress: back-to-back
+    # launches on the cached, epoch-counted flags, with a launch of another
+    # n (its own flags) in between
     x = randn((8, 3 * 128 * 8 + 37), torch.float32, seed=7)
+    x3 = randn((3, 3 * 128 * 8 + 37), torch.float32, seed=8)
     want = ops.ring_allreduce_plain(x)
     want_hbm = ops.hbm_ring_allreduce_plain(x.clone(), tile_rows=8)
+    want3 = ops.ring_allreduce_plain(x3)
     for i in range(50):
         hold(f"stress round {i}", ops.ring_allreduce(x), want)
+        hold(f"n=3 stress round {i}", ops.ring_allreduce(x3), want3)
         hold(f"hbm stress round {i}", ops.hbm_ring_allreduce(x.clone(), tile_rows=8),
              want_hbm)
     torch.cuda.synchronize()
@@ -145,10 +144,13 @@ def check_ring_kernels(ops) -> None:
 
 
 def check_combine_kernel(ops) -> None:
-    for k in (2, 3):
+    for k in range(2, 9):
         for dtype in (torch.float32, torch.bfloat16):
             isz = torch.finfo(dtype).bits // 8
-            for label, elems in (("1000 el", 1000), ("256 MiB", 256 * MiB // isz)):
+            sizes = [("1000 el", 1000), ("1 MiB + 3 el", MiB // isz + 3)]
+            if k <= 3:
+                sizes.append(("256 MiB", 256 * MiB // isz))
+            for label, elems in sizes:
                 xs = [randn((elems,), dtype, seed=10 * k + j) for j in range(k)]
                 hold(f"combine k={k} {label} {dtype}", ops.hbm_combine(*xs),
                      ops.hbm_combine_plain(*xs))
@@ -158,7 +160,7 @@ def check_combine_kernel(ops) -> None:
 
 
 def check_rs_ag_kernels(ops) -> None:
-    for n in (2, 3, 4, 8):
+    for n in (2, 3, 4, 8, 12):
         for dtype in (torch.float32, torch.bfloat16):
             isz = torch.finfo(dtype).bits // 8
             align = n * 128
@@ -170,7 +172,7 @@ def check_rs_ag_kernels(ops) -> None:
                 want = ops.ring_reduce_scatter_plain(x)
                 for tr in (None, 8, 64, 512):
                     hold(f"reduce_scatter n={n} {label} {dtype} tile_rows={tr}",
-                         ops.ring_reduce_scatter(x, tile_rows=tr), want, strict=True)
+                         ops.ring_reduce_scatter(x, tile_rows=tr), want)
                 if not torch.equal(x, x0):
                     raise AssertionError("reduce_scatter kernel changed its input")
                 del x, x0, want
@@ -183,7 +185,7 @@ def check_rs_ag_kernels(ops) -> None:
                     raise AssertionError("allgather plain version is not the concatenation")
                 for tr in (None, 8, 64, 512):
                     hold(f"allgather n={n} {label} {dtype} tile_rows={tr}",
-                         ops.ring_allgather(x, tile_rows=tr), want, strict=True)
+                         ops.ring_allgather(x, tile_rows=tr), want)
                 del x, want
         torch.cuda.synchronize()
         print(f"reduce_scatter/allgather kernels n={n}: ok", flush=True)
@@ -192,7 +194,7 @@ def check_rs_ag_kernels(ops) -> None:
     want = ops.ring_reduce_scatter_plain(x)
     for i in range(50):
         hold(f"reduce_scatter stress round {i}", ops.ring_reduce_scatter(x, tile_rows=8),
-             want, strict=True)
+             want)
     torch.cuda.synchronize()
     print("reduce_scatter stress x50: ok", flush=True)
 
@@ -205,17 +207,15 @@ def check_alltoall_kernel(ops) -> None:
                                  ("64 MiB", 64 * MiB // isz // n)):
                 x = randn((n, n, chunk), dtype, seed=n * 300 + chunk % 991)
                 got = ops.alltoall(x)
-                hold(f"alltoall n={n} {label} {dtype}", got, ops.alltoall_plain(x),
-                     strict=True)
-                hold(f"alltoall twice n={n} {label} {dtype}", ops.alltoall(got), x,
-                     strict=True)
+                hold(f"alltoall n={n} {label} {dtype}", got, ops.alltoall_plain(x))
+                hold(f"alltoall twice n={n} {label} {dtype}", ops.alltoall(got), x)
                 del x, got
         torch.cuda.synchronize()
         print(f"alltoall kernel n={n}: ok", flush=True)
     x = randn((8, 8, 1000), torch.float32, seed=9)
     want = ops.alltoall_plain(x)
     for i in range(50):
-        hold(f"alltoall stress round {i}", ops.alltoall(x), want, strict=True)
+        hold(f"alltoall stress round {i}", ops.alltoall(x), want)
     torch.cuda.synchronize()
     print("alltoall stress x50: ok", flush=True)
 
@@ -227,8 +227,7 @@ def check_pipelined_combine_kernel(ops) -> None:
             for label, elems in (("1000 el", 1000), ("256 MiB", 256 * MiB // isz)):
                 xs = [randn((elems,), dtype, seed=20 * k + j) for j in range(k)]
                 hold(f"pipelined combine k={k} {label} {dtype}",
-                     ops.hbm_combine_pipelined(*xs), ops.hbm_combine_plain(*xs),
-                     strict=True)
+                     ops.hbm_combine_pipelined(*xs), ops.hbm_combine_plain(*xs))
                 del xs
     torch.cuda.synchronize()
     print("pipelined combine kernel: ok", flush=True)
@@ -246,6 +245,47 @@ def ms_of(fn, *args, repeats=5, iters=5) -> float:
     from rocnrdma_tpu_torch.bench.timing import time_fn
     return time_fn(fn, *args, warmup=1, repeats=repeats,
                    calls_per_repeat=iters).mean_s * 1e3
+
+
+def ring_bytes(mode: str, n: int, per: int, isz: int) -> int:
+    """Bytes the ring kernel moves in ``mode`` ("ar", "rs", "ag") for n
+    ranks and chunks of ``per`` elements: each of its input elements read
+    once and each output element written once. Rows hold n chunks, but a
+    reduce-scatter writes one chunk a rank and an allgather reads one."""
+    reads = per if mode == "ag" else n * per
+    writes = per if mode == "rs" else n * per
+    return n * (reads + writes) * isz
+
+
+def small_call_split(ops, t, n: int, calls: int = 200) -> dict:
+    """A 4 KiB-per-rank ``cuda_ring`` allreduce (one tile) split into its
+    host enqueue time and its device time, beside the ring kernel alone with
+    and without its barrier and arrivals (``sync=False``: the data pass
+    only). ``barrier_us`` is the difference of the two kernel times."""
+    from rocnrdma_tpu_torch.bench.timing import device_s, enqueue_s
+    from rocnrdma_tpu_torch.ops import ring_cuda
+    x = randn((n, 1024), torch.float32, seed=18)
+    per = 1024 // n
+    out = torch.empty_like(x)
+    arm = t.jit_fn("allreduce", "cuda_ring")
+    fns = {"cuda_ring_call": lambda: arm(x),
+           "kernel": lambda: ring_cuda._launch(x, out, n, per, ring_cuda.MODE_AR),
+           "kernel_no_barrier": lambda: ring_cuda._launch(
+               x, out, n, per, ring_cuda.MODE_AR, sync=False)}
+    want = ops.ring_allreduce_plain(x)
+    split = {}
+    for name, fn in fns.items():
+        out.zero_()
+        got = fn()
+        hold(f"4 KiB {name}", out if got is None else got, want)
+        for _ in range(20):
+            fn()
+        h = enqueue_s(fn, calls)
+        split[name] = {"host_us": h * 1e6, "device_us": device_s(fn, calls, h) * 1e6}
+    split["cuda_ring_call"]["events_us"] = ms_of(arm, x) * 1e3
+    split["barrier_us"] = (split["kernel"]["device_us"]
+                           - split["kernel_no_barrier"]["device_us"])
+    return split
 
 
 # collective -> (bench CLI, Transport verb, the sweep's algos, kernel counter)
@@ -283,7 +323,7 @@ def main_verb(ops, runner, collective: str, x: torch.Tensor, plain, kind: str,
     run = getattr(t, verb)
     got = run(x, "cuda_ring")
     want = plain(x)
-    err = hold(f"1 GiB {verb} cuda_ring vs plain", got, want, strict=True)
+    err = hold(f"1 GiB {verb} cuda_ring vs plain", got, want)
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"1 GiB {verb} cuda_ring: non-finite result")
     del got
@@ -308,7 +348,7 @@ def main_verb(ops, runner, collective: str, x: torch.Tensor, plain, kind: str,
         y = randn((n, n, 64, 1024), torch.float32, seed=17)
         out, rc = t.alltoallv(y, counts, "cuda_ring")
         want, want_rc = t.alltoallv(y, counts, "fused")
-        hold("alltoallv cuda_ring vs fused", out, want, strict=True)
+        hold("alltoallv cuda_ring vs fused", out, want)
         if not torch.equal(rc, want_rc) or not torch.equal(rc.cpu(), counts.T):
             raise AssertionError("alltoallv: recv_counts differ")
         del y, out, want
@@ -336,7 +376,6 @@ def main() -> int:
     from rocnrdma_tpu_torch.bench import bench_local, runner
     from rocnrdma_tpu_torch.collectives import (fused_allgather, fused_allreduce,
                                                 fused_alltoall, fused_reduce_scatter)
-    from rocnrdma_tpu_torch.hw import bytes_bound_ms
     from rocnrdma_tpu_torch.metrics import BenchRecord, GiB, format_table
     from rocnrdma_tpu_torch.ops import _build
     from rocnrdma_tpu_torch.runtime import rank_mesh
@@ -464,7 +503,8 @@ def main() -> int:
             **bound(2 * n * S, (n - 1) * x[0].numel(), kind),
             "library_ms": ms_of(fused_allreduce, x),
             "shape": [n, x.shape[1]], "dtype": "float32"})
-        traffic = {"ring_allreduce": bytes_bound_ms(n * (9 * (n - 1) * S / n + 2 * S), kind)}
+        moved = {"ring_allreduce": [ring_bytes("ar", n, -(-x.shape[1] // n // 128) * 128, 4),
+                                    2 * n * S]}
         del x
         # hbm_ring_allreduce: the 1 GiB contract point, in place, with the
         # cuda_ring arm's tiles
@@ -482,7 +522,8 @@ def main() -> int:
             **bound(2 * n * S, (n - 1) * y[0].numel(), kind),
             "library_ms": ms_of(fused_allreduce, y, repeats=3, iters=2),
             "shape": [n, y.shape[1]], "dtype": "float32", "tile_rows": tr})
-        traffic["hbm_ring_allreduce"] = bytes_bound_ms(n * 9 * (n - 1) * S / n, kind)
+        moved["hbm_ring_allreduce"] = [
+            ring_bytes("ar", n, -(-y.shape[1] // n // (tr * 128)) * tr * 128, 4), 2 * n * S]
         del y
         # hbm_combine: bench_local's cuda2 row, 256 MiB fp32 per operand
         a, b = (randn((64 * MiB,), torch.float32, seed=s) for s in (4, 5))
@@ -526,7 +567,7 @@ def main() -> int:
             **bound(n * S + S, (n - 1) * x[0].numel(), kind),
             "library_ms": ms_of(fused_reduce_scatter, x, repeats=3, iters=2),
             "shape": [n, x.shape[1]], "dtype": "float32", "tile_rows": tr})
-        traffic["ring_reduce_scatter"] = bytes_bound_ms(n * (5 * (n - 1) * S / n + 2 * S), kind)
+        moved["ring_reduce_scatter"] = [ring_bytes("rs", n, x.shape[1] // n, 4), n * S + S]
         del x
         # ring_allgather: the 1 GiB point (1 GiB gathered per rank)
         x = randn((n, GiB // 4 // n), torch.float32, seed=15)
@@ -543,7 +584,7 @@ def main() -> int:
             **bound(n * c + n * n * c, 0, kind),
             "library_ms": ms_of(fused_allgather, x, repeats=3, iters=2),
             "shape": [n, x.shape[1]], "dtype": "float32", "tile_rows": tr})
-        traffic["ring_allgather"] = bytes_bound_ms(n * (2 * c + 4 * (n - 1) * c), kind)
+        moved["ring_allgather"] = [ring_bytes("ag", n, x.shape[1], 4), n * c + n * n * c]
         del x
         # alltoall: the 1 GiB point, the BASELINE.json:2 alltoall metric
         x = randn((n, n, GiB // 4 // n), torch.float32, seed=16)
@@ -559,11 +600,17 @@ def main() -> int:
             "library_ms": ms_of(fused_alltoall, x, repeats=3, iters=2),
             "shape": list(x.shape), "dtype": "float32"})
         del x
+        split = small_call_split(ops, Transport(rank_mesh(n)), n)
 
     print("phase seconds: " + json.dumps({k: round(v, 1) for k, v in PHASE_S.items()}))
-    print("ring kernel's own traffic at peak HBM, ms (allreduce n*[(n-1)*9C + 2S], "
-          "no 2S in place; reduce-scatter n*[(n-1)*5C + 2S]; allgather "
-          "n*[2c + (n-1)*4c]): " + json.dumps(traffic))
+    for name, (b_moved, b_bound) in moved.items():
+        if b_moved != b_bound:
+            raise AssertionError(f"{name}: the ring kernel moves {b_moved} bytes, "
+                                 f"its bound {b_bound}")
+    print("ring kernel bytes moved at the kernels line's shapes [moved, bound]: "
+          + json.dumps(moved))
+    print("4 KiB per rank x 8, us per call (host: enqueue; device: queued behind "
+          "a spinning kernel): " + json.dumps(split))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

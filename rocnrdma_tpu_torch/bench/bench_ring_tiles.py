@@ -1,16 +1,17 @@
 """``bench_ring_tiles`` - the ring kernel's two tiers side by side: the
-one-tile tier (``ring_allreduce``: one tile per chunk, out of place) and
-the tiled tier (``hbm_ring_allreduce``: chunks cut into ``tile_rows * 128``
-element tiles, in place) at several ``tile_rows``, at each size. These are
-the numbers behind ``cuda_ring``'s tier policy in ``transport/api.py``.
+one-tile tier (``ring_allreduce``: chunks padded to 128 lanes, out of
+place) and the tiled tier (``hbm_ring_allreduce``: chunks padded to whole
+``tile_rows * 128`` element tiles, in place) at several ``tile_rows``, at
+each size. The kernel folds each chunk in one direct pass, so a tile sets
+only the chunk's padding (``chunk_elems``) and the time should not follow
+``tile_rows``; these rows show whether it does.
 
     python -m rocnrdma_tpu_torch.bench.bench_ring_tiles --ranks 8 \\
         --sizes 4M,16M,64M,256M,1G --tile-rows 512,2048,8192,32768,131072
 
 A tile count that does not fit a chunk (``tile_rows * 128`` elements above
 the chunk) is skipped: it would pad the chunk, not tile it. Every point is
-first held bitwise to its plain version, then timed. ``mini_hops`` is the
-kernel's (step, tile) hop count, ``2 * (n-1) * tiles``. With every rank on
+first held bitwise to its plain version, then timed. With every rank on
 one GPU the times are HBM numbers, not NVLink ones.
 """
 
@@ -67,6 +68,7 @@ def run(args) -> list[dict]:
                     fn = ring_cuda.ring_allreduce
                     got, want = fn(x), ring_cuda.ring_allreduce_plain(x)
                     tiles, arg = 1, x
+                    chunk = -(-per // ring_cuda.LANES) * ring_cuda.LANES
                 else:
                     def fn(v, tr=tr):
                         return ring_cuda.hbm_ring_allreduce(v, tile_rows=tr)
@@ -74,6 +76,7 @@ def run(args) -> list[dict]:
                     got = fn(x.clone())
                     want = ring_cuda.hbm_ring_allreduce_plain(x.clone(), tile_rows=tr)
                     tiles = -(-per // (tr * ring_cuda.LANES))
+                    chunk = tiles * tr * ring_cuda.LANES
                 if not torch.equal(got, want):
                     raise SystemExit(f"{tier} tile_rows={tr} at {size} B: kernel "
                                      f"disagrees with its plain version")
@@ -82,7 +85,7 @@ def run(args) -> list[dict]:
                               calls_per_repeat=args.iters).mean_s
                 del arg
                 rec = {"bench": "bench_ring_tiles", "tier": tier, "tile_rows": tr,
-                       "tiles_per_chunk": tiles, "mini_hops": 2 * (n - 1) * tiles,
+                       "tiles_per_chunk": tiles, "chunk_elems": chunk,
                        "ranks": n, "dtype": dname, "size_bytes": size,
                        "ms": sec * 1e3,
                        "busbw_GBps": M.busbw_GBps("allreduce", n, size, sec),
@@ -90,7 +93,7 @@ def run(args) -> list[dict]:
                        "link": "hbm-loopback"}
                 rows.append(rec)
                 print(f"{dname:9s} {size:>11d} B  {tier:8s} tile_rows={str(tr):>7s} "
-                      f"tiles={tiles:>5d} mini_hops={rec['mini_hops']:>6d}  "
+                      f"tiles={tiles:>5d} chunk={chunk:>10d}  "
                       f"{rec['ms']:10.4f} ms  busbw {rec['busbw_GBps']:8.2f} GB/s",
                       flush=True)
             del x

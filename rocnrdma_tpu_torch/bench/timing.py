@@ -113,3 +113,32 @@ def marginal_s_per_op(make_chain, x0, k1: int, k2: int, repeats: int,
                       trials: int = 3) -> float:
     """Min-over-trials marginal: the fastest state the card demonstrated."""
     return min(marginal_trials(make_chain, x0, k1, k2, repeats, trials))
+
+
+def enqueue_s(fn, calls: int) -> float:
+    """Host seconds per call to enqueue ``fn()`` on the card, with no
+    synchronisation between the calls."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls
+
+
+def device_s(fn, calls: int, enqueue: float) -> float:
+    """Device seconds per call of ``fn()`` with the host out of the way: the
+    calls are enqueued behind a kernel that spins for about three times
+    their enqueue time (``enqueue`` seconds a call, at ~2e9 cycles/s), so
+    the events around them time the card's work back to back."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(3 * enqueue * calls * 2e9) + 10**6)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 1e3 / calls

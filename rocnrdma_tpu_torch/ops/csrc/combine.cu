@@ -11,75 +11,105 @@
 // Design: the Pallas kernel streams (tile_rows, 128) tiles through an
 // n_slots-deep rotation of VMEM slots with explicit async DMAs, because the
 // TPU core runs its grid in order and must overlap copies by hand. On Hopper
-// thousands of threads keep loads in flight on their own, so this first
-// kernel is a plain grid-stride loop over 16-byte vectors: each thread loads
-// one vector of every operand, folds left to right and stores once. The
-// fold rounds to bf16 after every add, as the reference's `acc = acc + x`
-// in the working dtype does (local_pallas.py:83-85). Staging through shared
-// memory with cp.async/TMA is later work.
+// the loads a thread has in flight do that job, so the kernel is
+// instantiated for each k in 2..8: each thread issues the loads of all k
+// operands for RNR_COMBINE_VECS 16-byte vectors (2k loads) before the first
+// add, then folds x0 + x1 + ... left to right with fold_left (common.cuh),
+// rounding to bf16 after every add as the reference's `acc = acc + x` in
+// the working dtype does (local_pallas.py:83-85). One group of vectors a
+// thread and as many blocks as groups, which ran faster on the H100 than a
+// grid capped at the resident blocks with a grid stride, and than 4 or 8
+// vectors a thread (bench/bench_kernel_variants.py). The last block also
+// folds the ragged tail of fewer than one vector, element by element.
 #include "common.cuh"
 
 #define RNR_MAX_OPERANDS 8
 #define RNR_COMBINE_THREADS 256
+#define RNR_COMBINE_VECS 2  // 16-byte vectors a thread holds per operand
 
 struct CombineArgs {
   const void* x[RNR_MAX_OPERANDS];
   void* out;
-  int k;
   long long n;  // elements per operand
 };
 
-template <typename T>
+template <typename T, int K>
 __global__ void __launch_bounds__(RNR_COMBINE_THREADS)
     combine_kernel(const CombineArgs a) {
   constexpr int VEC = 16 / sizeof(T);
+  constexpr int U = RNR_COMBINE_VECS;
+  const int TH = RNR_COMBINE_THREADS;
   const long long nv = a.n / VEC;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  for (long long i = tid; i < nv; i += stride) {
-    uint4 acc = reinterpret_cast<const uint4*>(a.x[0])[i];
-    for (int j = 1; j < a.k; ++j)
-      acc = Fold<T>::add16(acc, reinterpret_cast<const uint4*>(a.x[j])[i]);
-    reinterpret_cast<uint4*>(a.out)[i] = acc;
+  const long long i = (long long)blockIdx.x * TH * U + threadIdx.x;
+  if (i + (U - 1) * TH < nv) {
+    uint4 v[U][K];
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        v[u][j] = __ldg(reinterpret_cast<const uint4*>(a.x[j]) + i + u * TH);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      reinterpret_cast<uint4*>(a.out)[i + u * TH] = fold_left<T, K>(v[u]);
+  } else {  // the group cut by the end
+    for (int u = 0; u < U && i + u * TH < nv; ++u) {
+      uint4 v[K];
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+        v[j] = __ldg(reinterpret_cast<const uint4*>(a.x[j]) + i + u * TH);
+      reinterpret_cast<uint4*>(a.out)[i + u * TH] = fold_left<T, K>(v);
+    }
   }
-  // ragged tail (< VEC elements), element by element
-  for (long long e = nv * VEC + tid; e < a.n; e += stride) {
-    T acc = reinterpret_cast<const T*>(a.x[0])[e];
-    for (int j = 1; j < a.k; ++j)
-      acc = Fold<T>::add(acc, reinterpret_cast<const T*>(a.x[j])[e]);
-    reinterpret_cast<T*>(a.out)[e] = acc;
+  if (blockIdx.x == gridDim.x - 1) {  // ragged tail (< VEC elements)
+    for (long long e = nv * VEC + threadIdx.x; e < a.n; e += TH) {
+      T acc = reinterpret_cast<const T*>(a.x[0])[e];
+#pragma unroll
+      for (int j = 1; j < K; ++j)
+        acc = Fold<T>::add(acc, reinterpret_cast<const T*>(a.x[j])[e]);
+      reinterpret_cast<T*>(a.out)[e] = acc;
+    }
   }
+}
+
+template <typename T, int K>
+static int launch_k(CombineArgs a, cudaStream_t stream) {
+  constexpr int VEC = 16 / sizeof(T);
+  const long long group = (long long)RNR_COMBINE_THREADS * RNR_COMBINE_VECS;
+  const long long blocks = (a.n / VEC + group) / group;  // >= 1, for the tail
+  void* args[] = {&a};
+  return (int)cudaLaunchKernel(reinterpret_cast<const void*>(combine_kernel<T, K>),
+                               dim3((unsigned)blocks), dim3(RNR_COMBINE_THREADS),
+                               args, 0, stream);
 }
 
 template <typename T>
-static int launch(const CombineArgs& a, cudaStream_t stream) {
-  constexpr int VEC = 16 / sizeof(T);
-  int per_sm = 0;
-  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, combine_kernel<T>, RNR_COMBINE_THREADS, 0);
-  if (e != cudaSuccess) return (int)e;
-  const int sms = rnr_sm_count();
-  if (sms <= 0) return (int)cudaGetLastError();
-  long long work = a.n / VEC + 1;
-  long long blocks = (work + RNR_COMBINE_THREADS - 1) / RNR_COMBINE_THREADS;
-  long long cap = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  if (blocks > cap) blocks = cap;
-  combine_kernel<T><<<(unsigned)blocks, RNR_COMBINE_THREADS, 0, stream>>>(a);
-  return (int)cudaGetLastError();
+static int launch(const CombineArgs& a, int k, cudaStream_t s) {
+  switch (k) {
+    case 2: return launch_k<T, 2>(a, s);
+    case 3: return launch_k<T, 3>(a, s);
+    case 4: return launch_k<T, 4>(a, s);
+    case 5: return launch_k<T, 5>(a, s);
+    case 6: return launch_k<T, 6>(a, s);
+    case 7: return launch_k<T, 7>(a, s);
+    case 8: return launch_k<T, 8>(a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
+// out = x0 + ... + x(k-1) over n elements on `device`.
 extern "C" int rnr_combine(const void* const* xs, int k, void* out,
-                           long long n, int dtype, void* stream) {
+                           long long n, int dtype, int device, void* stream) {
   if (k < 2 || k > RNR_MAX_OPERANDS || n <= 0) return (int)cudaErrorInvalidValue;
   CombineArgs a = {};
   for (int j = 0; j < k; ++j) a.x[j] = xs[j];
   a.out = out;
-  a.k = k;
   a.n = n;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (dtype == RNR_DTYPE_F32) return launch<float>(a, s);
-  if (dtype == RNR_DTYPE_BF16) return launch<__nv_bfloat16>(a, s);
-  return (int)cudaErrorInvalidValue;
+  return rnr_on_device(device, [&] {
+    if (dtype == RNR_DTYPE_F32) return launch<float>(a, k, s);
+    if (dtype == RNR_DTYPE_BF16) return launch<__nv_bfloat16>(a, k, s);
+    return (int)cudaErrorInvalidValue;
+  });
 }
 
 extern "C" const char* rnr_combine_error(int code) {

@@ -5,7 +5,8 @@
 // no reassociation) and, for bf16, rounded back to bf16 after every add
 // (__float2bfloat16_rn): the same arithmetic as one bf16 add of the JAX
 // reference and of PyTorch, so a kernel equals its plain version bit for
-// bit.
+// bit. IEEE addition is commutative, so `acc + x` and `x + acc` give the
+// same bits: only the order in which operands join the sum matters.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -59,6 +60,30 @@ struct Fold<__nv_bfloat16> {
   }
 };
 
+// x0 + x1 + ... + x(K-1) over one 16-byte vector of each operand, left to
+// right, one rounding per add. The caller loads all K vectors first, so
+// their loads are in flight together (combine.cu, and ring.cu for n <= 8).
+template <typename T, int K>
+__device__ __forceinline__ uint4 fold_left(const uint4 (&v)[K]) {
+  uint4 acc = v[0];
+#pragma unroll
+  for (int k = 1; k < K; ++k) acc = Fold<T>::add16(acc, v[k]);
+  return acc;
+}
+
+// launch() (returning 0 or a cudaError) with `device` current, the
+// caller's device restored after: cheaper than switching from Python.
+template <typename F>
+static int rnr_on_device(int device, F&& launch) {
+  int prev = 0;
+  cudaError_t e = cudaGetDevice(&prev);
+  if (e != cudaSuccess) return (int)e;
+  if (prev != device && (e = cudaSetDevice(device)) != cudaSuccess) return (int)e;
+  const int rc = launch();
+  if (prev != device) cudaSetDevice(prev);
+  return rc;
+}
+
 static inline int rnr_sm_count() {
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return -1;
@@ -70,23 +95,43 @@ static inline int rnr_sm_count() {
 
 // ---------------------------------------------------------------------------
 // Flag protocol of the kernels whose blocks talk to each other (ring.cu,
-// alltoall.cu). Flags are 32-bit words in device memory, stored with
-// system-scope release and read with acquire loads, the counterpart of the
-// TPU's DMA and barrier semaphores. Blocks of these kernels run with
-// RNR_BLOCK_THREADS threads.
+// alltoall.cu). Flags are 32-bit counters in device memory, the
+// counterpart of the TPU's DMA and barrier semaphores, raised with atomic
+// adds and read with relaxed loads, at a memory-model scope: kGpu orders
+// the blocks of one GPU, kSys also peers over NVLink and the host. A
+// release is either one `red.release` (alltoall.cu, kSys) or one fence
+// before any number of relaxed adds (ring.cu): each fence costs on the
+// order of a microsecond on the H100, a kSys one several. Blocks of these
+// kernels run with RNR_BLOCK_THREADS threads.
 
 #define RNR_BLOCK_THREADS 256
 
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+enum RnrScope { kGpu, kSys };
+
+template <RnrScope S>
+__device__ __forceinline__ void fence() {
+  if constexpr (S == kSys)
+    asm volatile("fence.acq_rel.sys;" ::: "memory");
+  else
+    asm volatile("fence.acq_rel.gpu;" ::: "memory");
+}
+
+template <RnrScope S>
+__device__ __forceinline__ unsigned ld_relaxed(const unsigned* p) {
   unsigned v;
-  asm volatile("ld.acquire.sys.global.u32 %0, [%1];"
-               : "=r"(v) : "l"(p) : "memory");
+  if constexpr (S == kSys)
+    asm volatile("ld.relaxed.sys.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  else
+    asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
   return v;
 }
 
-__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
-  asm volatile("st.release.sys.global.u32 [%0], %1;"
-               :: "l"(p), "r"(v) : "memory");
+template <RnrScope S>
+__device__ __forceinline__ void add_relaxed(unsigned* p, unsigned v) {
+  if constexpr (S == kSys)
+    asm volatile("red.relaxed.sys.global.add.u32 [%0], %1;" :: "l"(p), "r"(v) : "memory");
+  else
+    asm volatile("red.relaxed.gpu.global.add.u32 [%0], %1;" :: "l"(p), "r"(v) : "memory");
 }
 
 __device__ __forceinline__ void add_release(unsigned* p, unsigned v) {
@@ -94,25 +139,17 @@ __device__ __forceinline__ void add_release(unsigned* p, unsigned v) {
                :: "l"(p), "r"(v) : "memory");
 }
 
-// One thread spins until *p >= v; the block then proceeds together.
+// One thread spins on relaxed loads until *p >= v, then one fence makes
+// the acquire; the block then proceeds together. The comparison is on the
+// signed difference, so an epoch-counted flag may wrap around 2^32
+// (ring.cu) while no waiter is 2^31 behind.
+template <RnrScope S = kSys>
 __device__ __forceinline__ void wait_geq(const unsigned* p, unsigned v) {
   if (threadIdx.x == 0) {
-    while (ld_acquire(p) < v) __nanosleep(64);
-    __threadfence();
+    while ((int)(ld_relaxed<S>(p) - v) < 0) __nanosleep(64);
+    fence<S>();
   }
   __syncthreads();
-}
-
-// Every thread's prior writes, then one release of the flag.
-__device__ __forceinline__ void publish(unsigned* p, unsigned v, bool add) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence_system();
-    if (add)
-      add_release(p, v);
-    else
-      st_release(p, v);
-  }
 }
 
 // dst[i] = src[i] over `bytes` (a multiple of 16). Loads bypass L1 with

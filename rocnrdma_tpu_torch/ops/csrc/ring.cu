@@ -1,260 +1,300 @@
-// ring.cu: the ring collectives (sum) with a slot/flag/credit protocol, in
-// three modes of one kernel.
+// ring.cu: the ring collectives (sum) as one direct pass, in three modes of
+// one kernel.
 //
 // Replaces (rocnrdma_tpu/ops/ring_pallas.py):
 //   - mode AR, pallas_ring_allreduce (body _ring_allreduce_kernel /
-//     _ring_hops / _neighbour_barrier): one tile per chunk, out of place
-//     (the wrapper passes `src`);
-//   - mode AR, pallas_hbm_ring_allreduce (body _hbm_ring_kernel): chunks cut
-//     into tiles, hops walked in (step, tile) order, in place (`src` null);
+//     _ring_hops / _neighbour_barrier): chunks padded to 128 lanes;
+//   - mode AR, pallas_hbm_ring_allreduce (body _hbm_ring_kernel): chunks
+//     padded to whole tiles, in place when `src` and `dst` are the same rows;
 //   - mode RS, pallas_ring_reduce_scatter (body _ring_reduce_scatter_kernel):
-//     copy in the whole buffer, then the -1-shifted reduce phase, n-1
-//     accumulate hops with send (r-s-1), recv (r-s-2); rank r keeps chunk r;
-//   - mode AG, pallas_ring_allgather (body _ring_allgather_kernel): copy the
-//     rank's one chunk into chunk r, then n-1 overwrite hops with send
-//     (r-s), recv (r-s-1).
-// On Hopper every buffer already lives in device memory, so the TPU's VMEM
-// tier and HBM tier differ here only in the tile size. The modes differ
-// only in the hop count, the hop indices, fold or overwrite, and the
-// copy-in; barrier, slots, credits, drain, lanes and launch are shared.
+//     rank r keeps chunk r;
+//   - mode AG, pallas_ring_allgather (body _ring_allgather_kernel).
+// The wrapper's padding fixes the chunk geometry, and with it which chunk
+// an element lies in.
 //
-// Protocol (per ring lane; the TPU semaphores become flag words):
-//   - rank buffers, 2-slot comm buffers and flag words are pointer tables
-//     indexed by rank. In this slice every entry points into one GPU's
-//     memory; peer pointers fill the same tables later.
-//   - lanes: rank r runs `lanes` blocks; block b owns sub-range b of every
-//     tile and talks only to block b of ranks r-1 and r+1, so the lanes are
-//     independent rings and the blocks of one rank never synchronise.
-//   - entry barrier: each lane signals both ring neighbours and waits for
-//     both (_entry_barrier with offsets -1, +1).
-//   - hop g uses slot g % 2. Before reusing a slot (g >= 2) the sender
-//     waits for the credit of that slot's previous use. It then copies its
-//     outbound tile lane into the right neighbour's slot, and one thread
-//     publishes the slot's sequence number with a system-scope release
-//     store. The receiver spins on an acquire load of its own flag, folds
-//     (`mine + recvd`) or overwrites, and returns a credit to its left
-//     neighbour. Trailing credits are drained (_ring_hops :83-107).
-//   - flags are sequence numbers; the wrapper's launch zeroes them with
-//     cudaMemsetAsync on the stream first.
-//   - all n*lanes blocks spin on each other, so all must be resident at
-//     once: the launch is cooperative, which refuses a grid that cannot be.
+// What the TPU ring computes. Its hops leave each chunk one fixed fold
+// order: in mode AR chunk c is x[c+n-1] + (... + (x[c+1] + x[c])), indices
+// mod n (ring_pallas.py:116-117, `o_ref[recv] += comm_buf[slot]` at :98);
+// in mode RS the fold starts at rank c+1 (:129). IEEE addition is
+// commutative, so the bits depend only on that order. Every rank's memory
+// is directly addressable here (one GPU today; NVSwitch peers later), so
+// instead of relaying chunks through neighbours' slots, the block that owns
+// a chunk reads its n rows itself and folds them in that order: the same
+// bits, no hops, no comm slots, no credits.
 //
-// Bound on the H100: device-memory bytes. Per rank, with S the rank buffer
-// and C = S/n a chunk (elements): an accumulate hop reads the outbound
-// chunk and writes the peer slot (2C), then reads mine, reads the slot and
-// writes mine (3C): 5C. An overwrite hop moves 2C + 2C = 4C. The copy-in
-// reads and writes what it copies. So per rank:
-//   AR out of place (n-1)*9C + 2S, in place (n-1)*9C;
-//   RS (n-1)*5C + 2S;
-//   AG, with c the rank's one chunk, 2c + (n-1)*4c.
-// The least any of them must move, over all ranks, is each input read once
-// and each output written once: AR 2*n*S, RS n*S + S, AG S + n*S with S =
-// n*c the gathered row. Design against it: 16-byte vector copies, four in
-// flight per thread, and lanes sized so n*lanes blocks cover the SMs.
+// Protocol. Rank r runs `lanes` blocks; block (r, b) owns sub-range b of
+// chunk r and talks only to block b of the other ranks, as in
+// alltoall.cu. Each block, in order:
+//   1. entry barrier: one arrival on the barrier word of lane b of every
+//      other rank, then wait for n-1 on its own (_global_barrier): peers'
+//      inputs are ready and their outputs free;
+//   2. AR: load its sub-range of chunk r from all n input rows (all loads
+//      before the first add), fold acc = x[r]; acc = x[r+k] + acc for
+//      k = 1..n-1, store acc into chunk r of all n output rows. In place is
+//      safe: each element is read, then written, by one thread only.
+//      RS: the same fold from rank r+1 (acc = x[r+1]; k = 2..n), stored
+//      into output row r only. AG: load rank r's chunk once and store it
+//      into chunk r of all n output rows;
+//   3. exit: one arrival on the arrival word of lane b of every other rank,
+//      then wait for n-1 on its own: every write into its output lane has
+//      landed and no peer still reads its input lane.
+// Flags are epoch-counted: launch e (from 1) of one flag buffer waits for
+// e*(n-1) on each word, so back-to-back launches need no reset (the wrapper
+// caches the buffer per device, stream, n and lanes and counts the epoch).
+// Blocks spin on blocks of other ranks, so all n*lanes blocks must be
+// resident at once: the launch is cooperative and a grid that cannot be is
+// refused.
+//
+// Bound on the H100: device-memory bytes. Each mode reads every input
+// element once and writes every output element once, which is the least
+// any implementation must move: over all ranks, with S bytes per rank,
+// AR 2*n*S, RS n*S + S, AG S + n*S (S the gathered row, n*c). On NVLink
+// each rank would move (n-1)/n of its reads and writes over the link, the
+// 2(n-1)/n*S a ring puts on the wire. Design against it: 16-byte vectors,
+// two per thread per operand in AR and RS (2n loads in flight, the fold
+// unrolled at compile time for n = 2..8, batches of 8 operands above),
+// four per thread in AG, and lanes sized so n*lanes blocks cover the SMs
+// about four times.
 #include "common.cuh"
 
 #define RNR_MAX_RANKS 32
-#define RNR_RING_THREADS RNR_BLOCK_THREADS
-#define RNR_FLAG_WORDS 8  // per lane: recv[2], credit[2], barrier, pad
-#define RNR_RECV 0
-#define RNR_CRED 2
-#define RNR_BAR 4
+#define RNR_FLAG_WORDS 2  // per lane: barrier, arrivals
+#define RNR_BAR 0
+#define RNR_ARR 1
 #define RNR_MIN_LANE_ELEMS 1024
+#define RNR_FOLD_BATCH 8  // operands loaded together on the batched path
 
-#define RNR_MODE_AR 0  // allreduce: n-1 accumulate, then n-1 overwrite hops
-#define RNR_MODE_RS 1  // reduce-scatter: n-1 accumulate hops, offset -1
-#define RNR_MODE_AG 2  // allgather: n-1 overwrite hops, owned offset 0
+#define RNR_MODE_AR 0  // allreduce: fold from rank r, store into all rows
+#define RNR_MODE_RS 1  // reduce-scatter: fold from rank r+1, store into row r
+#define RNR_MODE_AG 2  // allgather: rank r's chunk into all rows
 
 struct RingArgs {
-  const void* src[RNR_MAX_RANKS];  // copy-in source per rank, or null
-  void* data[RNR_MAX_RANKS];       // rank working buffer, n * per elements
-  void* comm[RNR_MAX_RANKS];       // rank comm slots, 2 * tile elements
-  unsigned* flags[RNR_MAX_RANKS];  // rank flag words, lanes * 8
+  const void* src[RNR_MAX_RANKS];  // rank input rows (AG: the rank's chunk)
+  void* dst[RNR_MAX_RANKS];        // rank output rows (RS: the rank's chunk)
+  unsigned* flags[RNR_MAX_RANKS];  // rank flag words, lanes * 2
   int n;
   int lanes;
-  int mode;        // RNR_MODE_*
-  long long per;   // chunk elements (multiple of tile)
-  long long tile;  // tile elements (multiple of 128)
-  long long lane;  // lane elements (multiple of 128)
+  int mode;         // RNR_MODE_*
+  int sync;         // 0: skip barrier and arrivals (timing the data pass)
+  unsigned epoch;   // launches of this flag buffer, this one included
+  long long per;    // chunk elements (16-byte multiple)
+  long long lane;   // lane elements (multiple of 128)
 };
 
-// mine[i] = mine[i] + recvd[i] over `bytes` (a multiple of 16).
-template <typename T>
-__device__ __forceinline__ void fold16(void* mine, const void* recvd,
-                                      long long bytes) {
-  uint4* m = reinterpret_cast<uint4*>(mine);
-  const uint4* r = reinterpret_cast<const uint4*>(recvd);
-  const long long nv = bytes / 16;
-  const int TH = RNR_RING_THREADS;
-  long long i = threadIdx.x;
-  for (; i + TH < nv; i += 2 * TH) {
-    uint4 a0 = __ldcg(m + i), a1 = __ldcg(m + i + TH);
-    uint4 b0 = __ldcg(r + i), b1 = __ldcg(r + i + TH);
-    __stcg(m + i, Fold<T>::add16(a0, b0));
-    __stcg(m + i + TH, Fold<T>::add16(a1, b1));
-  }
-  for (; i < nv; i += TH) __stcg(m + i, Fold<T>::add16(__ldcg(m + i), __ldcg(r + i)));
-}
+// The flags' memory-model scope. Every rank of this slice lives on one GPU,
+// so kGpu orders them all; ranks on other GPUs (peer pointers over NVLink)
+// need kSys, whose fences cost several microseconds more per launch on the
+// H100 (bench/bench_kernel_variants.py, PERF.md).
+constexpr RnrScope kRingScope = kGpu;
 
-template <typename T>
-__global__ void __launch_bounds__(RNR_RING_THREADS)
-    ring_kernel(const RingArgs a) {
-  const int n = a.n;
-  const int r = blockIdx.x / a.lanes;
-  const int b = blockIdx.x % a.lanes;
-  const int left = wrap(r - 1, n), right = wrap(r + 1, n);
-  const long long lo = (long long)b * a.lane;
-  const long long hi = lo + a.lane < a.tile ? lo + a.lane : a.tile;
-  const long long bytes = hi > lo ? (hi - lo) * (long long)sizeof(T) : 0;
-  const long long n_tiles = a.per / a.tile;
-
-  T* mine = reinterpret_cast<T*>(a.data[r]);
-  T* my_slots = reinterpret_cast<T*>(a.comm[r]);
-  T* right_slots = reinterpret_cast<T*>(a.comm[right]);
-  unsigned* my_f = a.flags[r] + b * RNR_FLAG_WORDS;
-  unsigned* left_f = a.flags[left] + b * RNR_FLAG_WORDS;
-  unsigned* right_f = a.flags[right] + b * RNR_FLAG_WORDS;
-
-  // copy in: AG the rank's one chunk into chunk r; AR (out of place) and RS
-  // the whole buffer. My lane of every tile either way.
-  if (a.src[r] != nullptr) {
-    const T* src = reinterpret_cast<const T*>(a.src[r]);
-    if (a.mode == RNR_MODE_AG) {
-      for (long long t = 0; t < n_tiles; ++t)
-        copy16(mine + r * a.per + t * a.tile + lo, src + t * a.tile + lo, bytes);
-    } else {
-      for (long long c = 0; c < (long long)n * n_tiles; ++c)
-        copy16(mine + c * a.tile + lo, src + c * a.tile + lo, bytes);
-    }
-  }
-
-  // entry barrier with both ring neighbours (n == 2: one neighbour, twice)
+// One arrival on flag `word` of lane b of every other rank, after every
+// thread's prior writes (one fence, then relaxed adds), then wait for this
+// launch's n-1 on my own.
+__device__ __forceinline__ void meet(const RingArgs& a, int n, int r, int b,
+                                     int word) {
   __syncthreads();
   if (threadIdx.x == 0) {
-    __threadfence_system();
-    add_release(left_f + RNR_BAR, 1u);
-    add_release(right_f + RNR_BAR, 1u);
+    fence<kRingScope>();
+    for (int s = 1; s < n; ++s)
+      add_relaxed<kRingScope>(a.flags[wrap(r + s, n)] + b * RNR_FLAG_WORDS + word, 1u);
   }
-  wait_geq(my_f + RNR_BAR, 2u);
+  wait_geq<kRingScope>(a.flags[r] + b * RNR_FLAG_WORDS + word,
+                       a.epoch * (unsigned)(n - 1));
+}
 
-  const long long steps = a.mode == RNR_MODE_AR ? 2LL * (n - 1) : (long long)(n - 1);
-  const long long hops = steps * n_tiles;
-  for (long long g = 0; g < hops; ++g) {
-    const int step = (int)(g / n_tiles);
-    const long long t = g % n_tiles;
-    bool accumulate;
-    int send_idx, recv_idx;
-    if (a.mode == RNR_MODE_RS) {  // _ring_reduce_scatter_kernel's hops
-      accumulate = true;
-      send_idx = wrap(r - step - 1, n);
-      recv_idx = wrap(r - step - 2, n);
-    } else if (a.mode == RNR_MODE_AG) {  // _ring_allgather_kernel's hops
-      accumulate = false;
-      send_idx = wrap(r - step, n);
-      recv_idx = wrap(r - step - 1, n);
-    } else {  // _ring_allreduce_kernel's hops
-      accumulate = step < n - 1;
-      const int s = accumulate ? step : step - (n - 1);
-      send_idx = accumulate ? wrap(r - s, n) : wrap(r + 1 - s, n);
-      recv_idx = accumulate ? wrap(r - s - 1, n) : wrap(r - s, n);
+// Vector i of my sub-range of chunk r in operand k of the fold, which is
+// rank (first + k)'s input row.
+template <typename T>
+__device__ __forceinline__ const uint4* operand(const RingArgs& a, int n,
+                                                int first, int k, long long off) {
+  return reinterpret_cast<const uint4*>(
+      static_cast<const T*>(a.src[(first + k) % n]) + off);
+}
+
+// s[u] = the fold of vector i + u*TH over all n operands, in ring order
+// from rank `first`. N > 0: n == N, every load issued before the first add.
+// N == 0: any n, in batches of RNR_FOLD_BATCH operands.
+template <typename T, int N, int U>
+__device__ __forceinline__ void fold_vectors(uint4 (&s)[U], const RingArgs& a,
+                                             int n, int first, long long off,
+                                             long long i) {
+  const int TH = RNR_BLOCK_THREADS;
+  if constexpr (N > 0) {
+    uint4 v[U][N];
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const uint4* p = operand<T>(a, N, first, k, off) + i;
+#pragma unroll
+      for (int u = 0; u < U; ++u) v[u][k] = __ldcg(p + u * TH);
     }
-    const int slot = (int)(g & 1);
-    const unsigned use = (unsigned)(g >> 1);  // earlier uses of this slot
-
-    if (g >= 2) wait_geq(my_f + RNR_CRED + slot, use);  // slot consumed
-    // remote write: my outbound lane into the right neighbour's slot
-    copy16(right_slots + slot * a.tile + lo,
-           mine + send_idx * a.per + t * a.tile + lo, bytes);
-    publish(right_f + RNR_RECV + slot, use + 1u, false);
-    // the left neighbour's write into my slot
-    wait_geq(my_f + RNR_RECV + slot, use + 1u);
-    T* dst = mine + recv_idx * a.per + t * a.tile + lo;
-    const T* in = my_slots + slot * a.tile + lo;
-    if (accumulate)
-      fold16<T>(dst, in, bytes);
-    else
-      copy16(dst, in, bytes);
-    publish(left_f + RNR_CRED + slot, 1u, true);  // credit to the sender
+#pragma unroll
+    for (int u = 0; u < U; ++u) s[u] = fold_left<T, N>(v[u]);
+  } else {
+    for (int k0 = 0; k0 < n; k0 += RNR_FOLD_BATCH) {
+      uint4 v[RNR_FOLD_BATCH][U];
+#pragma unroll
+      for (int j = 0; j < RNR_FOLD_BATCH; ++j)
+        if (k0 + j < n) {
+          const uint4* p = operand<T>(a, n, first, k0 + j, off) + i;
+#pragma unroll
+          for (int u = 0; u < U; ++u) v[j][u] = __ldcg(p + u * TH);
+        }
+#pragma unroll
+      for (int j = 0; j < RNR_FOLD_BATCH; ++j)
+        if (k0 + j < n)
+#pragma unroll
+          for (int u = 0; u < U; ++u)
+            s[u] = k0 + j == 0 ? v[j][u] : Fold<T>::add16(s[u], v[j][u]);
+    }
   }
-  // drain the credits still owed for each used slot
-  for (int slot = 0; slot < 2 && slot < hops; ++slot)
-    wait_geq(my_f + RNR_CRED + slot, (unsigned)((hops - slot + 1) / 2));
+}
+
+// Store s[u] at vector i + u*TH of my sub-range in the output rows: all n
+// (AR, at chunk offset `off`) or row r alone (RS, at lane offset `lo`).
+template <typename T, int U>
+__device__ __forceinline__ void store_vectors(const uint4 (&s)[U],
+                                              const RingArgs& a, int n, int r,
+                                              long long off, long long lo,
+                                              long long i) {
+  const int TH = RNR_BLOCK_THREADS;
+  const int d0 = a.mode == RNR_MODE_RS ? r : 0;
+  const int d1 = a.mode == RNR_MODE_RS ? r + 1 : n;
+  const long long at = a.mode == RNR_MODE_RS ? lo : off;
+  for (int d = d0; d < d1; ++d) {
+    uint4* q = reinterpret_cast<uint4*>(static_cast<T*>(a.dst[d]) + at) + i;
+#pragma unroll
+    for (int u = 0; u < U; ++u) __stcg(q + u * TH, s[u]);
+  }
+}
+
+template <typename T, int N>
+__global__ void __launch_bounds__(RNR_BLOCK_THREADS)
+    ring_kernel(const RingArgs a) {
+  const int n = N > 0 ? N : a.n;
+  const int r = blockIdx.x / a.lanes;
+  const int b = blockIdx.x % a.lanes;
+  const long long lo = (long long)b * a.lane;
+  const long long hi = lo + a.lane < a.per ? lo + a.lane : a.per;
+  const long long nv = hi > lo ? (hi - lo) * (long long)sizeof(T) / 16 : 0;
+  const long long off = r * a.per + lo;  // my sub-range of chunk r in a row
+  const int TH = RNR_BLOCK_THREADS;
+
+  if (a.sync) meet(a, n, r, b, RNR_BAR);
+
+  long long i = threadIdx.x;
+  if (a.mode == RNR_MODE_AG) {
+    const uint4* in = reinterpret_cast<const uint4*>(
+        static_cast<const T*>(a.src[r]) + lo);
+    for (; i < nv; i += 4 * TH) {
+      uint4 v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (i + u * TH < nv) v[u] = __ldcg(in + i + u * TH);
+      const int valid = nv - i >= 4 * TH ? 4 : (int)((nv - i + TH - 1) / TH);
+      for (int d = 0; d < n; ++d) {
+        uint4* q = reinterpret_cast<uint4*>(static_cast<T*>(a.dst[d]) + off) + i;
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (u < valid) __stcg(q + u * TH, v[u]);
+      }
+    }
+  } else {
+    const int first = a.mode == RNR_MODE_RS ? (r + 1) % n : r;
+    for (; i + TH < nv; i += 2 * TH) {
+      uint4 s[2];
+      fold_vectors<T, N, 2>(s, a, n, first, off, i);
+      store_vectors<T, 2>(s, a, n, r, off, lo, i);
+    }
+    if (i < nv) {
+      uint4 s[1];
+      fold_vectors<T, N, 1>(s, a, n, first, off, i);
+      store_vectors<T, 1>(s, a, n, r, off, lo, i);
+    }
+  }
+
+  if (a.sync) meet(a, n, r, b, RNR_ARR);
 }
 
 template <typename T>
-static int max_coresident(int* total) {
-  int per_sm = 0;
-  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, ring_kernel<T>, RNR_RING_THREADS, 0);
-  if (e != cudaSuccess) return (int)e;
-  const int sms = rnr_sm_count();
-  if (sms <= 0) return (int)cudaErrorInvalidDevice;
-  *total = per_sm * sms;
-  return 0;
+static const void* ring_fn(int n) {
+  switch (n) {
+    case 2: return reinterpret_cast<const void*>(ring_kernel<T, 2>);
+    case 3: return reinterpret_cast<const void*>(ring_kernel<T, 3>);
+    case 4: return reinterpret_cast<const void*>(ring_kernel<T, 4>);
+    case 5: return reinterpret_cast<const void*>(ring_kernel<T, 5>);
+    case 6: return reinterpret_cast<const void*>(ring_kernel<T, 6>);
+    case 7: return reinterpret_cast<const void*>(ring_kernel<T, 7>);
+    case 8: return reinterpret_cast<const void*>(ring_kernel<T, 8>);
+    default: return reinterpret_cast<const void*>(ring_kernel<T, 0>);
+  }
 }
 
-// Lanes per rank for n ranks and this tile: enough blocks to cover the SMs
-// about twice, at least RNR_MIN_LANE_ELEMS elements per lane, and never
-// more than can be resident at once. Returns lanes (> 0) or -cudaError.
-extern "C" int rnr_ring_lanes(int n, long long tile, int dtype) {
-  if (n < 2 || n > RNR_MAX_RANKS || tile <= 0 || tile % 128) return -(int)cudaErrorInvalidValue;
-  int total = 0, e;
-  if (dtype == RNR_DTYPE_F32)
-    e = max_coresident<float>(&total);
-  else if (dtype == RNR_DTYPE_BF16)
-    e = max_coresident<__nv_bfloat16>(&total);
-  else
+// The kernel for n ranks of `dtype`, or null for another dtype.
+static const void* kernel_for(int n, int dtype) {
+  if (dtype == RNR_DTYPE_F32) return ring_fn<float>(n);
+  if (dtype == RNR_DTYPE_BF16) return ring_fn<__nv_bfloat16>(n);
+  return nullptr;
+}
+
+// Lanes per rank for n ranks and `per`-element chunks: enough blocks to
+// cover the SMs about four times (faster than twice for reduce-scatter on
+// the H100, no slower for the other modes: bench/bench_kernel_variants.py),
+// at least RNR_MIN_LANE_ELEMS elements a lane,
+// and never more than can be resident at once (a block waits on lane b of
+// all n-1 peers, so the whole n*lanes grid has to fit). Returns lanes
+// (> 0) or -cudaError.
+extern "C" int rnr_ring_lanes(int n, long long per, int dtype) {
+  const void* fn = kernel_for(n, dtype);
+  if (n < 2 || n > RNR_MAX_RANKS || per <= 0 || fn == nullptr)
     return -(int)cudaErrorInvalidValue;
-  if (e) return -e;
+  int per_sm = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, fn, RNR_BLOCK_THREADS, 0);
+  if (e != cudaSuccess) return -(int)e;
   const int sms = rnr_sm_count();
-  long long lanes = (tile + RNR_MIN_LANE_ELEMS - 1) / RNR_MIN_LANE_ELEMS;
-  long long cap = (2LL * sms + n - 1) / n;
+  if (sms <= 0) return -(int)cudaErrorInvalidDevice;
+  const long long total = (long long)per_sm * sms;
+  long long lanes = (per + RNR_MIN_LANE_ELEMS - 1) / RNR_MIN_LANE_ELEMS;
+  long long cap = (4LL * sms + n - 1) / n;
   if (lanes > cap) lanes = cap;
   if (lanes > total / n) lanes = total / n;
   if (lanes < 1) lanes = 1;
-  const long long lane = rnr_lane_elems(tile, (int)lanes);
-  return (int)((tile + lane - 1) / lane);  // no empty lanes
+  const long long lane = rnr_lane_elems(per, (int)lanes);
+  return (int)((per + lane - 1) / lane);  // no empty lanes
 }
 
-// One launch of the ring kernel in `mode` (RNR_MODE_*). `src` may be null
-// only in mode AR (in place).
-extern "C" int rnr_ring(const void* const* src, void* const* data,
-                        void* const* comm, void* const* flags, int n,
-                        long long per, long long tile, int lanes, int dtype,
-                        int mode, void* flags_base, long long flags_bytes,
-                        void* stream) {
-  if (n < 2 || n > RNR_MAX_RANKS || lanes < 1 || tile <= 0 || tile % 128 ||
-      per % tile || mode < RNR_MODE_AR || mode > RNR_MODE_AG ||
-      (mode != RNR_MODE_AR && src == nullptr))
+// One launch of the ring kernel in `mode` (RNR_MODE_*) on `device`.
+// `epoch` counts the launches of this flag buffer, this one included;
+// `sync` 0 skips the barrier and the arrivals and leaves the flags alone.
+extern "C" int rnr_ring(const void* const* src, void* const* dst,
+                        void* const* flags, int n, long long per, int lanes,
+                        int dtype, int mode, unsigned epoch, int sync,
+                        int device, void* stream) {
+  const void* fn = kernel_for(n, dtype);
+  const int itemsize = dtype == RNR_DTYPE_BF16 ? 2 : 4;
+  if (n < 2 || n > RNR_MAX_RANKS || lanes < 1 || per <= 0 ||
+      per * itemsize % 16 || mode < RNR_MODE_AR || mode > RNR_MODE_AG ||
+      fn == nullptr)
     return (int)cudaErrorInvalidValue;
   RingArgs a = {};
   for (int r = 0; r < n; ++r) {
-    a.src[r] = src ? src[r] : nullptr;
-    a.data[r] = data[r];
-    a.comm[r] = comm[r];
+    a.src[r] = src[r];
+    a.dst[r] = dst[r];
     a.flags[r] = reinterpret_cast<unsigned*>(flags[r]);
   }
   a.n = n;
   a.lanes = lanes;
   a.mode = mode;
+  a.sync = sync;
+  a.epoch = epoch;
   a.per = per;
-  a.tile = tile;
-  a.lane = rnr_lane_elems(tile, lanes);
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaMemsetAsync(flags_base, 0, (size_t)flags_bytes, s);
-  if (e != cudaSuccess) return (int)e;
+  a.lane = rnr_lane_elems(per, lanes);
   void* args[] = {&a};
-  const void* fn;
-  if (dtype == RNR_DTYPE_F32)
-    fn = reinterpret_cast<const void*>(ring_kernel<float>);
-  else if (dtype == RNR_DTYPE_BF16)
-    fn = reinterpret_cast<const void*>(ring_kernel<__nv_bfloat16>);
-  else
-    return (int)cudaErrorInvalidValue;
-  e = cudaLaunchCooperativeKernel(fn, dim3((unsigned)(n * lanes)),
-                                  dim3(RNR_RING_THREADS), args, 0, s);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return rnr_on_device(device, [&] {
+    return (int)cudaLaunchCooperativeKernel(
+        fn, dim3((unsigned)(n * lanes)), dim3(RNR_BLOCK_THREADS), args, 0,
+        reinterpret_cast<cudaStream_t>(stream));
+  });
 }
 
 extern "C" const char* rnr_ring_error(int code) {

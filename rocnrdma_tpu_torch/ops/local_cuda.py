@@ -7,8 +7,8 @@
 launches or raises. The fold goes left to right and, in bf16, rounds after
 every add, exactly as ``hbm_combine_plain`` and the reference do.
 ``tile_rows`` and ``n_slots`` are the reference's knobs, kept so callers and
-tests match; this first kernel does not stage tiles, so they are validated
-and otherwise unused.
+tests match; the kernel stages no tiles (each thread keeps all k operands'
+loads in flight instead), so they are validated and otherwise unused.
 """
 
 from __future__ import annotations
@@ -19,8 +19,7 @@ import torch
 
 from rocnrdma_tpu_torch.ops import _build
 
-# launches of each kernel wrapper since the last reset (the only mutable
-# module state of the port)
+# launches of each kernel wrapper since the last reset
 LAUNCHES = {"hbm_combine": 0}
 
 MAX_OPERANDS = 8
@@ -74,12 +73,10 @@ def hbm_combine(*xs: torch.Tensor, tile_rows: int = 2048,
     if x0.numel() == 0:
         return out
     lib = _build.load("combine")
+    code, device = DTYPE_CODES[x0.dtype], x0.get_device()
     ptrs = (ctypes.c_void_p * len(xs))(*(x.data_ptr() for x in xs))
-    with torch.cuda.device(x0.device):
-        stream = torch.cuda.current_stream(x0.device).cuda_stream
-        rc = lib.rnr_combine(ctypes.cast(ptrs, ctypes.c_void_p), len(xs),
-                             out.data_ptr(), x0.numel(), DTYPE_CODES[x0.dtype],
-                             stream)
+    rc = lib.rnr_combine(ptrs, len(xs), out.data_ptr(), x0.numel(), code, device,
+                         torch._C._cuda_getCurrentRawStream(device))
     _build.check(lib, "rnr_combine_error", rc, "combine kernel launch")
     LAUNCHES["hbm_combine"] += 1
     return out

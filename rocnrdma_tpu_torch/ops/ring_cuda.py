@@ -2,38 +2,38 @@
 ``ops/csrc/ring.cu``: one kernel, three modes, four wrappers, counterparts
 of the Pallas ring kernels in ``rocnrdma_tpu/ops/ring_pallas.py``:
 
-- ``ring_allreduce(x)`` <- ``pallas_ring_allreduce``: out of place, each
-  chunk one tile, chunks padded to 128 lanes as ``_pad_chunks`` pads them.
+- ``ring_allreduce(x)`` <- ``pallas_ring_allreduce``: out of place, chunks
+  padded to 128 lanes as ``_pad_chunks`` pads them.
 - ``hbm_ring_allreduce(x, tile_rows)`` <- ``pallas_hbm_ring_allreduce``:
   IN PLACE on ``x`` (the reference aliases its buffer,
   ``input_output_aliases={0: 0}``), chunks padded to whole
-  ``tile_rows * 128`` tiles and walked in (step, tile) order.
+  ``tile_rows * 128`` tiles.
 - ``ring_reduce_scatter(x, tile_rows)`` <- ``pallas_ring_reduce_scatter``:
   out of place, ``(n, S)`` -> ``(n, S/n)``, rank r keeps chunk r. Like the
   reference it needs ``S % (n*128) == 0``, so the chunks are the semantic
   1/n splits.
 - ``ring_allgather(x, tile_rows)`` <- ``pallas_ring_allgather``: ``(n, c)``
-  -> ``(n, n*c)``, each rank's chunk padded to 128 lanes and the output
-  unpadded per chunk.
-
-``tile_rows=None`` runs one tile per chunk; otherwise chunks are cut into
-``tile_rows * 128``-element tiles, a chunk padded at its end to whole
-tiles. The kernel's tile loop is the same in every mode.
+  -> ``(n, n*c)``, every row the concatenation.
 
 ``x`` is rank-major: row ``x[r]`` is rank r's buffer; in this slice every
 rank lives on the tensor's one device. For a CUDA tensor a wrapper
 launches the kernel or raises; only a CPU tensor takes the plain version.
 
-The plain versions walk the kernel's hop schedule in lockstep over the
-padded ``(n, chunks, per)`` tensor (per step every rank sends, then every
-rank folds ``mine + recvd`` or overwrites), with the kernel's padding and
-fold order, so the kernel equals them bit for bit in float32 and bfloat16.
-Walking the tiles of a step together instead of one by one changes
-nothing: tiles are disjoint, and each element sees the same folds in the
-same order.
+The TPU ring relays chunk c around the ring, each hop adding one rank's
+value to the running sum, starting at rank c (allreduce) or rank c+1
+(reduce-scatter): ``acc = x[c]; acc = x[c+k] + acc`` for k = 1..n-1, ranks
+mod n. The kernel and the plain versions fold the n rows of every chunk
+directly in that order, so both equal the Pallas kernels bit for bit in
+float32 and bfloat16. The allreduce's padding is its chunk geometry: it
+decides which chunk an element lies in, and so its fold order. In
+reduce-scatter and allgather tiles would only pad a chunk at its end,
+which moves no element to another chunk, so there ``tile_rows`` is
+validated and changes nothing.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -46,14 +46,14 @@ LAUNCHES = {"ring_allreduce": 0, "hbm_ring_allreduce": 0,
 
 LANES = 128
 MAX_RANKS = 32
-FLAG_WORDS = 8  # per lane and rank, as ring.cu's RNR_FLAG_WORDS
+FLAG_WORDS = 2  # per lane and rank, as ring.cu's RNR_FLAG_WORDS
 MODE_AR, MODE_RS, MODE_AG = 0, 1, 2  # ring.cu's RNR_MODE_*
 
 
 def _geometry(x: torch.Tensor, align: int) -> tuple[int, int, int]:
     """(n ranks, elements per rank, padded chunk elements)."""
     n = x.shape[0]
-    size = x[0].numel() if n else 0
+    size = x.numel() // n if n else 0
     per = -(-size // n) if n else 0
     return n, size, -(-per // align) * align
 
@@ -66,50 +66,53 @@ def _pad_chunks(x: torch.Tensor, align: int) -> torch.Tensor:
     return buf.reshape(n, n, per)
 
 
-def _plain_walk(buf: torch.Tensor) -> torch.Tensor:
-    """Run the ring on a padded (n, n, per) buffer, in place, in lockstep:
-    n-1 accumulate hops, then n-1 overwrite hops."""
+def _fold_chunks(buf: torch.Tensor, first: int) -> torch.Tensor:
+    """Sum a rank-major ``(n, n, per)`` buffer chunk by chunk in the ring's
+    order: chunk c is ``acc = buf[c+first, c]``, then
+    ``acc = buf[c+first+k, c] + acc`` for k = 1..n-1 (ranks mod n). Returns
+    ``(n, per)``, row c the sum of chunk c."""
     n = buf.shape[0]
-    r = torch.arange(n, device=buf.device)
-    for s in range(n - 1):
-        recvd = torch.roll(buf[r, (r - s) % n], 1, 0)  # rank r gets r-1's
-        recv = (r - s - 1) % n
-        buf[r, recv] = buf[r, recv] + recvd
-    for s in range(n - 1):
-        buf[r, (r - s) % n] = torch.roll(buf[r, (r + 1 - s) % n], 1, 0)
-    return buf
+    c = torch.arange(n, device=buf.device)
+    acc = buf[(c + first) % n, c]
+    for k in range(1, n):
+        acc = buf[(c + first + k) % n, c] + acc
+    return acc
 
 
 def _unpad(buf: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    if buf.numel() == x.numel():
+        return buf.view(x.shape)
     n, size, _ = _geometry(x, 1)
     return buf.reshape(n, -1)[:, :size].reshape(x.shape)
 
 
+def _allreduce_plain(x: torch.Tensor, align: int) -> torch.Tensor:
+    """The allreduce of rank-major ``x`` with chunks padded to ``align``,
+    out of place."""
+    n, size, _ = _geometry(x, align)
+    if n == 1:
+        return x.clone()
+    row = _fold_chunks(_pad_chunks(x, align), 0).reshape(-1)[:size]
+    return row.expand(n, size).reshape(x.shape).contiguous()
+
+
 def ring_allreduce_plain(x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of ``ring_allreduce`` (out of place)."""
-    if x.shape[0] == 1:
-        return x.clone()
-    return _unpad(_plain_walk(_pad_chunks(x, LANES)), x)
+    return _allreduce_plain(x, LANES)
 
 
 def hbm_ring_allreduce_plain(x: torch.Tensor, tile_rows: int = 64) -> torch.Tensor:
     """Plain PyTorch version of ``hbm_ring_allreduce``: writes the result
     into ``x`` and returns it."""
     if x.shape[0] > 1:
-        x.copy_(_unpad(_plain_walk(_pad_chunks(x, tile_rows * LANES)), x))
+        x.copy_(_allreduce_plain(x, tile_rows * LANES))
     return x
 
 
-def _tiles(per: int, tile_rows: int | None) -> tuple[int, int]:
-    """(tile elements, chunk elements padded to whole tiles) for a chunk of
-    ``per`` elements: one 128-lane-padded tile when ``tile_rows`` is None."""
-    if tile_rows is None:
-        padded = -(-per // LANES) * LANES
-        return padded, padded
-    if tile_rows < 1:
+def _check_tile_rows(tile_rows: int | None) -> None:
+    """Raise unless ``tile_rows`` is None (one tile a chunk) or >= 1."""
+    if tile_rows is not None and tile_rows < 1:
         raise ValueError(f"tile_rows must be >= 1, got {tile_rows}")
-    tile = tile_rows * LANES
-    return tile, -(-per // tile) * tile
 
 
 def _rs_chunk(x: torch.Tensor) -> int:
@@ -125,49 +128,35 @@ def _rs_chunk(x: torch.Tensor) -> int:
 
 def ring_reduce_scatter_plain(x: torch.Tensor,
                               tile_rows: int | None = None) -> torch.Tensor:
-    """Plain PyTorch version of ``ring_reduce_scatter``: the -1-shifted
-    reduce phase, n-1 accumulate hops with send ``(r-s-1)``, recv
-    ``(r-s-2)``, in lockstep; returns ``(n, S/n)``, row r chunk r."""
+    """Plain PyTorch version of ``ring_reduce_scatter``: chunk r folded from
+    rank r+1 in ring order; returns ``(n, S/n)``, row r chunk r."""
     n = x.shape[0]
     if n == 1:
         return x.reshape(1, -1).clone()
     per = _rs_chunk(x)
-    _tiles(per, tile_rows)  # validates tile_rows; the padding changes no bit
-    buf = x.reshape(n, n, per).clone()
-    r = torch.arange(n, device=buf.device)
-    for s in range(n - 1):
-        recvd = torch.roll(buf[r, (r - s - 1) % n], 1, 0)  # rank r gets r-1's
-        recv = (r - s - 2) % n
-        buf[r, recv] = buf[r, recv] + recvd
-    return buf[r, r]
+    _check_tile_rows(tile_rows)
+    return _fold_chunks(x.reshape(n, n, per), 1)
 
 
 def ring_allgather_plain(x: torch.Tensor,
                          tile_rows: int | None = None) -> torch.Tensor:
-    """Plain PyTorch version of ``ring_allgather``: chunk r of rank r is its
-    own padded buffer, then n-1 overwrite hops with send ``(r-s)``, recv
-    ``(r-s-1)``, in lockstep; returns ``(n, n*c)``, unpadded per chunk."""
+    """Plain PyTorch version of ``ring_allgather``: returns ``(n, n*c)``,
+    every row the concatenation of the ranks' buffers."""
     n = x.shape[0]
     flat = x.reshape(n, -1)
-    c = flat.shape[1]
     if n == 1:
         return flat.clone()
-    _, per = _tiles(c, tile_rows)
-    buf = flat.new_zeros((n, n, per))
-    r = torch.arange(n, device=buf.device)
-    buf[r, r, :c] = flat
-    for s in range(n - 1):
-        buf[r, (r - s - 1) % n] = torch.roll(buf[r, (r - s) % n], 1, 0)
-    return buf[:, :, :c].reshape(n, n * c)
+    _check_tile_rows(tile_rows)
+    return flat.reshape(1, -1).expand(n, -1).contiguous()
 
 
 def _check(x: torch.Tensor, what: str) -> bool:
     """Validate ``x``; True when it lies on the CPU (plain path)."""
     if x.dim() < 1:
         raise ValueError(f"{what}: x must be rank-major (n, ...), got a scalar")
-    if x.device.type == "cpu":
-        return True
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return True
         raise ValueError(f"{what} runs on cuda or cpu, got {x.device}")
     if x.dtype not in DTYPE_CODES:
         raise ValueError(f"{what} kernel takes float32/bfloat16, got {x.dtype}")
@@ -178,44 +167,80 @@ def _check(x: torch.Tensor, what: str) -> bool:
 
 def _aligned(x: torch.Tensor, row_elems: int) -> bool:
     """Can the kernel address ``x``'s storage as rows of ``row_elems``?"""
-    return (x.is_contiguous() and x[0].numel() == row_elems
+    return (x.is_contiguous() and x.numel() == x.shape[0] * row_elems
             and x.data_ptr() % 16 == 0)
 
 
-def _launch(src: torch.Tensor | None, data: torch.Tensor, n: int, per: int,
-            tile: int, mode: int = MODE_AR) -> None:
-    """Run the kernel in ``mode`` on ``data`` (n rows of n*per elements),
-    copying ``src`` in first when given."""
+@functools.lru_cache(maxsize=256)
+def _lanes(device: int, n: int, per: int, code: int) -> int:
+    """The kernel's lanes per rank for n ranks of ``per``-element chunks,
+    from one occupancy query per shape."""
     lib = _build.load("ring")
-    code = DTYPE_CODES[data.dtype]
-    dev = data.device
-    with torch.cuda.device(dev):
-        lanes = lib.rnr_ring_lanes(n, tile, code)
-        _build.check(lib, "rnr_ring_error", min(lanes, 0), "ring lane query")
-        comm = torch.empty((n, 2 * tile), dtype=data.dtype, device=dev)
-        flags = torch.empty((n, lanes * FLAG_WORDS), dtype=torch.int32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.rnr_ring(
-            *(None if t is None else _build.row_pointers(t, n)
-              for t in (src, data, comm, flags)),
-            n, per, tile, lanes, code, mode, flags.data_ptr(),
-            flags.numel() * flags.element_size(), stream)
+    with torch.cuda.device(device):
+        lanes = lib.rnr_ring_lanes(n, per, code)
+    _build.check(lib, "rnr_ring_error", min(lanes, 0), "ring lane query")
+    return lanes
+
+
+# (device, stream, n, lanes) -> [flag words (n, lanes * FLAG_WORDS), their
+# row pointer table, launches so far]. The kernel's flags are epoch-counted:
+# zeroed once here, never reset, each launch on the stream waits for its
+# own epoch's counts.
+_FLAGS: dict[tuple, list] = {}
+
+
+def _flags(device: int, stream: int, n: int, lanes: int) -> list:
+    key = (device, stream, n, lanes)
+    entry = _FLAGS.get(key)
+    if entry is None:
+        words = torch.zeros((n, lanes * FLAG_WORDS), dtype=torch.int32, device=device)
+        entry = _FLAGS[key] = [words, _build.row_pointers(words, n), 0]
+    return entry
+
+
+def _launch(src: torch.Tensor, dst: torch.Tensor, n: int, per: int, mode: int,
+            sync: bool = True) -> None:
+    """Run the kernel in ``mode`` from the n rows of ``src`` into the n rows
+    of ``dst`` (the same rows: in place), chunks of ``per`` elements.
+    ``sync=False`` skips the barrier and the arrivals: only for timing the
+    data pass alone."""
+    lib = _build.load("ring")
+    code = DTYPE_CODES[dst.dtype]
+    device = dst.get_device()
+    lanes = _lanes(device, n, per, code)
+    # the raw handle: torch.cuda.current_stream() builds a Stream object,
+    # several microseconds a call on the host
+    stream = torch._C._cuda_getCurrentRawStream(device)
+    flags = _flags(device, stream, n, lanes)
+    epoch = flags[2] + 1 if sync else flags[2]
+    rc = lib.rnr_ring(_build.row_pointers(src, n), _build.row_pointers(dst, n),
+                      flags[1], n, per, lanes, code, mode, epoch & 0xFFFFFFFF,
+                      int(sync), device, stream)
     _build.check(lib, "rnr_ring_error", rc, "ring kernel launch (cooperative)")
+    flags[2] = epoch
+
+
+def _allreduce(x: torch.Tensor, align: int, counter: str) -> torch.Tensor:
+    """The kernel's allreduce of CUDA ``x`` with chunks padded to
+    ``align``, out of place; counts one launch of ``counter``."""
+    n, size, per = _geometry(x, align)
+    if n == 1 or size == 0:
+        return x.clone()
+    if _aligned(x, n * per):
+        out = torch.empty_like(x)
+        _launch(x, out, n, per, MODE_AR)
+    else:  # reduce a padded copy in place
+        out = _pad_chunks(x, align).reshape(n, n * per)
+        _launch(out, out, n, per, MODE_AR)
+    LAUNCHES[counter] += 1
+    return _unpad(out, x)
 
 
 def ring_allreduce(x: torch.Tensor) -> torch.Tensor:
     """Sum allreduce of rank-major ``x``; returns a new tensor (x unchanged)."""
     if _check(x, "ring_allreduce"):
         return ring_allreduce_plain(x)
-    n, size, per = _geometry(x, LANES)
-    if n == 1 or size == 0:
-        return x.clone()
-    src = (x.reshape(n, n * per) if _aligned(x, n * per)
-           else _pad_chunks(x, LANES).reshape(n, n * per))
-    out = torch.empty((n, n * per), dtype=x.dtype, device=x.device)
-    _launch(src, out, n, per, per)
-    LAUNCHES["ring_allreduce"] += 1
-    return _unpad(out, x)
+    return _allreduce(x, LANES, "ring_allreduce")
 
 
 def hbm_ring_allreduce(x: torch.Tensor, tile_rows: int = 64) -> torch.Tensor:
@@ -223,8 +248,7 @@ def hbm_ring_allreduce(x: torch.Tensor, tile_rows: int = 64) -> torch.Tensor:
     ``x``, which is returned. When ``x``'s size is not a whole number of
     tiles per chunk, the kernel runs on a padded copy that is then written
     back into ``x``."""
-    if tile_rows < 1:
-        raise ValueError(f"tile_rows must be >= 1, got {tile_rows}")
+    _check_tile_rows(tile_rows)
     if _check(x, "hbm_ring_allreduce"):
         return hbm_ring_allreduce_plain(x, tile_rows)
     tile = tile_rows * LANES
@@ -232,13 +256,28 @@ def hbm_ring_allreduce(x: torch.Tensor, tile_rows: int = 64) -> torch.Tensor:
     if n == 1 or size == 0:
         return x
     if _aligned(x, n * per):
-        _launch(None, x.view(n, n * per), n, per, tile)
+        _launch(x, x, n, per, MODE_AR)
+        LAUNCHES["hbm_ring_allreduce"] += 1
     else:
-        buf = _pad_chunks(x, tile).reshape(n, n * per)
-        _launch(None, buf, n, per, tile)
-        x.copy_(_unpad(buf, x))
-    LAUNCHES["hbm_ring_allreduce"] += 1
+        x.copy_(_allreduce(x, tile, "hbm_ring_allreduce"))
     return x
+
+
+def _tiled_allreduce(x: torch.Tensor, tile_rows: int) -> torch.Tensor:
+    """``hbm_ring_allreduce``'s result, out of place: ``x`` is left as it
+    is. The ``cuda_ring`` arm's tiled tier, counted as
+    ``hbm_ring_allreduce``."""
+    _check_tile_rows(tile_rows)
+    if _check(x, "hbm_ring_allreduce"):
+        return _allreduce_plain(x, tile_rows * LANES)
+    return _allreduce(x, tile_rows * LANES, "hbm_ring_allreduce")
+
+
+def _contiguous_rows(x: torch.Tensor, n: int, row: int) -> torch.Tensor:
+    """``x`` as n 16-byte-aligned contiguous rows of ``row`` elements,
+    copied only when it is not already."""
+    rows = x.reshape(n, row)
+    return rows if _aligned(rows, row) else rows.clone(memory_format=torch.contiguous_format)
 
 
 def ring_reduce_scatter(x: torch.Tensor, tile_rows: int | None = None) -> torch.Tensor:
@@ -251,18 +290,11 @@ def ring_reduce_scatter(x: torch.Tensor, tile_rows: int | None = None) -> torch.
     if n == 1:
         return x.reshape(1, -1).clone()
     per = _rs_chunk(x)
-    tile, padded = _tiles(per, tile_rows)
-    if padded == per and _aligned(x, n * per):
-        src = x.reshape(n, n * per)
-    else:  # pad each chunk at its end to whole tiles
-        src = x.new_zeros((n, n, padded))
-        src[:, :, :per] = x.reshape(n, n, per)
-        src = src.reshape(n, n * padded)
-    data = torch.empty((n, n * padded), dtype=x.dtype, device=x.device)
-    _launch(src, data, n, padded, tile, MODE_RS)
+    _check_tile_rows(tile_rows)
+    out = torch.empty((n, per), dtype=x.dtype, device=x.device)
+    _launch(_contiguous_rows(x, n, n * per), out, n, per, MODE_RS)
     LAUNCHES["ring_reduce_scatter"] += 1
-    r = torch.arange(n, device=x.device)
-    return data.view(n, n, padded)[r, r, :per]
+    return out
 
 
 def ring_allgather(x: torch.Tensor, tile_rows: int | None = None) -> torch.Tensor:
@@ -274,13 +306,15 @@ def ring_allgather(x: torch.Tensor, tile_rows: int | None = None) -> torch.Tenso
     c = x[0].numel()
     if n == 1 or c == 0:
         return x.reshape(n, -1).clone()
-    tile, padded = _tiles(c, tile_rows)
-    if _aligned(x, padded):
-        src = x.reshape(n, padded)
-    else:  # pad each rank's chunk to whole tiles
-        src = x.new_zeros((n, padded))
+    _check_tile_rows(tile_rows)
+    vec = 16 // x.element_size()
+    per = -(-c // vec) * vec  # chunks start 16-byte aligned
+    if per == c:
+        src = _contiguous_rows(x, n, c)
+    else:
+        src = x.new_zeros((n, per))
         src[:, :c] = x.reshape(n, c)
-    data = torch.empty((n, n * padded), dtype=x.dtype, device=x.device)
-    _launch(src, data, n, padded, tile, MODE_AG)
+    out = torch.empty((n, n * per), dtype=x.dtype, device=x.device)
+    _launch(src, out, n, per, MODE_AG)
     LAUNCHES["ring_allgather"] += 1
-    return data.view(n, n, padded)[:, :, :c].reshape(n, n * c)
+    return out if per == c else out.view(n, n, per)[:, :, :c].reshape(n, n * c)

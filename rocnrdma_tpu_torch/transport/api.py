@@ -22,9 +22,9 @@ Algorithms (``SCHEDULES``):
   are sum-only. The ring verbs take the tile policy below: one tile while
   a chunk (a rank's buffer over n; for allgather the rank's buffer) fits
   in one ``CUDA_RING_TILE_BYTES`` tile, else the fewest tiles of at most
-  that size. Allreduce runs its tiled tier
-  (``ring_cuda.hbm_ring_allreduce``) on a copy, so the caller's tensor is
-  never changed.
+  that size. Allreduce runs its tiled tier out of place (the result of
+  ``ring_cuda.hbm_ring_allreduce``), so the caller's tensor is never
+  changed.
 - ``"auto"`` - ``RNR_ALGO`` when set and supported, else ``fused``.
 
 ``RNR_DEBUG=1`` logs one stderr line per verb dispatch.
@@ -48,11 +48,11 @@ _DEBUG_LOG = os.environ.get("RNR_DEBUG", "") not in ("", "0")
 
 ALGOS = ("auto", "fused", "ring", "ring_bidir", "bruck", "cuda_ring")
 
-# The largest tile of the cuda_ring arm. The kernel pays ~19 us a
-# (step, tile) hop on the H100, so time falls with the tile count until a
-# tile carries a few MiB; 16 MiB tiles were as fast as any at 256 MiB and
-# 1 GiB per rank (bench/bench_ring_tiles.py, PERF.md) and bound the comm
-# slots at two tiles a rank.
+# The largest tile of the cuda_ring arm. The ring kernel folds each chunk in
+# one direct pass, so tiles no longer set its time: they set only the
+# padding of a chunk to whole tiles, which for allreduce decides which chunk
+# an element lies in and so its fold order. The value keeps the arm's
+# results those of the reference's tiled tier at 16 MiB tiles.
 CUDA_RING_TILE_BYTES = 16 * MiB
 
 
@@ -72,7 +72,7 @@ def _cuda_ring_allreduce(x: torch.Tensor) -> torch.Tensor:
     tile_rows = cuda_ring_tile_rows(x)
     if tile_rows is None:
         return ring_cuda.ring_allreduce(x)
-    return ring_cuda.hbm_ring_allreduce(x.clone(), tile_rows=tile_rows)
+    return ring_cuda._tiled_allreduce(x, tile_rows)
 
 
 def _cuda_ring_reduce_scatter(x: torch.Tensor) -> torch.Tensor:

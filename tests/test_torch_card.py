@@ -46,7 +46,28 @@ def test_ring_kernels_bitwise_equal_plain(cuda_device, n, dtype):
     assert after["hbm_ring_allreduce"] == before["hbm_ring_allreduce"] + 2
 
 
-@pytest.mark.parametrize("k", [2, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_kernel_back_to_back_launches_on_cached_flags(cuda_device, dtype):
+    # every mode, launched again and again on the flags cached per (n,
+    # lanes), with launches of other n (n=12: the batched path) in between;
+    # the flags are never reset, each launch waits for its own epoch
+    from rocnrdma_tpu_torch.ops import ring_cuda
+    xs = {n: _randn((n, n * 3 * 128), dtype, 70 + n, cuda_device) for n in (3, 8, 12)}
+    for n in (8, 3, 8, 12, 8):
+        x = xs[n]
+        for _ in range(2):
+            assert torch.equal(T.ring_allreduce(x), T.ring_allreduce_plain(x))
+            y = x.clone()
+            T.hbm_ring_allreduce(y, tile_rows=1)
+            assert torch.equal(y, T.hbm_ring_allreduce_plain(x.clone(), tile_rows=1))
+            assert torch.equal(T.ring_reduce_scatter(x), T.ring_reduce_scatter_plain(x))
+            assert torch.equal(T.ring_allgather(x), T.ring_allgather_plain(x))
+    torch.cuda.synchronize()
+    for (_, _, n, _), (words, _, epoch) in ring_cuda._FLAGS.items():
+        assert epoch > 0 and bool((words == epoch * (n - 1)).all())
+
+
+@pytest.mark.parametrize("k", range(2, 9))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_combine_kernel_bitwise_equals_plain(cuda_device, k, dtype):
     xs = [_randn((100003,), dtype, 10 * k + j, cuda_device) for j in range(k)]

@@ -6,8 +6,9 @@ allreduce, reduce-scatter and allgather modes of ``ops/csrc/ring.cu``.
   ``tests/test_pallas_ring.py`` runs them: bitwise in float32 and bfloat16
   (both fold ``mine + recvd`` per hop, rounded to the buffer dtype once per
   hop, in the same hop order and padding; the allgather only copies).
-- A model of the CUDA kernel's flag protocol (send, flag, wait, fold,
-  credit per (rank, lane)) in each mode, stepped through seeded random
+- A model of the CUDA kernel's protocol (entry barrier, direct reads in
+  fold order, writes, exit arrivals, per (rank, lane), epoch-counted flags
+  over back-to-back launches) in each mode, stepped through seeded random
   interleavings: the stand-in for the interpret-mode backpressure test,
   since the kernel itself runs only on the card.
 - The kernels themselves run on the card: ``tests/test_torch_card.py``.
@@ -152,150 +153,186 @@ def test_ring_wrappers_single_rank_and_validation():
 
 
 # ---------------------------------------------------------------------------
-# A model of ring.cu's protocol. Each (rank, lane) runs the kernel's action
-# list; a scheduler picks a random runnable lane each tick. Waits are
-# runnable only when satisfied. The model asserts that no slot is written
-# while it holds data its receiver has not consumed, that no lane
-# deadlocks, that every flag ends at its final sequence number, and that
-# the values equal the plain version.
+# A model of ring.cu's protocol. Each (rank, lane) block runs the kernel's
+# action list for a sequence of launches on one flag buffer, which is never
+# reset; a scheduler picks a random runnable block each tick, and a wait is
+# runnable only once its flag has reached this launch's count. Ranks keep no
+# step with each other, as on separate cards: a rank's lane hands its input
+# to launch e when it enters, and takes its output back when it leaves. The
+# model asserts that no block reads a peer's input or writes a peer's
+# output outside the peer's part of the same launch, that no block leaves
+# before every write into its output has landed, that no block deadlocks,
+# that every flag ends at launches*(n-1), and that the values equal the
+# plain versions.
 
 
-def _steps(mode, n):
-    """Hop steps of a mode: allreduce 2(n-1), reduce-scatter and allgather n-1."""
-    return 2 * (n - 1) if mode == "ar" else n - 1
-
-
-def _hop(mode, n, r, step):
-    """(accumulate, send chunk, recv chunk) of rank r at ``step``, as ring.cu."""
-    if mode == "rs":
-        return True, (r - step - 1) % n, (r - step - 2) % n
+def _fold_ranks(mode, n, r):
+    """(input ranks in fold order, (output rank, output chunk) pairs) of
+    the block that owns chunk r."""
     if mode == "ag":
-        return False, (r - step) % n, (r - step - 1) % n
-    acc = step < n - 1
-    s = step if acc else step - (n - 1)
-    return (acc, (r - s) % n if acc else (r + 1 - s) % n,
-            (r - s - 1) % n if acc else (r - s) % n)
+        return [r], [(d, r) for d in range(n)]
+    if mode == "rs":  # output row r holds chunk r alone
+        return [(r + 1 + k) % n for k in range(n)], [(r, 0)]
+    return [(r + k) % n for k in range(n)], [(d, r) for d in range(n)]
 
 
-def _lane_program(n, r, n_tiles, mode="ar"):
-    left, right = (r - 1) % n, (r + 1) % n
-    prog = [("signal_bar", (left, right)), ("wait", ("bar", r, 0), 2)]
-    hops = _steps(mode, n) * n_tiles
-    for g in range(hops):
-        step, t = divmod(g, n_tiles)
-        acc, send, recv = _hop(mode, n, r, step)
-        slot, use = g % 2, g // 2
-        if g >= 2:
-            prog.append(("wait", ("cred", r, slot), use))
-        prog.append(("write", right, slot, send, t))
-        prog.append(("store_flag", ("recv", right, slot), use + 1))
-        prog.append(("wait", ("recv", r, slot), use + 1))
-        prog.append(("fold" if acc else "copy", slot, recv, t))
-        prog.append(("add_flag", ("cred", left, slot)))
-    for slot in range(min(2, hops)):
-        prog.append(("wait", ("cred", r, slot), (hops - slot + 1) // 2))
-    return prog, hops
+def _lane_program(mode, n, r, e):
+    """ring.cu's actions for block (r, b) in launch e (from 1)."""
+    srcs, dsts = _fold_ranks(mode, n, r)
+    return ([("enter",), ("signal", "bar"), ("wait", "bar", e * (n - 1))]
+            + [("load", p, k) for k, p in enumerate(srcs)]
+            + [("store", d, c) for d, c in dsts]
+            + [("signal", "arr"), ("wait", "arr", e * (n - 1)), ("leave",)])
 
 
-def _run_protocol(x: np.ndarray, n_tiles: int, lanes: int, seed: int,
-                  mode: str = "ar") -> np.ndarray:
-    """x: (n, n, n_tiles, tile) float32, tile divisible by lanes: the ranks'
-    working buffers after the copy-in (allgather: chunk r of rank r, the
-    rest NaN, so reading a chunk that never arrived shows)."""
-    n = x.shape[0]
-    tile = x.shape[3]
-    w = tile // lanes
-    data = x.copy()
-    slots = np.zeros((n, 2, tile), np.float32)
-    full = np.zeros((n, 2, lanes), bool)  # slot lane holds unconsumed data
-    flags = {}
-    progs, pcs = {}, {}
+def _run_protocol(launches, lanes, seed, program=_lane_program):
+    """Run ``launches``, a list of (mode, x, in_place): x the ranks' inputs,
+    (n, n, per) for "ar"/"rs", (n, 1, per) for "ag". Returns each launch's
+    outputs: (n, n, per), or (n, 1, per) for "rs"."""
+    n, per = launches[0][1].shape[0], launches[0][1].shape[2]
+    w = per // lanes
+    ins, outs = [], []
+    for mode, x, in_place in launches:
+        ins.append(x.copy())
+        outs.append(ins[-1] if in_place else
+                    np.full((n, 1 if mode == "rs" else n, per), np.nan, np.float32))
+    progs, pcs, acc = {}, {}, {}
     for r in range(n):
-        prog, hops = _lane_program(n, r, n_tiles, mode)
+        prog = [(e, act) for e, (mode, _, _) in enumerate(launches, 1)
+                for act in program(mode, n, r, e)]
         for b in range(lanes):
             progs[(r, b)], pcs[(r, b)] = prog, 0
+    flags = {}
+    # the launch whose part a (rank, lane) is in, 0 between its parts
+    inside = np.zeros((n, lanes), int)
+    landed = {}  # (rank, chunk, lane) -> launch of the last write
     rng = np.random.default_rng(seed)
 
     def runnable(key):
-        prog, pc = progs[key], pcs[key]
-        if pc == len(prog):
+        if pcs[key] == len(progs[key]):
             return False
-        act = prog[pc]
-        return act[0] != "wait" or flags.get(act[1] + (key[1],), 0) >= act[2]
+        act = progs[key][pcs[key]][1]
+        return act[0] != "wait" or flags.get((act[1], key[0], key[1]), 0) >= act[2]
 
     while True:
         ready = [k for k in progs if runnable(k)]
         if not ready:
             break
         r, b = key = ready[rng.integers(len(ready))]
-        act = progs[key][pcs[key]]
+        e, act = progs[key][pcs[key]]
+        mode = launches[e - 1][0]
         lo, hi = b * w, (b + 1) * w
-        if act[0] == "signal_bar":
-            for peer in act[1]:
-                flags[("bar", peer, 0, b)] = flags.get(("bar", peer, 0, b), 0) + 1
-        elif act[0] == "write":
-            _, dst, slot, send, t = act
-            assert not full[dst, slot, b], "slot overwritten before its credit"
-            slots[dst, slot, lo:hi] = data[r, send, t, lo:hi]
-            full[dst, slot, b] = True
-        elif act[0] == "store_flag":
-            flags[act[1] + (b,)] = act[2]
-        elif act[0] in ("fold", "copy"):
-            _, slot, recv, t = act
-            assert full[r, slot, b], "consumed a slot that was never written"
-            if act[0] == "fold":
-                data[r, recv, t, lo:hi] = data[r, recv, t, lo:hi] + slots[r, slot, lo:hi]
-            else:
-                data[r, recv, t, lo:hi] = slots[r, slot, lo:hi]
-            full[r, slot, b] = False
-        elif act[0] == "add_flag":
-            flags[act[1] + (b,)] = flags.get(act[1] + (b,), 0) + 1
+        if act[0] == "enter":
+            inside[r, b] = e
+        elif act[0] == "signal":
+            for s in range(1, n):
+                f = (act[1], (r + s) % n, b)
+                flags[f] = flags.get(f, 0) + 1
+        elif act[0] == "load":
+            _, p, k = act
+            assert inside[p, b] == e, f"read rank {p}'s input outside launch {e}"
+            v = ins[e - 1][p, 0 if mode == "ag" else r, lo:hi]
+            acc[key] = v.copy() if k == 0 else v + acc[key]
+        elif act[0] == "store":
+            _, d, c = act
+            assert inside[d, b] == e, f"wrote rank {d}'s output outside launch {e}"
+            outs[e - 1][d, c, lo:hi] = acc[key]
+            landed[(d, c, b)] = e
+        elif act[0] == "leave":
+            for c in range(outs[e - 1].shape[1]):
+                assert landed.get((r, c, b)) == e, \
+                    f"rank {r} left launch {e} before chunk {c} landed"
+            inside[r, b] = 0
         pcs[key] += 1
 
     stuck = [k for k in progs if pcs[k] != len(progs[k])]
-    assert not stuck, f"deadlock: lanes {stuck} blocked"
-    hops = _steps(mode, n) * n_tiles
+    assert not stuck, f"deadlock: blocks {stuck} stuck"
     for r in range(n):
         for b in range(lanes):
-            assert flags[("bar", r, 0, b)] == 2
-            for slot in range(min(2, hops)):
-                uses = (hops - slot + 1) // 2
-                assert flags[("recv", r, slot, b)] == uses
-                assert flags[("cred", r, slot, b)] == uses
-    assert not full.any()
-    return data
+            for word in ("bar", "arr"):
+                assert flags[(word, r, b)] == len(launches) * (n - 1)
+    return outs
+
+
+def _plain(mode, x):
+    """The plain version's result of one launch, shaped as the model's."""
+    n, per = x.shape[0], x.shape[2]
+    t = torch.from_numpy(x.reshape(n, -1))
+    if mode == "ar":
+        return T.ring_allreduce_plain(t).numpy().reshape(n, n, per)
+    if mode == "rs":
+        return T.ring_reduce_scatter_plain(t).numpy().reshape(n, 1, per)
+    return T.ring_allgather_plain(t).numpy().reshape(n, n, per)
+
+
+def _launch_inputs(mode, n, per, rng):
+    return rng.standard_normal((n, 1 if mode == "ag" else n, per)).astype(np.float32)
 
 
 @pytest.mark.parametrize("n", [2, 3, 8])
 def test_ring_kernel_protocol_model_random_interleavings(n):
-    # chunks of 2 tiles x 64 = 128 elements: the plain version's padded
-    # chunk is then exactly the model's chunk
-    n_tiles, lanes, tile = 2, 2, 64
-    x = np.random.default_rng(n).standard_normal(
-        (n, n, n_tiles, tile)).astype(np.float32)
-    want = T.ring_allreduce_plain(torch.from_numpy(x.reshape(n, -1))).numpy()
+    # 128-element chunks: the plain version's padded chunk is the model's
+    per, lanes = 128, 2
+    x = _launch_inputs("ar", n, per, np.random.default_rng(n))
+    want = _plain("ar", x)
     for seed in range(200):
-        got = _run_protocol(x, n_tiles, lanes, seed)
-        np.testing.assert_array_equal(_bits(got.reshape(n, -1)), _bits(want))
+        got, = _run_protocol([("ar", x, False)], lanes, seed)
+        np.testing.assert_array_equal(_bits(got), _bits(want))
 
 
 @pytest.mark.parametrize("n", [2, 3, 8])
 @pytest.mark.parametrize("mode", ["rs", "ag"])
 def test_ring_kernel_protocol_model_rs_ag_modes(n, mode):
-    # the reduce-scatter and allgather modes of the same kernel: n-1 hops
-    # a tile, their own indices, and the drain counted for that hop count
-    n_tiles, lanes, tile = 2, 2, 64
-    rng = np.random.default_rng(40 + n)
-    if mode == "rs":
-        x = rng.standard_normal((n, n, n_tiles, tile)).astype(np.float32)
-        want = T.ring_reduce_scatter_plain(torch.from_numpy(x.reshape(n, -1))).numpy()
-    else:
-        own = rng.standard_normal((n, n_tiles, tile)).astype(np.float32)
-        x = np.full((n, n, n_tiles, tile), np.nan, np.float32)
-        x[np.arange(n), np.arange(n)] = own
-        want = T.ring_allgather_plain(torch.from_numpy(own.reshape(n, -1))).numpy()
+    # the reduce-scatter and allgather modes of the same kernel: their own
+    # fold start, outputs and operands, the same barrier and arrivals
+    per, lanes = 128, 2
+    x = _launch_inputs(mode, n, per, np.random.default_rng(40 + n))
+    want = _plain(mode, x)
     for seed in range(200):
-        got = _run_protocol(x, n_tiles, lanes, seed, mode)
-        if mode == "rs":
-            got = got[np.arange(n), np.arange(n)]
-        np.testing.assert_array_equal(_bits(got.reshape(n, -1)), _bits(want))
+        got, = _run_protocol([(mode, x, False)], lanes, seed)
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("n", [2, 3, 8])
+def test_ring_kernel_protocol_model_back_to_back_epochs(n):
+    # three launches on one flag buffer with no reset in between (the
+    # wrapper's cached flags): an in-place allreduce, a reduce-scatter and an
+    # allgather, each waiting for its own epoch's counts
+    per, lanes = 128, 2
+    rng = np.random.default_rng(60 + n)
+    modes = ["ar", "rs", "ag"]
+    xs = [_launch_inputs(m, n, per, rng) for m in modes]
+    wants = [_plain(m, x) for m, x in zip(modes, xs)]
+    for seed in range(200):
+        gots = _run_protocol([(m, x, m == "ar") for m, x in zip(modes, xs)],
+                             lanes, seed)
+        for got, want in zip(gots, wants):
+            np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+def _write_before_barrier(mode, n, r, e):
+    prog = _lane_program(mode, n, r, e)
+    data = [a for a in prog if a[0] in ("load", "store")]
+    rest = [a for a in prog if a[0] not in ("load", "store")]
+    return rest[:2] + data + rest[2:]  # enter, signal, data, wait, ...
+
+
+def _exit_before_arrivals(mode, n, r, e):
+    return [a for a in _lane_program(mode, n, r, e) if a[:2] != ("wait", "arr")]
+
+
+@pytest.mark.parametrize("n", [2, 3, 8])
+@pytest.mark.parametrize("program", [_write_before_barrier, _exit_before_arrivals])
+def test_ring_kernel_protocol_model_rejects_unsafe_orders(n, program):
+    # the model is strict enough to catch a kernel that reads and writes
+    # before its entry barrier, or leaves without waiting for its arrivals
+    per, lanes = 128, 2
+    rng = np.random.default_rng(80 + n)
+    launches = [(m, _launch_inputs(m, n, per, rng), False) for m in ("ar", "rs")]
+    caught = 0
+    for seed in range(50):
+        try:
+            _run_protocol(launches, lanes, seed, program)
+        except AssertionError:
+            caught += 1
+    assert caught > 0

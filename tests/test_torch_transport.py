@@ -84,7 +84,7 @@ def test_cuda_ring_arm_bitwise_equals_pallas_ring_arm(devices):
 
 
 def test_cuda_ring_tiled_tier_leaves_input_unchanged(monkeypatch):
-    # above the one-tile limit the arm runs the tiled tier on a copy
+    # above the one-tile limit the arm runs the tiled tier out of place
     monkeypatch.setattr(api, "CUDA_RING_TILE_BYTES", 4096)
     t = _cpu_transport(3)
     x = t.shard(np.random.default_rng(2).standard_normal((3, 5000)).astype(np.float32))
@@ -221,12 +221,50 @@ def test_bench_ring_tiles_rows_on_cpu(tmp_path):
     rows = bench_ring_tiles.run(bench_ring_tiles.make_parser().parse_args(
         ["--platform", "cpu", "--ranks", "3", "--sizes", "64K", "--tile-rows",
          "8,32,64", "--repeats", "1", "--iters", "1", "--out", str(out)]))
-    assert [(r["tier"], r["tile_rows"], r["tiles_per_chunk"], r["mini_hops"])
-            for r in rows] == [("one_tile", None, 1, 4), ("tiled", 8, 6, 24),
-                               ("tiled", 32, 2, 8)]
+    assert [(r["tier"], r["tile_rows"], r["tiles_per_chunk"], r["chunk_elems"])
+            for r in rows] == [("one_tile", None, 1, 5504), ("tiled", 8, 6, 6144),
+                               ("tiled", 32, 2, 8192)]
     assert all(r["ms"] > 0 and r["link"] == "hbm-loopback" for r in rows)
     assert [json.loads(line)["tile_rows"] for line in out.read_text().splitlines()] \
         == [None, 8, 32]
+
+
+def test_sass_loads_counts_loads_in_flight_before_an_add():
+    from rocnrdma_tpu_torch.bench import sass_loads
+    sass = """
+        Function : _Z1kv
+        /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x00000a00ff017b82 */
+                                                            /* 0x000fe20000000800 */
+        /*0010*/                   LDG.E.128 R4, desc[UR4][R2.64] ;
+        /*0020*/              @!P0 LDG.E.128 R8, desc[UR4][R2.64+0x10] ;
+        /*0030*/                   FADD R4, R4, R8 ;
+        /*0040*/                   LDG.E.128 R8, desc[UR4][R6.64] ;
+        /*0050*/                   FADD R4, R4, R8 ;
+        Function : _Z1jv
+        /*0000*/                   LDS.128 R8, [R2] ;
+        /*0010*/                   LD.E.128 R4, desc[UR4][R2.64] ;
+        /*0020*/                   STG.E [R2.64], R4 ;
+    """
+    assert sass_loads._loads(sass) == {"_Z1kv": {"ldg": 3, "loads_before_add": 2},
+                                       "_Z1jv": {"ldg": 1, "loads_before_add": 1}}
+    log = ("ptxas info    : Compiling entry function '_Z1kv' for 'sm_90a'\n"
+           "ptxas info    : Function properties for _Z1kv\n"
+           "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"
+           "ptxas info    : Used 40 registers, used 0 barriers\n")
+    assert sass_loads._ptxas(log) == {"_Z1kv": {"spill_bytes": 12, "registers": 40}}
+
+
+def test_kernel_variants_apply_to_the_committed_sources():
+    # every variant's substitution finds its target in today's sources
+    from rocnrdma_tpu_torch.bench import bench_kernel_variants as V
+    from rocnrdma_tpu_torch.ops import _build
+    for lib, apply in V.VARIANTS.values():
+        with open(os.path.join(_build.CSRC, f"{lib}.cu")) as fp:
+            src = fp.read()
+        out = apply(src)
+        assert out != src and out.count("__global__") == src.count("__global__")
+    with open(os.path.join(_build.CSRC, "ring.cu")) as fp:
+        assert "cp.async.bulk" in V.VARIANTS["ring_ag_bulk"][1](fp.read())
 
 
 def test_timing_helpers_on_cpu():
