@@ -23,8 +23,10 @@ Phases, each timed, any failure exits non-zero:
    MiB per rank (rounded down to n*128 elements) and 3*n*128 elements,
    allgather at a 700-element chunk and 1 MiB / 64 MiB gathered per rank.
    Alltoall: n in {2,3,8}, 77-element chunks, 1 MiB / 64 MiB per rank. A
-   50-round stress loop at n=8 for reduce-scatter and alltoall. Pipelined
-   (Triton) combine: k in {2,3}, 1000 elements / 256 MiB;
+   50-round stress loop at n=8 for reduce-scatter, and for alltoall with
+   alltoallv and an n=3 alltoall interleaved on their cached flags.
+   Pipelined (Triton) combine: k in 2..8 at 100 and 1000 elements and
+   1 MiB + 3 elements (ragged ends), k in {2,3} at 256 MiB;
 4. main paths, each with the launch counts zeroed before and read after,
    8 ranks on the one GPU, every point of every sweep checked against
    numpy (``--preset ring8 --fake-devices 8``: 4 KiB..256 MiB per rank,
@@ -48,11 +50,12 @@ Phases, each timed, any failure exits non-zero:
    main path, its time, its plain version's and the library call's time at
    the main path's shapes, and its bound: the larger of its bytes (each
    input read once, each output written once) at the datasheet HBM rate
-   and its fp32 adds at the datasheet fp32 rate. Before it, the ring
-   kernel's bytes moved per mode at those shapes beside the bound's bytes,
-   and a 4 KiB-per-rank ``cuda_ring`` allreduce split into host enqueue
-   time and device time, with the kernel timed alone with and without its
-   barrier and arrivals.
+   and its fp32 adds at the datasheet fp32 rate. Before it, the ring and
+   alltoall kernels' bytes moved at those shapes beside the bound's bytes;
+   a 4 KiB-per-rank ``cuda_ring`` allreduce and alltoall, each split into
+   host enqueue time and device time, with its kernel timed alone with and
+   without its barrier and arrivals; and per verb the ``cuda_ring`` arm
+   against ``fused`` at 4 KiB and at the sweep's crossover size.
 
 The last line is ``{"ok": true, "device": {...}}``. With ranks sharing one
 GPU, every bus bandwidth printed here is an HBM number, not NVLink.
@@ -70,6 +73,7 @@ import torch
 
 MiB = 1 << 20
 PHASE_S: dict[str, float] = {}
+CROSSOVER: dict[str, dict] = {}  # verb -> crossover() of its ring8 sweep
 
 
 @contextlib.contextmanager
@@ -212,19 +216,38 @@ def check_alltoall_kernel(ops) -> None:
                 del x, got
         torch.cuda.synchronize()
         print(f"alltoall kernel n={n}: ok", flush=True)
+    # back-to-back launches on the cached, epoch-counted flags: alltoall and
+    # alltoallv share the kernel and its flags, a launch of another n (its
+    # own flags) in between
+    from rocnrdma_tpu_torch.collectives.alltoall import ragged_mask
+    from rocnrdma_tpu_torch.ops import alltoall_cuda
     x = randn((8, 8, 1000), torch.float32, seed=9)
-    want = ops.alltoall_plain(x)
+    x3 = randn((3, 3, 1000), torch.float32, seed=10)
+    y = randn((8, 8, 125, 8), torch.float32, seed=11)
+    counts = torch.randint(0, 126, (8, 8), generator=torch.Generator().manual_seed(3))
+    want, want3 = ops.alltoall_plain(x), ops.alltoall_plain(x3)
+    want_v = ragged_mask(ops.alltoall_plain(y), counts)[0]
     for i in range(50):
         hold(f"alltoall stress round {i}", ops.alltoall(x), want)
+        hold(f"alltoall n=3 stress round {i}", ops.alltoall(x3), want3)
+        hold(f"alltoallv stress round {i}", ops.alltoallv(y, counts)[0], want_v)
     torch.cuda.synchronize()
+    for (_, _, n, _), (words, epoch) in alltoall_cuda._FLAGS.items():
+        if epoch < 1 or not bool((words == epoch * (n - 1)).all()):
+            raise AssertionError(f"alltoall flags n={n}: not at epoch {epoch}'s counts")
     print("alltoall stress x50: ok", flush=True)
 
 
 def check_pipelined_combine_kernel(ops) -> None:
-    for k in (2, 3):
+    # sizes with a ragged end (100: less than one 128-element row; 1000;
+    # 1 MiB + 3 elements) and without one (256 MiB)
+    for k in range(2, 9):
         for dtype in (torch.float32, torch.bfloat16):
             isz = torch.finfo(dtype).bits // 8
-            for label, elems in (("1000 el", 1000), ("256 MiB", 256 * MiB // isz)):
+            sizes = [("100 el", 100), ("1000 el", 1000), ("1 MiB + 3 el", MiB // isz + 3)]
+            if k <= 3:
+                sizes.append(("256 MiB", 256 * MiB // isz))
+            for label, elems in sizes:
                 xs = [randn((elems,), dtype, seed=20 * k + j) for j in range(k)]
                 hold(f"pipelined combine k={k} {label} {dtype}",
                      ops.hbm_combine_pipelined(*xs), ops.hbm_combine_plain(*xs))
@@ -257,35 +280,64 @@ def ring_bytes(mode: str, n: int, per: int, isz: int) -> int:
     return n * (reads + writes) * isz
 
 
+def alltoall_bytes(n: int, padded: int, isz: int) -> int:
+    """Bytes the alltoall kernel moves for n ranks of n chunks of ``padded``
+    elements: each chunk read once and written once."""
+    return 2 * n * n * padded * isz
+
+
 def small_call_split(ops, t, n: int, calls: int = 200) -> dict:
-    """A 4 KiB-per-rank ``cuda_ring`` allreduce (one tile) split into its
-    host enqueue time and its device time, beside the ring kernel alone with
-    and without its barrier and arrivals (``sync=False``: the data pass
-    only). ``barrier_us`` is the difference of the two kernel times."""
+    """A 4 KiB-per-rank ``cuda_ring`` allreduce (one tile) and alltoall, each
+    split into its host enqueue time and its device time, beside its kernel
+    alone with and without its barrier and arrivals (``sync=False``: the
+    data pass only). ``barrier_us`` is the difference of the two kernel
+    times."""
     from rocnrdma_tpu_torch.bench.timing import device_s, enqueue_s
-    from rocnrdma_tpu_torch.ops import ring_cuda
+    from rocnrdma_tpu_torch.ops import alltoall_cuda, ring_cuda
     x = randn((n, 1024), torch.float32, seed=18)
     per = 1024 // n
     out = torch.empty_like(x)
-    arm = t.jit_fn("allreduce", "cuda_ring")
-    fns = {"cuda_ring_call": lambda: arm(x),
-           "kernel": lambda: ring_cuda._launch(x, out, n, per, ring_cuda.MODE_AR),
-           "kernel_no_barrier": lambda: ring_cuda._launch(
-               x, out, n, per, ring_cuda.MODE_AR, sync=False)}
-    want = ops.ring_allreduce_plain(x)
+    a2a_in = x.reshape(n, n, per)
+    cases = {  # verb -> (the arm's input, the plain result, a launch of the kernel)
+        "allreduce": (x, ops.ring_allreduce_plain(x), lambda sync: (
+            ring_cuda._launch(x, out, n, per, ring_cuda.MODE_AR, sync=sync))),
+        "alltoall": (a2a_in, ops.alltoall_plain(a2a_in).reshape(n, 1024),
+                     lambda sync: alltoall_cuda._launch(x, out, n, per, sync=sync)),
+    }
     split = {}
-    for name, fn in fns.items():
-        out.zero_()
-        got = fn()
-        hold(f"4 KiB {name}", out if got is None else got, want)
-        for _ in range(20):
-            fn()
-        h = enqueue_s(fn, calls)
-        split[name] = {"host_us": h * 1e6, "device_us": device_s(fn, calls, h) * 1e6}
-    split["cuda_ring_call"]["events_us"] = ms_of(arm, x) * 1e3
-    split["barrier_us"] = (split["kernel"]["device_us"]
-                           - split["kernel_no_barrier"]["device_us"])
+    for verb, (arg, want, launch) in cases.items():
+        arm = t.jit_fn(verb, "cuda_ring")
+        fns = {"cuda_ring_call": lambda: arm(arg),
+               "kernel": lambda: launch(True),
+               "kernel_no_barrier": lambda: launch(False)}
+        part = split[verb] = {}
+        for name, fn in fns.items():
+            out.zero_()
+            got = fn()
+            hold(f"4 KiB {verb} {name}", out if got is None else got.reshape(n, 1024), want)
+            for _ in range(20):
+                fn()
+            h = enqueue_s(fn, calls)
+            part[name] = {"host_us": h * 1e6, "device_us": device_s(fn, calls, h) * 1e6}
+        part["cuda_ring_call"]["events_us"] = ms_of(arm, arg) * 1e3
+        part["barrier_us"] = (part["kernel"]["device_us"]
+                              - part["kernel_no_barrier"]["device_us"])
     return split
+
+
+def crossover(sweep, dtype: str = "float32") -> dict:
+    """The kernel arm (``cuda_ring``) against the library arm (``fused``)
+    in one sweep, us per call: both at the smallest size, and the smallest
+    size from which ``cuda_ring`` is at or under ``fused`` at every larger
+    size (None if there is none)."""
+    us = {(r.algo, r.size_bytes): r.mean_s * 1e6 for r in sweep if r.dtype == dtype}
+    sizes = sorted(s for a, s in us if a == "cuda_ring")
+    wins = [us[("cuda_ring", s)] <= us[("fused", s)] for s in sizes]
+    cross = next((s for i, s in enumerate(sizes) if all(wins[i:])), None)
+
+    def point(s):
+        return {"bytes": s, "cuda_ring_us": us[("cuda_ring", s)], "fused_us": us[("fused", s)]}
+    return {"smallest": point(sizes[0]), "crossover": cross and point(cross)}
 
 
 # collective -> (bench CLI, Transport verb, the sweep's algos, kernel counter)
@@ -318,6 +370,7 @@ def main_verb(ops, runner, collective: str, x: torch.Tensor, plain, kind: str,
                              runner.make_parser(bench, collective).parse_args(argv))
     if {r.algo for r in sweep} != set(algos.split(",")):
         raise AssertionError(f"{bench} sweep ran {sorted({r.algo for r in sweep})}")
+    CROSSOVER[verb] = crossover(sweep)
 
     t = Transport(rank_mesh(n))
     run = getattr(t, verb)
@@ -414,6 +467,7 @@ def main() -> int:
         sweep = runner.run_sweep("bench_allreduce", "allreduce", args)
         if {r.algo for r in sweep} != {"fused", "ring", "ring_bidir", "cuda_ring"}:
             raise AssertionError(f"sweep ran {sorted({r.algo for r in sweep})}")
+        CROSSOVER["allreduce"] = crossover(sweep)
 
         # the contract point: 1 GiB fp32 per rank, 8 ranks
         t = Transport(rank_mesh(n))
@@ -599,18 +653,21 @@ def main() -> int:
             **bound(2 * n * S, 0, kind),
             "library_ms": ms_of(fused_alltoall, x, repeats=3, iters=2),
             "shape": list(x.shape), "dtype": "float32"})
+        moved["alltoall"] = [alltoall_bytes(n, -(-x.shape[2] // 128) * 128, 4), 2 * n * S]
         del x
         split = small_call_split(ops, Transport(rank_mesh(n)), n)
 
     print("phase seconds: " + json.dumps({k: round(v, 1) for k, v in PHASE_S.items()}))
     for name, (b_moved, b_bound) in moved.items():
         if b_moved != b_bound:
-            raise AssertionError(f"{name}: the ring kernel moves {b_moved} bytes, "
+            raise AssertionError(f"{name}: the kernel moves {b_moved} bytes, "
                                  f"its bound {b_bound}")
-    print("ring kernel bytes moved at the kernels line's shapes [moved, bound]: "
-          + json.dumps(moved))
+    print("ring and alltoall kernel bytes moved at the kernels line's shapes "
+          "[moved, bound]: " + json.dumps(moved))
     print("4 KiB per rank x 8, us per call (host: enqueue; device: queued behind "
           "a spinning kernel): " + json.dumps(split))
+    print("cuda_ring vs fused in the ring8 sweeps, fp32, us (crossover: the smallest "
+          "size from which cuda_ring is at or under fused): " + json.dumps(CROSSOVER))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

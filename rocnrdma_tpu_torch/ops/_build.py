@@ -33,9 +33,11 @@ _VP, _INT, _UINT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_l
 # argtypes/restype of every exported C function, by library
 _SIGNATURES = {
     "alltoall": {
-        "rnr_a2a_lanes": ([_INT, _LL, _INT], _INT),
-        "rnr_alltoall": ([_VP, _VP, _VP, _INT, _LL, _INT, _INT, _VP, _LL, _VP],
-                         _INT),
+        "rnr_a2a_lanes": ([_INT, _LL, _INT, _INT], _INT),
+        "rnr_alltoall": ([_VP, _VP, _VP, _INT, _LL, _INT, _INT, _UINT, _INT, _INT,
+                          _VP], _INT),
+        "rnr_alltoall_rows": ([_VP, _LL, _VP, _LL, _VP, _LL, _INT, _LL, _INT, _INT,
+                               _UINT, _INT, _INT, _VP], _INT),
         "rnr_a2a_error": ([_INT], ctypes.c_char_p),
     },
     "combine": {

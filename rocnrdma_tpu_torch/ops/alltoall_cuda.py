@@ -12,9 +12,16 @@ addressed directly, with no copy. For a CUDA tensor ``alltoall`` launches
 the kernel or raises; only a CPU tensor takes ``alltoall_plain``, the
 padded transpose. The kernel only copies, so it equals the plain version
 bit for bit in every dtype.
+
+The host path of a launch allocates only the output: lanes are cached per
+shape, and the epoch-counted flags per (device, stream, n, lanes), as
+``ring_cuda`` caches them; the C entry point builds the per-rank pointer
+tables from each tensor's base and row stride.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -34,7 +41,7 @@ FLAG_WORDS = 2  # per lane and rank, as alltoall.cu's RNR_A2A_FLAG_WORDS
 def _rows(x: torch.Tensor) -> tuple[int, int, int]:
     """(n ranks, chunk elements, chunk elements padded to 128 lanes)."""
     n = alltoall_ranks(x)
-    per = x[0, 0].numel()
+    per = x.numel() // (n * n) if n else 0
     return n, per, -(-per // LANES) * LANES
 
 
@@ -45,6 +52,54 @@ def alltoall_plain(x: torch.Tensor) -> torch.Tensor:
     buf = x.new_zeros((n, n, padded))
     buf[:, :, :per] = x.reshape(n, n, per)
     return buf.transpose(0, 1)[:, :, :per].reshape(x.shape)
+
+
+@functools.lru_cache(maxsize=256)
+def _lanes(device: int, n: int, per: int, code: int) -> int:
+    """The kernel's lanes per rank for n ranks of ``per``-element chunks,
+    from one occupancy query per shape."""
+    lib = _build.load("alltoall")
+    lanes = lib.rnr_a2a_lanes(n, per, code, device)
+    _build.check(lib, "rnr_a2a_error", min(lanes, 0), "alltoall lane query")
+    return lanes
+
+
+# (device, stream, n, lanes) -> [flag words (n, lanes * FLAG_WORDS),
+# launches so far]. The kernel's flags are epoch-counted: zeroed once here,
+# never reset, each launch on the stream waits for its own epoch's counts.
+_FLAGS: dict[tuple, list] = {}
+
+
+def _flags(device: torch.device, stream: int, n: int, lanes: int) -> list:
+    key = (device, stream, n, lanes)
+    entry = _FLAGS.get(key)
+    if entry is None:
+        words = torch.zeros((n, lanes * FLAG_WORDS), dtype=torch.int32, device=device)
+        entry = _FLAGS[key] = [words, 0]
+    return entry
+
+
+def _launch(src: torch.Tensor, out: torch.Tensor, n: int, per: int,
+            sync: bool = True) -> None:
+    """Run the kernel from the n rows of ``src`` into the n rows of ``out``
+    (each n chunks of ``per`` elements, 16-byte aligned). ``sync=False``
+    skips the barrier and the arrivals: only for timing the data pass
+    alone. A launch that raises leaves the epoch where it was."""
+    lib = _build.load("alltoall")
+    code = DTYPE_CODES[out.dtype]
+    device = out.device
+    lanes = _lanes(device.index, n, per, code)
+    # the raw handle: torch.cuda.current_stream() builds a Stream object
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    flags = _flags(device, stream, n, lanes)
+    words, isz = flags[0], out.element_size()
+    epoch = flags[1] + 1 if sync else flags[1]
+    rc = lib.rnr_alltoall_rows(
+        src.data_ptr(), src.stride(0) * isz, out.data_ptr(), out.stride(0) * isz,
+        words.data_ptr(), words.stride(0) * 4, n, per, lanes, code,
+        epoch & 0xFFFFFFFF, int(sync), device.index, stream)
+    _build.check(lib, "rnr_a2a_error", rc, "alltoall kernel launch (cooperative)")
+    flags[1] = epoch
 
 
 def alltoall(x: torch.Tensor) -> torch.Tensor:
@@ -67,19 +122,7 @@ def alltoall(x: torch.Tensor) -> torch.Tensor:
         src[:, :, :per] = x.reshape(n, n, per)
         src = src.reshape(n, n * padded)
     out = torch.empty((n, n * padded), dtype=x.dtype, device=x.device)
-    lib = _build.load("alltoall")
-    code = DTYPE_CODES[x.dtype]
-    dev = x.device
-    with torch.cuda.device(dev):
-        lanes = lib.rnr_a2a_lanes(n, padded, code)
-        _build.check(lib, "rnr_a2a_error", min(lanes, 0), "alltoall lane query")
-        flags = torch.empty((n, lanes * FLAG_WORDS), dtype=torch.int32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.rnr_alltoall(
-            *(_build.row_pointers(t, n) for t in (src, out, flags)), n, padded,
-            lanes, code, flags.data_ptr(), flags.numel() * flags.element_size(),
-            stream)
-    _build.check(lib, "rnr_a2a_error", rc, "alltoall kernel launch (cooperative)")
+    _launch(src, out, n, padded)
     LAUNCHES["alltoall"] += 1
     if per == padded:
         return out.view(x.shape)

@@ -12,25 +12,32 @@
 //
 // Protocol. Rank r runs `lanes` blocks; block b owns sub-range b of every
 // chunk and talks only to block b of the other ranks. Each block, in order:
-//   1. copies x[r, r] into out[r, r];
-//   2. global barrier: signals the barrier flag of lane b on every other
-//      rank, then waits for n-1 signals on its own (_global_barrier);
-//   3. direct writes: for s = 1..n-1, d = (r+s) mod n, copies x[r, d] into
-//      out[d, r]. No slots and no credits: every destination row is written
-//      exactly once, so nothing has to wait for a consumer;
-//   4. arrivals: after its writes, publishes one arrival on each
-//      destination's lane b (a system-scope release add), then waits until
-//      its own arrival count reaches n-1: the drain of _alltoall_kernel
+//   1. entry barrier: one arrival on the barrier word of lane b of every
+//      other rank, then wait for n-1 on its own (_global_barrier): every
+//      peer has entered, so its output may be overwritten;
+//   2. direct writes: each thread loads its vectors of sub-range b from all
+//      n chunks of x[r] (one contiguous row) before it stores any, then
+//      stores chunk d into out[d, r], its own chunk included. The TPU
+//      kernel has its n-1 remote copies in flight at once
+//      (ring_pallas.py:276-284); here every thread has n loads in flight.
+//      No slots and no credits: every destination row is written exactly
+//      once, so nothing waits for a consumer;
+//   3. exit: one arrival on the arrival word of lane b of every other rank,
+//      then wait for n-1 on its own: the drain of _alltoall_kernel
 //      (:286-287), after which every chunk of its output lane has landed.
-// Flags are zeroed by the wrapper's memset before each launch. Every block
-// spins on blocks of every rank, so all n*lanes blocks must be resident at
-// once: the launch is cooperative and a grid that cannot be is refused.
+// Flags are epoch-counted: launch e (from 1) of one flag buffer waits for
+// e*(n-1) on each word, so back-to-back launches need no reset (the wrapper
+// caches the buffer per device, stream, n and lanes and counts the epoch).
+// Every block spins on blocks of every rank, so all n*lanes blocks must be
+// resident at once: the launch is cooperative and a grid that cannot be is
+// refused.
 //
 // Bound on the H100: device-memory bytes. Each chunk is read once and
 // written once: 2*n*S bytes over all ranks for S bytes per rank, which is
 // also the least any alltoall must move, so this kernel can reach its
-// bound. Design against it: 16-byte vector copies with four loads in flight
-// per thread, and lanes sized so n*lanes blocks cover the SMs about twice.
+// bound. Design against it: 16-byte vectors, n*U of them in flight per
+// thread (about 8), one fence per barrier, and lanes sized so n*lanes
+// blocks cover the SMs about four times.
 #include "common.cuh"
 
 #define RNR_MAX_RANKS 32
@@ -38,6 +45,7 @@
 #define RNR_A2A_BAR 0
 #define RNR_A2A_ARR 1
 #define RNR_MIN_LANE_ELEMS 1024
+#define RNR_A2A_BATCH 8  // chunks loaded together when n > 8
 
 struct A2AArgs {
   const void* src[RNR_MAX_RANKS];  // rank input rows, n * per elements
@@ -45,118 +53,172 @@ struct A2AArgs {
   unsigned* flags[RNR_MAX_RANKS];  // rank flag words, lanes * 2
   int n;
   int lanes;
+  int sync;        // 0: skip barrier and arrivals (timing the data pass)
+  unsigned epoch;  // launches of this flag buffer, this one included
   long long per;   // chunk elements (multiple of 128)
   long long lane;  // lane elements (multiple of 128)
 };
 
-template <typename T>
+// The flags' memory-model scope. Every rank of this slice lives on one GPU,
+// so kGpu orders them all; ranks on other GPUs need kSys.
+constexpr RnrScope kA2AScope = kGpu;
+
+// Sub-range [lo, lo + nv vectors) of every chunk of x[r] into out[d, r],
+// d = 0..n-1. Each thread loads vectors i + u*TH (u < U) of B chunks, all
+// before its first store: N > 0 is n == N, one batch of N chunks; N == 0 is
+// any n, in batches of RNR_A2A_BATCH.
+template <typename T, int N>
+__device__ __forceinline__ void scatter(const A2AArgs& a, int n, int r,
+                                        long long lo, long long nv) {
+  constexpr int B = N > 0 ? N : RNR_A2A_BATCH;
+  constexpr int U = B >= 8 ? 1 : 8 / B;
+  const int TH = RNR_BLOCK_THREADS;
+  const long long cv = a.per * (long long)sizeof(T) / 16;  // vectors a chunk
+  const uint4* in = reinterpret_cast<const uint4*>(static_cast<const T*>(a.src[r]) + lo);
+  const long long at = (r * a.per + lo) * (long long)sizeof(T) / 16;
+  for (long long i = threadIdx.x; i < nv; i += U * TH) {
+    for (int d0 = 0; d0 < n; d0 += B) {
+      uint4 v[B][U];
+#pragma unroll
+      for (int j = 0; j < B; ++j)
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          if ((N > 0 || d0 + j < n) && i + u * TH < nv)
+            v[j][u] = __ldcg(in + (d0 + j) * cv + i + u * TH);
+#pragma unroll
+      for (int j = 0; j < B; ++j)
+        if (N > 0 || d0 + j < n) {
+          uint4* q = reinterpret_cast<uint4*>(a.dst[d0 + j]) + at + i;
+#pragma unroll
+          for (int u = 0; u < U; ++u)
+            if (i + u * TH < nv) __stcg(q + u * TH, v[j][u]);
+        }
+    }
+  }
+}
+
+template <typename T, int N>
 __global__ void __launch_bounds__(RNR_BLOCK_THREADS)
     alltoall_kernel(const A2AArgs a) {
-  const int n = a.n;
+  const int n = N > 0 ? N : a.n;
   const int r = blockIdx.x / a.lanes;
   const int b = blockIdx.x % a.lanes;
   const long long lo = (long long)b * a.lane;
   const long long hi = lo + a.lane < a.per ? lo + a.lane : a.per;
-  const long long bytes = hi > lo ? (hi - lo) * (long long)sizeof(T) : 0;
-  const T* x = reinterpret_cast<const T*>(a.src[r]);
-  unsigned* my_f = a.flags[r] + b * RNR_A2A_FLAG_WORDS;
+  const long long nv = hi > lo ? (hi - lo) * (long long)sizeof(T) / 16 : 0;
+  const unsigned target = a.epoch * (unsigned)(n - 1);
 
-  // 1. my own chunk stays home
-  copy16(reinterpret_cast<T*>(a.dst[r]) + r * a.per + lo, x + r * a.per + lo, bytes);
-
-  // 2. global barrier over lane b of every rank
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence_system();
-    for (int s = 1; s < n; ++s)
-      add_release(a.flags[wrap(r + s, n)] + b * RNR_A2A_FLAG_WORDS + RNR_A2A_BAR, 1u);
-  }
-  wait_geq(my_f + RNR_A2A_BAR, (unsigned)(n - 1));
-
-  // 3. direct writes: my chunk for rank d lands in d's row for source r
-  for (int s = 1; s < n; ++s) {
-    const int d = wrap(r + s, n);
-    copy16(reinterpret_cast<T*>(a.dst[d]) + r * a.per + lo, x + d * a.per + lo, bytes);
-  }
-
-  // 4. one arrival on every destination, then wait for all of mine
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence_system();
-    for (int s = 1; s < n; ++s)
-      add_release(a.flags[wrap(r + s, n)] + b * RNR_A2A_FLAG_WORDS + RNR_A2A_ARR, 1u);
-  }
-  wait_geq(my_f + RNR_A2A_ARR, (unsigned)(n - 1));
+  if (a.sync) meet<kA2AScope>(a.flags, n, r, b * RNR_A2A_FLAG_WORDS + RNR_A2A_BAR, target);
+  scatter<T, N>(a, n, r, lo, nv);
+  if (a.sync) meet<kA2AScope>(a.flags, n, r, b * RNR_A2A_FLAG_WORDS + RNR_A2A_ARR, target);
 }
 
 template <typename T>
-static int max_coresident(int* total) {
-  int per_sm = 0;
-  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, alltoall_kernel<T>, RNR_BLOCK_THREADS, 0);
-  if (e != cudaSuccess) return (int)e;
-  const int sms = rnr_sm_count();
-  if (sms <= 0) return (int)cudaErrorInvalidDevice;
-  *total = per_sm * sms;
-  return 0;
+static const void* a2a_fn(int n) {
+  switch (n) {
+    case 2: return reinterpret_cast<const void*>(alltoall_kernel<T, 2>);
+    case 3: return reinterpret_cast<const void*>(alltoall_kernel<T, 3>);
+    case 4: return reinterpret_cast<const void*>(alltoall_kernel<T, 4>);
+    case 5: return reinterpret_cast<const void*>(alltoall_kernel<T, 5>);
+    case 6: return reinterpret_cast<const void*>(alltoall_kernel<T, 6>);
+    case 7: return reinterpret_cast<const void*>(alltoall_kernel<T, 7>);
+    case 8: return reinterpret_cast<const void*>(alltoall_kernel<T, 8>);
+    default: return reinterpret_cast<const void*>(alltoall_kernel<T, 0>);
+  }
+}
+
+// The kernel for n ranks of `dtype`, or null for another dtype.
+static const void* kernel_for(int n, int dtype) {
+  if (dtype == RNR_DTYPE_F32) return a2a_fn<float>(n);
+  if (dtype == RNR_DTYPE_BF16) return a2a_fn<__nv_bfloat16>(n);
+  return nullptr;
 }
 
 // Lanes per rank for n ranks and `per`-element chunks, as rnr_ring_lanes
-// chooses them: about two blocks per SM over all ranks, at least
+// chooses them: enough blocks to cover the SMs about four times, at least
 // RNR_MIN_LANE_ELEMS elements a lane, and never more than can be resident
-// at once. A lane's block waits on lane b of all n-1 peers, so it is the
-// whole n*lanes grid that has to fit. Returns lanes (> 0) or -cudaError.
-extern "C" int rnr_a2a_lanes(int n, long long per, int dtype) {
-  if (n < 2 || n > RNR_MAX_RANKS || per <= 0 || per % 128) return -(int)cudaErrorInvalidValue;
-  int total = 0, e;
-  if (dtype == RNR_DTYPE_F32)
-    e = max_coresident<float>(&total);
-  else if (dtype == RNR_DTYPE_BF16)
-    e = max_coresident<__nv_bfloat16>(&total);
-  else
+// at once (a block waits on lane b of all n-1 peers, so the whole n*lanes
+// grid has to fit). One occupancy query: the wrapper caches the answer per
+// shape. Returns lanes (> 0) or -cudaError.
+extern "C" int rnr_a2a_lanes(int n, long long per, int dtype, int device) {
+  const void* fn = kernel_for(n, dtype);
+  if (n < 2 || n > RNR_MAX_RANKS || per <= 0 || per % 128 || fn == nullptr)
     return -(int)cudaErrorInvalidValue;
-  if (e) return -e;
-  const int sms = rnr_sm_count();
-  long long lanes = (per + RNR_MIN_LANE_ELEMS - 1) / RNR_MIN_LANE_ELEMS;
-  long long cap = (2LL * sms + n - 1) / n;
-  if (lanes > cap) lanes = cap;
-  if (lanes > total / n) lanes = total / n;
-  if (lanes < 1) lanes = 1;
-  const long long lane = rnr_lane_elems(per, (int)lanes);
-  return (int)((per + lane - 1) / lane);  // no empty lanes
+  int lanes = 0;
+  const int rc = rnr_on_device(device, [&] {
+    int per_sm = 0;
+    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fn, RNR_BLOCK_THREADS, 0);
+    if (e != cudaSuccess) return (int)e;
+    const int sms = rnr_sm_count();
+    if (sms <= 0) return (int)cudaErrorInvalidDevice;
+    const long long total = (long long)per_sm * sms;
+    long long l = (per + RNR_MIN_LANE_ELEMS - 1) / RNR_MIN_LANE_ELEMS;
+    const long long cap = (4LL * sms + n - 1) / n;
+    if (l > cap) l = cap;
+    if (l > total / n) l = total / n;
+    if (l < 1) l = 1;
+    const long long lane = rnr_lane_elems(per, (int)l);
+    lanes = (int)((per + lane - 1) / lane);  // no empty lanes
+    return 0;
+  });
+  return rc ? -rc : lanes;
 }
 
+// Fills the rest of `a` (its row pointers set) and launches on `device`.
+static int launch(A2AArgs& a, int n, long long per, int lanes, int dtype,
+                  unsigned epoch, int sync, int device, void* stream) {
+  const void* fn = kernel_for(n, dtype);
+  if (lanes < 1 || per <= 0 || per % 128 || fn == nullptr)
+    return (int)cudaErrorInvalidValue;
+  a.n = n;
+  a.lanes = lanes;
+  a.sync = sync;
+  a.epoch = epoch;
+  a.per = per;
+  a.lane = rnr_lane_elems(per, lanes);
+  void* args[] = {&a};
+  return rnr_on_device(device, [&] {
+    return (int)cudaLaunchCooperativeKernel(
+        fn, dim3((unsigned)(n * lanes)), dim3(RNR_BLOCK_THREADS), args, 0,
+        reinterpret_cast<cudaStream_t>(stream));
+  });
+}
+
+// One launch on `device`, the ranks' rows given as pointer tables (one
+// pointer a rank, as peer pointers will be across GPUs). `epoch` counts the
+// launches of this flag buffer, this one included; `sync` 0 skips the
+// barrier and the arrivals and leaves the flags alone.
 extern "C" int rnr_alltoall(const void* const* src, void* const* dst,
                             void* const* flags, int n, long long per,
-                            int lanes, int dtype, void* flags_base,
-                            long long flags_bytes, void* stream) {
-  if (n < 2 || n > RNR_MAX_RANKS || lanes < 1 || per <= 0 || per % 128)
-    return (int)cudaErrorInvalidValue;
+                            int lanes, int dtype, unsigned epoch, int sync,
+                            int device, void* stream) {
+  if (n < 2 || n > RNR_MAX_RANKS) return (int)cudaErrorInvalidValue;
   A2AArgs a = {};
   for (int r = 0; r < n; ++r) {
     a.src[r] = src[r];
     a.dst[r] = dst[r];
     a.flags[r] = reinterpret_cast<unsigned*>(flags[r]);
   }
-  a.n = n;
-  a.lanes = lanes;
-  a.per = per;
-  a.lane = rnr_lane_elems(per, lanes);
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaMemsetAsync(flags_base, 0, (size_t)flags_bytes, s);
-  if (e != cudaSuccess) return (int)e;
-  void* args[] = {&a};
-  const void* fn;
-  if (dtype == RNR_DTYPE_F32)
-    fn = reinterpret_cast<const void*>(alltoall_kernel<float>);
-  else if (dtype == RNR_DTYPE_BF16)
-    fn = reinterpret_cast<const void*>(alltoall_kernel<__nv_bfloat16>);
-  else
-    return (int)cudaErrorInvalidValue;
-  e = cudaLaunchCooperativeKernel(fn, dim3((unsigned)(n * lanes)),
-                                  dim3(RNR_BLOCK_THREADS), args, 0, s);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return launch(a, n, per, lanes, dtype, epoch, sync, device, stream);
+}
+
+// The same launch with every rank's row in one tensor: row r of `src`,
+// `dst` and `flags` at base + r * stride (strides in bytes). The tables are
+// built here, not by the caller.
+extern "C" int rnr_alltoall_rows(const void* src, long long src_stride,
+                                 void* dst, long long dst_stride, void* flags,
+                                 long long flags_stride, int n, long long per,
+                                 int lanes, int dtype, unsigned epoch, int sync,
+                                 int device, void* stream) {
+  if (n < 2 || n > RNR_MAX_RANKS) return (int)cudaErrorInvalidValue;
+  A2AArgs a = {};
+  for (int r = 0; r < n; ++r) {
+    a.src[r] = static_cast<const char*>(src) + r * src_stride;
+    a.dst[r] = static_cast<char*>(dst) + r * dst_stride;
+    a.flags[r] = reinterpret_cast<unsigned*>(static_cast<char*>(flags) + r * flags_stride);
+  }
+  return launch(a, n, per, lanes, dtype, epoch, sync, device, stream);
 }
 
 extern "C" const char* rnr_a2a_error(int code) {

@@ -1,5 +1,5 @@
 // Shared device helpers of the port's kernels: the elementwise fold in
-// fp32 or bf16, the flag protocol, and 16-byte vector copies.
+// fp32 or bf16, and the flag protocol.
 //
 // The fold is `a + b` per element, computed in fp32 with __fadd_rn (no FMA,
 // no reassociation) and, for bf16, rounded back to bf16 after every add
@@ -99,10 +99,13 @@ static inline int rnr_sm_count() {
 // counterpart of the TPU's DMA and barrier semaphores, raised with atomic
 // adds and read with relaxed loads, at a memory-model scope: kGpu orders
 // the blocks of one GPU, kSys also peers over NVLink and the host. A
-// release is either one `red.release` (alltoall.cu, kSys) or one fence
-// before any number of relaxed adds (ring.cu): each fence costs on the
-// order of a microsecond on the H100, a kSys one several. Blocks of these
-// kernels run with RNR_BLOCK_THREADS threads.
+// release is one fence before any number of relaxed adds (`meet`): on the
+// H100 a kGpu fence costs about a microsecond, a kSys one several, and a
+// `red.release.sys` per peer (each its own system fence) tens
+// (bench/bench_kernel_variants.py, PERF.md). Flags are epoch-counted: the
+// wrappers cache one buffer per (device, stream, n, lanes), zero it once
+// and never reset it; launch e waits for e*(n-1) on each word. Blocks of
+// these kernels run with RNR_BLOCK_THREADS threads.
 
 #define RNR_BLOCK_THREADS 256
 
@@ -134,11 +137,6 @@ __device__ __forceinline__ void add_relaxed(unsigned* p, unsigned v) {
     asm volatile("red.relaxed.gpu.global.add.u32 [%0], %1;" :: "l"(p), "r"(v) : "memory");
 }
 
-__device__ __forceinline__ void add_release(unsigned* p, unsigned v) {
-  asm volatile("red.release.sys.global.add.u32 [%0], %1;"
-               :: "l"(p), "r"(v) : "memory");
-}
-
 // One thread spins on relaxed loads until *p >= v, then one fence makes
 // the acquire; the block then proceeds together. The comparison is on the
 // signed difference, so an epoch-counted flag may wrap around 2^32
@@ -152,27 +150,21 @@ __device__ __forceinline__ void wait_geq(const unsigned* p, unsigned v) {
   __syncthreads();
 }
 
-// dst[i] = src[i] over `bytes` (a multiple of 16). Loads bypass L1 with
-// __ldcg: the source may have been written by another block.
-__device__ __forceinline__ void copy16(void* dst, const void* src,
-                                      long long bytes) {
-  uint4* d = reinterpret_cast<uint4*>(dst);
-  const uint4* s = reinterpret_cast<const uint4*>(src);
-  const long long nv = bytes / 16;
-  const int T = RNR_BLOCK_THREADS;
-  long long i = threadIdx.x;
-  for (; i + 3 * T < nv; i += 4 * T) {
-    uint4 v0 = __ldcg(s + i), v1 = __ldcg(s + i + T);
-    uint4 v2 = __ldcg(s + i + 2 * T), v3 = __ldcg(s + i + 3 * T);
-    __stcg(d + i, v0);
-    __stcg(d + i + T, v1);
-    __stcg(d + i + 2 * T, v2);
-    __stcg(d + i + 3 * T, v3);
-  }
-  for (; i < nv; i += T) __stcg(d + i, __ldcg(s + i));
-}
-
 __device__ __forceinline__ int wrap(int v, int n) { return ((v % n) + n) % n; }
+
+// One arrival on word `word` of every other rank's flags (rank q's word is
+// flags[q] + word), after every thread's prior writes: one fence, then
+// relaxed adds. Then wait until my own word reaches `target`.
+template <RnrScope S>
+__device__ __forceinline__ void meet(unsigned* const* flags, int n, int r,
+                                     long long word, unsigned target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    fence<S>();
+    for (int s = 1; s < n; ++s) add_relaxed<S>(flags[wrap(r + s, n)] + word, 1u);
+  }
+  wait_geq<S>(flags[r] + word, target);
+}
 
 // Lane width of a kernel whose rank runs `lanes` blocks over `elems`
 // elements: a multiple of 128 elements, so every lane starts 16-byte

@@ -87,21 +87,6 @@ struct RingArgs {
 // H100 (bench/bench_kernel_variants.py, PERF.md).
 constexpr RnrScope kRingScope = kGpu;
 
-// One arrival on flag `word` of lane b of every other rank, after every
-// thread's prior writes (one fence, then relaxed adds), then wait for this
-// launch's n-1 on my own.
-__device__ __forceinline__ void meet(const RingArgs& a, int n, int r, int b,
-                                     int word) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    fence<kRingScope>();
-    for (int s = 1; s < n; ++s)
-      add_relaxed<kRingScope>(a.flags[wrap(r + s, n)] + b * RNR_FLAG_WORDS + word, 1u);
-  }
-  wait_geq<kRingScope>(a.flags[r] + b * RNR_FLAG_WORDS + word,
-                       a.epoch * (unsigned)(n - 1));
-}
-
 // Vector i of my sub-range of chunk r in operand k of the fold, which is
 // rank (first + k)'s input row.
 template <typename T>
@@ -179,7 +164,8 @@ __global__ void __launch_bounds__(RNR_BLOCK_THREADS)
   const long long off = r * a.per + lo;  // my sub-range of chunk r in a row
   const int TH = RNR_BLOCK_THREADS;
 
-  if (a.sync) meet(a, n, r, b, RNR_BAR);
+  if (a.sync)
+    meet<kRingScope>(a.flags, n, r, b * RNR_FLAG_WORDS + RNR_BAR, a.epoch * (unsigned)(n - 1));
 
   long long i = threadIdx.x;
   if (a.mode == RNR_MODE_AG) {
@@ -212,7 +198,8 @@ __global__ void __launch_bounds__(RNR_BLOCK_THREADS)
     }
   }
 
-  if (a.sync) meet(a, n, r, b, RNR_ARR);
+  if (a.sync)
+    meet<kRingScope>(a.flags, n, r, b * RNR_FLAG_WORDS + RNR_ARR, a.epoch * (unsigned)(n - 1));
 }
 
 template <typename T>

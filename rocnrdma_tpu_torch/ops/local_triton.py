@@ -1,17 +1,27 @@
-"""The streaming k-operand combine ``x0 + x1 + ... + x(k-1)`` as a
-persistent Triton kernel, counterpart of
+"""The streaming k-operand combine ``x0 + x1 + ... + x(k-1)`` as a Triton
+kernel whose loads the compiler schedules, counterpart of
 ``rocnrdma_tpu/ops/local_pallas.py::pallas_hbm_combine_pipelined``.
 
 The reference kernel computes the same sum as ``pallas_hbm_combine`` (K1,
 ``local_cuda.hbm_combine`` here), but leaves the schedule of the stream to
 the compiler: Mosaic's pipeline emitter overlaps each grid step's loads
-with the previous step's adds, against K1's hand-rotated slots. Triton's
-software pipeliner plays exactly that part here. For it to have a loop to
-overlap, the kernel is persistent: ``grid`` programs each walk the tiles
-``pid, pid + grid, ...`` with ``tl.range(..., num_stages=NUM_STAGES)``, so
-the loads of the next ``NUM_STAGES - 1`` tiles are in flight while a tile
-is folded and stored. A flat grid of one tile per program would give the
-pipeliner nothing to do.
+with the previous step's adds, against K1's hand-rotated slots. Here the
+kernel walks tiles ``pid, pid + grid, ...`` with
+``tl.range(..., num_stages=NUM_STAGES)``, so Triton's software pipeliner
+can keep the loads of the next ``NUM_STAGES - 1`` tiles in flight
+(``cp.async`` into shared memory) while a tile is folded and stored.
+
+What the H100 chose (``bench/bench_pipe_sweep.py``, PERF.md): one tile a
+program and no software pipeline. A grid of every tile keeps up to 8
+programs of 8 warps resident on each SM, and the warp scheduler overlaps
+one program's loads with another's adds, loads straight into registers.
+At 2 x 256 MiB fp32 every form that stages tiles through shared memory
+ran slower at its best, by 1.5-5.3%: the pipeliner's ``cp.async`` at 2-3
+stages on a persistent grid, and TMA descriptor loads (and stores) on a
+grid of the programs resident at once, with or without Triton's warp
+specialisation. So ``NUM_STAGES`` is 1 and the grid is every tile; the
+loop runs once a program, and the sweep launches the same kernel
+persistent to compare.
 
 Bound on the H100: device-memory bytes, ``(k+1) * E * itemsize`` at
 3.35 TB/s (each operand read once, the sum written once); the k-1 adds per
@@ -20,11 +30,12 @@ and rounds to the operands' dtype after every add, as the reference's
 ``acc = acc + x`` in bf16 and ``combine.cu`` do, so the kernel equals
 ``hbm_combine_plain`` bit for bit.
 
-``BLOCK`` (elements a tile) and ``NUM_STAGES`` are module constants, set
-from ``bench/bench_pipe_sweep.py`` on the card (PERF.md); ``tile_rows``
-stays in the signature for parity with the reference and is validated,
-as ``local_cuda.hbm_combine`` does. ``triton`` is imported inside the
-launching function only, so importing this module needs no GPU stack.
+``BLOCK`` (elements a tile), ``NUM_STAGES`` and ``NUM_WARPS`` are module
+constants, set from ``bench/bench_pipe_sweep.py`` on the card (PERF.md);
+``tile_rows`` stays in the signature for parity with the reference and is
+validated, as ``local_cuda.hbm_combine`` does. ``triton`` is imported
+inside the launching function only, so importing this module needs no GPU
+stack.
 """
 
 from __future__ import annotations
@@ -39,12 +50,11 @@ from rocnrdma_tpu_torch.ops.local_cuda import DTYPE_CODES, MAX_OPERANDS, hbm_com
 LAUNCHES = {"hbm_combine_pipelined": 0}
 
 # Set from bench/bench_pipe_sweep.py on the H100 (PERF.md, the K2 sweep):
-# of BLOCK 1024..16384 and 1..4 stages, every pair but BLOCK 16384 with one
-# stage ran k=2 and k=3 at 256 MiB within ~6% of each other, about the
-# run-to-run noise; this pair had the second-best sum of the two.
-BLOCK = 8192       # elements a tile, a power of two
-NUM_STAGES = 3     # the software pipeline's depth
-PROGRAMS_PER_SM = 4
+# 16 rows of 128 a tile, 8 warps, one tile a program: the fastest of every
+# form swept at k=2 and k=3, 256 MiB fp32.
+BLOCK = 2048       # elements a tile, a power of two
+NUM_STAGES = 1     # the software pipeline's depth: none
+NUM_WARPS = 8
 # Shared memory the pipeliner may use for its load buffers: it stages
 # (num_stages - 1) tiles of every operand there (seen on the H100: k=8,
 # fp32, BLOCK 4096, 3 stages asked for 262144 bytes of the 232448 a block
@@ -106,22 +116,23 @@ def _kernel():
     return combine_kernel
 
 
-def _launch(xs, out: torch.Tensor, block: int = BLOCK,
-            num_stages: int = NUM_STAGES) -> None:
+def _launch(xs, out: torch.Tensor, block: int = BLOCK, num_stages: int = NUM_STAGES,
+            num_warps: int = NUM_WARPS, grid: int | None = None):
     """Launch the kernel: ``out = x0 + ... + x(k-1)``, operands and ``out``
-    contiguous on one card. ``bench/bench_pipe_sweep.py`` calls it with
-    other ``block`` and ``num_stages`` to set the module constants."""
+    contiguous on one card, over ``grid`` programs (default: one a tile).
+    ``bench/bench_pipe_sweep.py`` calls it with other knobs, and persistent
+    grids, to set the module constants. Returns Triton's compiled kernel
+    (its ``metadata.shared`` is a program's shared memory)."""
     if block < 16 or block & (block - 1):
         raise ValueError(f"BLOCK must be a power of two >= 16, got {block}")
     n = out.numel()
     n_tiles = -(-n // block)
-    sms = torch.cuda.get_device_properties(out.device).multi_processor_count
-    grid = (max(1, min(n_tiles, sms * PROGRAMS_PER_SM)),)
     ptrs = list(xs) + [xs[0]] * (MAX_OPERANDS - len(xs))  # unused slots
     stages = stages_for(len(xs), block, out.element_size(), num_stages)
     with torch.cuda.device(out.device):
-        _kernel()[grid](out, *ptrs, n, n_tiles, K=len(xs), BLOCK=block,
-                        NUM_STAGES=stages)
+        return _kernel()[(grid or n_tiles,)](
+            out, *ptrs, n, n_tiles, K=len(xs), BLOCK=block, NUM_STAGES=stages,
+            num_warps=num_warps)
 
 
 def hbm_combine_pipelined(*xs: torch.Tensor, tile_rows: int = 2048) -> torch.Tensor:

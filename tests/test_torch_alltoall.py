@@ -86,40 +86,49 @@ def test_alltoallv_cuda_ring_arm_bitwise_equals_pallas_alltoallv(devices, n):
 
 
 # ---------------------------------------------------------------------------
-# A model of alltoall.cu's protocol. Each (rank, lane) runs the kernel's
-# action list; a scheduler picks a random runnable lane each tick; waits
-# are runnable only when satisfied. The model asserts that no block writes
-# into a rank that has not entered the kernel, that every output lane is
-# written exactly once, that a block's arrival wait passes only once all
-# n-1 chunks of its lane have landed, that no lane deadlocks, that every
-# flag ends at n-1, and that the values equal the plain version.
+# A model of alltoall.cu's protocol. Each (rank, lane) block runs the
+# kernel's action list for a sequence of launches on one flag buffer, which
+# is never reset; a scheduler picks a random runnable block each tick, and a
+# wait is runnable only once its flag has reached this launch's count
+# e*(n-1). Ranks keep no step with each other, as on separate cards: a
+# rank's lane hands its output to launch e when it enters, and takes it back
+# when it leaves. The model asserts that no block writes into a rank's
+# output outside that rank's part of the same launch (before the rank has
+# entered this launch's barrier, or after it left), that no block leaves
+# before every chunk of its output lane has landed, that every output lane
+# is written exactly once a launch, that no lane deadlocks, that every flag
+# ends at launches*(n-1), and that the values equal the plain version.
 
 
-def _a2a_program(n, r):
-    peers = [(r + s) % n for s in range(1, n)]
-    prog = [("copy_home",), ("signal", "bar", peers), ("wait", "bar", n - 1)]
-    prog += [("write", d) for d in peers]
-    prog += [("signal", "arr", peers), ("wait", "arr", n - 1)]
-    return prog
+def _a2a_program(n, r, e):
+    """alltoall.cu's actions for block (r, b) in launch e (from 1): entry
+    barrier, the writes of all n chunks (its own included), arrivals."""
+    return ([("enter",), ("signal", "bar"), ("wait", "bar", e * (n - 1))]
+            + [("write", d) for d in range(n)]
+            + [("signal", "arr"), ("wait", "arr", e * (n - 1)), ("leave",)])
 
 
-def _run_a2a_protocol(x: np.ndarray, lanes: int, seed: int) -> np.ndarray:
-    """x: (n, n, per) float32, per divisible by lanes."""
-    n, _, per = x.shape
+def _run_a2a_protocol(xs, lanes: int, seed: int, program=_a2a_program):
+    """Run one launch per input in ``xs`` (each (n, n, per) float32, per
+    divisible by lanes) on one flag buffer; returns each launch's output."""
+    n, _, per = xs[0].shape
     w = per // lanes
-    out = np.full_like(x, np.nan)
-    writes = np.zeros((n, n, lanes), int)   # (dst rank, src rank, lane)
+    outs = [np.full_like(x, np.nan) for x in xs]
+    writes = np.zeros((len(xs), n, n, lanes), int)  # (launch, dst, src, lane)
     flags = {}
-    entered = np.zeros((n, lanes), bool)
-    progs = {(r, b): _a2a_program(n, r) for r in range(n) for b in range(lanes)}
+    inside = np.zeros((n, lanes), int)  # the launch a (rank, lane) is in, 0 between
+    progs = {}
+    for r in range(n):
+        prog = [(e, a) for e in range(1, len(xs) + 1) for a in program(n, r, e)]
+        for b in range(lanes):
+            progs[(r, b)] = prog
     pcs = {k: 0 for k in progs}
     rng = np.random.default_rng(seed)
 
     def runnable(key):
-        prog, pc = progs[key], pcs[key]
-        if pc == len(prog):
+        if pcs[key] == len(progs[key]):
             return False
-        act = prog[pc]
+        act = progs[key][pcs[key]][1]
         return act[0] != "wait" or flags.get((act[1], key[0], key[1]), 0) >= act[2]
 
     while True:
@@ -127,23 +136,24 @@ def _run_a2a_protocol(x: np.ndarray, lanes: int, seed: int) -> np.ndarray:
         if not ready:
             break
         r, b = key = ready[rng.integers(len(ready))]
-        act = progs[key][pcs[key]]
+        e, act = progs[key][pcs[key]]
         lo, hi = b * w, (b + 1) * w
-        if act[0] == "copy_home":
-            out[r, r, lo:hi] = x[r, r, lo:hi]
-            writes[r, r, b] += 1
+        if act[0] == "enter":
+            inside[r, b] = e
         elif act[0] == "signal":
-            if act[1] == "bar":
-                entered[r, b] = True
-            for peer in act[2]:
-                flags[(act[1], peer, b)] = flags.get((act[1], peer, b), 0) + 1
+            for s in range(1, n):
+                f = (act[1], (r + s) % n, b)
+                flags[f] = flags.get(f, 0) + 1
         elif act[0] == "write":
             d = act[1]
-            assert entered[d, b], "wrote into a rank that had not entered"
-            out[d, r, lo:hi] = x[r, d, lo:hi]
-            writes[d, r, b] += 1
-        elif act[0] == "wait" and act[1] == "arr":
-            assert (writes[r, :, b] == 1).all(), "drained before every chunk landed"
+            assert inside[d, b] == e, \
+                f"wrote into rank {d} outside its part of launch {e}"
+            outs[e - 1][d, r, lo:hi] = xs[e - 1][r, d, lo:hi]
+            writes[e - 1, d, r, b] += 1
+        elif act[0] == "leave":
+            assert (writes[e - 1, r, :, b] == 1).all(), \
+                f"rank {r} left launch {e} before every chunk landed"
+            inside[r, b] = 0
         pcs[key] += 1
 
     stuck = [k for k in progs if pcs[k] != len(progs[k])]
@@ -151,9 +161,9 @@ def _run_a2a_protocol(x: np.ndarray, lanes: int, seed: int) -> np.ndarray:
     assert (writes == 1).all(), "an output lane written other than once"
     for r in range(n):
         for b in range(lanes):
-            assert flags[("bar", r, b)] == n - 1
-            assert flags[("arr", r, b)] == n - 1
-    return out
+            assert flags[("bar", r, b)] == len(xs) * (n - 1)
+            assert flags[("arr", r, b)] == len(xs) * (n - 1)
+    return outs
 
 
 @pytest.mark.parametrize("n", [2, 3, 8])
@@ -162,5 +172,126 @@ def test_alltoall_kernel_protocol_model_random_interleavings(n):
     x = np.random.default_rng(n).standard_normal((n, n, per)).astype(np.float32)
     want = T.alltoall_plain(torch.from_numpy(x)).numpy()
     for seed in range(200):
-        got = _run_a2a_protocol(x, lanes, seed)
+        got, = _run_a2a_protocol([x], lanes, seed)
         np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("n", [2, 3, 8])
+def test_alltoall_kernel_protocol_model_back_to_back_epochs(n):
+    # three launches on one flag buffer with no reset in between (the
+    # wrapper's cached flags), each waiting for its own epoch's counts
+    lanes, per = 2, 2 * 128
+    rng = np.random.default_rng(20 + n)
+    xs = [rng.standard_normal((n, n, per)).astype(np.float32) for _ in range(3)]
+    wants = [T.alltoall_plain(torch.from_numpy(x)).numpy() for x in xs]
+    for seed in range(200):
+        gots = _run_a2a_protocol(xs, lanes, seed)
+        for got, want in zip(gots, wants):
+            np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+def _a2a_write_before_barrier(n, r, e):
+    prog = _a2a_program(n, r, e)
+    writes = [a for a in prog if a[0] == "write"]
+    rest = [a for a in prog if a[0] != "write"]
+    return rest[:2] + writes + rest[2:]  # enter, signal, writes, wait, ...
+
+
+def _a2a_exit_before_arrivals(n, r, e):
+    return [a for a in _a2a_program(n, r, e) if a[:2] != ("wait", "arr")]
+
+
+@pytest.mark.parametrize("n", [2, 3, 8])
+@pytest.mark.parametrize("program", [_a2a_write_before_barrier,
+                                     _a2a_exit_before_arrivals])
+def test_alltoall_kernel_protocol_model_rejects_unsafe_orders(n, program):
+    # the model is strict enough to catch a kernel that writes into a rank
+    # before that rank entered this epoch's barrier, or drains (leaves)
+    # before every chunk of its lane has landed
+    lanes, per = 2, 2 * 128
+    rng = np.random.default_rng(40 + n)
+    xs = [rng.standard_normal((n, n, per)).astype(np.float32) for _ in range(3)]
+    caught = 0
+    for seed in range(50):
+        try:
+            _run_a2a_protocol(xs, lanes, seed, program)
+        except AssertionError:
+            caught += 1
+    assert caught > 0
+
+
+# ---------------------------------------------------------------------------
+# The wrapper's host path, with a stand-in for the built library: its lane
+# and flag caches are pure functions of their keys, and the epoch advances
+# by one for each launch that went in, and only then.
+
+
+class _FakeLib:
+    def __init__(self, rc=0):
+        self.queries, self.launches, self.rc = [], [], rc
+
+    def rnr_a2a_lanes(self, n, per, code, device):
+        self.queries.append((n, per, code, device))
+        return 1 + (per // 128 + n + code) % 7
+
+    def rnr_alltoall_rows(self, *args):
+        self.launches.append(args)
+        return self.rc
+
+    def rnr_a2a_error(self, code):
+        return b"fake error"
+
+
+@pytest.fixture
+def fake_lib(monkeypatch):
+    from rocnrdma_tpu_torch.ops import _build, alltoall_cuda
+    lib = _FakeLib()
+    monkeypatch.setattr(_build, "load", lambda name: lib)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda d: 77,
+                        raising=False)
+    alltoall_cuda._lanes.cache_clear()
+    monkeypatch.setattr(alltoall_cuda, "_FLAGS", {})
+    yield lib
+    alltoall_cuda._lanes.cache_clear()
+
+
+def test_alltoall_lane_and_flag_caches_are_pure_functions_of_their_keys(fake_lib):
+    from rocnrdma_tpu_torch.ops import alltoall_cuda as A
+    keys = [(0, 8, 128, 0), (0, 8, 128, 1), (0, 3, 4096, 0), (1, 8, 128, 0)]
+    first = [A._lanes(*k) for k in keys]
+    again = [A._lanes(*k) for k in reversed(keys)][::-1]
+    assert first == again
+    assert fake_lib.queries == [(n, per, code, dev) for dev, n, per, code in keys]
+    cpu = torch.device("cpu")
+    f = A._flags(cpu, 5, 8, 3)
+    assert A._flags(cpu, 5, 8, 3) is f
+    assert f[0].shape == (8, 3 * A.FLAG_WORDS) and f[0].dtype == torch.int32
+    assert not bool(f[0].any()) and f[1] == 0
+    others = [A._flags(cpu, 6, 8, 3), A._flags(cpu, 5, 3, 3), A._flags(cpu, 5, 8, 4)]
+    assert all(o is not f for o in others) and len(A._FLAGS) == 4
+
+
+def test_alltoall_launch_advances_the_epoch_only_when_it_went_in(fake_lib):
+    from rocnrdma_tpu_torch.ops import alltoall_cuda as A
+    n, per = 4, 256
+    src = torch.zeros((n, n * per))
+    out = torch.empty_like(src)
+    A._launch(src, out, n, per)
+    A._launch(src, out, n, per)
+    A._launch(src, out, n, per, sync=False)  # the data pass alone: no epoch
+    (entry,) = A._FLAGS.values()
+    assert entry[1] == 2
+    epochs = [args[10] for args in fake_lib.launches]
+    syncs = [args[11] for args in fake_lib.launches]
+    assert epochs == [1, 2, 2] and syncs == [1, 1, 0]
+    # the tables are built in C from each tensor's base and row stride
+    args = fake_lib.launches[0]
+    assert args[:4] == (src.data_ptr(), n * per * 4, out.data_ptr(), n * per * 4)
+    assert args[5] == entry[0].stride(0) * 4 and args[13] == 77
+    fake_lib.rc = 1
+    with pytest.raises(RuntimeError, match="alltoall kernel launch"):
+        A._launch(src, out, n, per)
+    assert entry[1] == 2  # a refused launch leaves the epoch where it was
+    fake_lib.rc = 0
+    A._launch(src, out, n, per)
+    assert entry[1] == 3 and fake_lib.launches[-1][10] == 3

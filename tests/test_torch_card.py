@@ -121,6 +121,39 @@ def test_alltoall_kernel_bitwise_equals_plain(cuda_device, n, dtype):
     assert T.launch_counts()["alltoall"] == before + 3
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_alltoall_kernel_back_to_back_launches_on_cached_flags(cuda_device, dtype):
+    # alltoall and alltoallv share the kernel and its flags, cached per (n,
+    # lanes): launched again and again with other n (n=12: the batched
+    # path) in between; the flags are never reset, each launch waits for
+    # its own epoch
+    from rocnrdma_tpu_torch.ops import alltoall_cuda
+    xs = {n: _randn((n, n, 3 * 128 + 5), dtype, 80 + n, cuda_device) for n in (3, 8, 12)}
+    counts = torch.randint(0, 6, (8, 8), generator=torch.Generator().manual_seed(1))
+    y = _randn((8, 8, 5, 4), dtype, 90, cuda_device)
+    want_v = Transport(rank_mesh(8, cuda_device)).alltoallv(y, counts, "fused")[0]
+    for n in (8, 3, 8, 12, 8):
+        for _ in range(2):
+            assert torch.equal(T.alltoall(xs[n]), T.alltoall_plain(xs[n]))
+            assert torch.equal(T.alltoallv(y, counts)[0], want_v)
+    torch.cuda.synchronize()
+    assert alltoall_cuda._FLAGS
+    for (_, _, n, _), (words, epoch) in alltoall_cuda._FLAGS.items():
+        assert epoch > 0 and bool((words == epoch * (n - 1)).all())
+
+
+@pytest.mark.parametrize("k", range(2, 9))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("numel", [100, 1000, 128 * 4096, 128 * 4096 + 77])
+def test_pipelined_combine_kernel_tail_bitwise_equals_plain(cuda_device, k, dtype, numel):
+    # sizes with and without a ragged end (100: less than one 128-element
+    # row, 128 * 4096 + 77: whole tiles and 77 more)
+    xs = [_randn((numel,), dtype, 70 + k + j, cuda_device) for j in range(k)]
+    before = T.launch_counts()["hbm_combine_pipelined"]
+    assert torch.equal(T.hbm_combine_pipelined(*xs), T.hbm_combine_plain(*xs))
+    assert T.launch_counts()["hbm_combine_pipelined"] == before + 1
+
+
 @pytest.mark.parametrize("k", [2, 3, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pipelined_combine_kernel_bitwise_equals_plain(cuda_device, k, dtype):

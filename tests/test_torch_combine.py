@@ -100,3 +100,110 @@ def test_pipelined_combine_fits_its_pipeline_in_shared_memory():
             assert (st - 1) * k * LT.BLOCK * itemsize <= LT.SMEM_BYTES
     # k=8 fp32, BLOCK 4096, 3 stages asked for 262144 bytes on the H100
     assert LT.stages_for(8, 4096, 4, 3) == 2
+
+
+# ---------------------------------------------------------------------------
+# The Triton kernel's launch geometry, which the card's run depends on and
+# the CPU can check, for the committed form (one tile of BLOCK elements a
+# program, the ragged end masked) and for the TMA form that
+# ``bench/bench_pipe_sweep.py`` holds beside it (rows of 128 for the
+# descriptors and a tail outside them, the box, a pipeline that fits shared
+# memory, a grid of exactly the programs resident at once). An emulation
+# of each schedule over its geometry covers every element once and gives
+# the plain version's bits.
+
+_SIZES = [100, 1000, 128 * 4096, 128 * 4096 + 77, 3 * 8 * 128 + 17, (1 << 20) + 3]
+
+
+def _fold_into(out, hits, xs, lo, hi):
+    acc = xs[0][lo:hi].float()
+    for x in xs[1:]:
+        acc = (acc + x[lo:hi].float()).to(x.dtype).float()
+    out[lo:hi] = acc.to(xs[0].dtype)
+    hits[lo:hi] += 1
+
+
+def _emulate_committed(xs, block, grid=None):
+    """local_triton's kernel: programs walk tiles pid, pid + grid, ...;
+    each tile's elements past the end are masked."""
+    n = xs[0].numel()
+    n_tiles = -(-n // block)
+    grid = grid or n_tiles
+    out, hits = torch.full_like(xs[0], float("nan")), torch.zeros(n, dtype=torch.int32)
+    for pid in range(grid):
+        for t in range(pid, n_tiles, grid):
+            _fold_into(out, hits, xs, t * block, min((t + 1) * block, n))
+    return out, hits
+
+
+def _emulate_tma(xs, g):
+    """bench_pipe_sweep's TMA form: tiles of rows over programs, TMA
+    clipping the last tile at the last row, the tail summed by the last
+    program."""
+    out = torch.full_like(xs[0], float("nan"))
+    hits = torch.zeros(xs[0].numel(), dtype=torch.int32)
+    rows_a_tile, lanes = g.box
+    for pid in range(g.grid):
+        for t in range(pid, g.n_tiles, g.grid):
+            r0, r1 = t * rows_a_tile, min((t + 1) * rows_a_tile, g.rows)
+            _fold_into(out, hits, xs, r0 * lanes, r1 * lanes)
+    if g.tail:
+        _fold_into(out, hits, xs, g.rows * lanes, g.rows * lanes + g.tail)
+    return out, hits
+
+
+@pytest.mark.parametrize("k", range(2, 9))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pipelined_combine_launch_geometry(k, dtype):
+    from rocnrdma_tpu_torch.bench import bench_pipe_sweep as PS
+    from rocnrdma_tpu_torch.ops import local_triton as LT
+    isz = torch.finfo(dtype).bits // 8
+    # the committed form: no pipeline to fit, a power-of-two tile
+    assert LT.stages_for(k, LT.BLOCK, isz) == LT.NUM_STAGES == 1
+    assert LT.BLOCK & (LT.BLOCK - 1) == 0 and LT.BLOCK % 128 == 0
+    for numel in _SIZES:
+        g = PS.tma_geometry(numel, k, isz, 132, 32, 3, 4)
+        assert g.rows * PS.LANES + g.tail == numel and 0 <= g.tail < PS.LANES
+        assert (g.tail > 0) == (numel % 128 > 0)
+        tr, lanes = g.box
+        assert (tr, lanes) == (32, 128) and lanes * isz % 16 == 0  # a TMA box
+        assert (g.n_tiles - 1) * tr < g.rows <= g.n_tiles * tr or g.rows == g.n_tiles == 0
+        assert 1 <= g.stages <= 3
+        assert g.smem == PS.tma_smem_bytes(k, tr * lanes, isz, g.stages) <= PS.SMEM_BYTES
+        assert g.per_sm * (g.smem + PS.SMEM_RESERVED) <= PS.SMEM_PER_SM
+        assert g.per_sm * 32 * 4 <= PS.THREADS_PER_SM
+        assert g.grid == max(1, min(g.n_tiles, 132 * g.per_sm))
+    # the model against the compiled footprints seen on the H100 (fp32, k=2
+    # and 3, 32 x 128 tiles): with the TMA store 16392, 49160 and 81936 bytes
+    # at 1, 2 and 3 stages; with st.global 16392 and 32776 at 1 and 2
+    # stages; k=3, 2 stages, TMA store: 65560
+    for k, stages, tma_store, seen in ((2, 1, True, 16392), (2, 2, True, 49160),
+                                       (2, 3, True, 81936), (2, 1, False, 16392),
+                                       (2, 2, False, 32776), (3, 2, True, 65560)):
+        model = PS.tma_smem_bytes(k, 32 * 128, 4, stages, tma_store)
+        assert 0 <= model - seen <= PS.SMEM_BARRIERS
+
+
+@pytest.mark.parametrize("k", [2, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pipelined_combine_schedule_covers_every_element_once(k, dtype):
+    from rocnrdma_tpu_torch.bench import bench_pipe_sweep as PS
+    rng = np.random.default_rng(k)
+    isz = torch.finfo(dtype).bits // 8
+    for numel in (100, 3 * 8 * 128 + 17, 128 * 4096 + 77):
+        xs = [torch.from_numpy(rng.standard_normal(numel).astype(np.float32)).to(dtype)
+              for _ in range(k)]
+        want = _bits(T.hbm_combine_plain(*xs))
+        # committed: a grid of every tile, and persistent as the sweep runs it;
+        # TMA form on a small card, so programs walk several tiles each
+        for got, hits in (_emulate_committed(xs, 1024), _emulate_committed(xs, 1024, 3),
+                          _emulate_tma(xs, PS.tma_geometry(numel, k, isz, 2, 8, 2, 4))):
+            assert bool((hits == 1).all())
+            np.testing.assert_array_equal(_bits(got), want)
+
+
+def test_pipelined_combine_geometry_rejects_a_box_tma_cannot_take():
+    from rocnrdma_tpu_torch.bench import bench_pipe_sweep as PS
+    for bad in (0, 3, 512):
+        with pytest.raises(ValueError, match="tile_rows"):
+            PS.tma_geometry(4096, 2, 4, 132, bad, 2, 4)
