@@ -46,7 +46,24 @@ Phases, each timed, any failure exits non-zero:
 5. ``bench_local`` with cuda2,cuda3,torch2,torch3,pipe2,pipe3 at 256 MiB
    per operand, the combine kernels' launch counts zeroed before and read
    after;
-6. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
+6. schedules: the explicit schedules, rooted verbs and sendrecv through the
+   bench CLIs' runner, 8 ranks on the one GPU, fp32, every arm checked
+   against numpy before it is timed (no kernel is on this path; the launch
+   counts are zeroed before and printed after):
+   - ``tree64`` scaled to 8 ranks: allreduce at 1 GiB per rank with tree,
+     khd, dtree, ptree, ktree and fused; reduce_scatter and allgather khd
+     and fused at 1 GiB; first each of those arms on a 1 GiB input made on
+     the card, held to the fused arm (the data-moving allgather bitwise,
+     the reductions within twice the (n-1)-add rounding bound);
+   - ``multislice`` scaled to a 2x4 mesh, 1 MiB..256 MiB per rank:
+     hierarchical (intra ring, then khd), khd2d and fused allreduce, the
+     hierarchical allreduce with a bfloat16 cross-slice phase at 64 MiB,
+     and the hierarchical and fused alltoall at 256 MiB;
+   - broadcast, reduce, gather and scatter binomial and fused at 256 MiB
+     per rank with root 3, and sendrecv with shift 3;
+   each arm's time, busbw and peak device memory (which must stay under
+   60 GiB) in one table;
+7. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
    main path, its time, its plain version's and the library call's time at
    the main path's shapes, and its bound: the larger of its bytes (each
    input read once, each output written once) at the datasheet HBM rate
@@ -420,6 +437,137 @@ def main_verb(ops, runner, collective: str, x: torch.Tensor, plain, kind: str,
     return launched[counter], err
 
 
+PEAK_LIMIT = 60 << 30  # bytes of device memory an arm may hold at its peak
+
+
+def sweep(runner, bench: str, collective: str, argv: list, algos: set) -> list:
+    """One bench CLI run through the runner; every arm of ``algos`` must
+    have been checked and timed."""
+    args = runner.make_parser(bench, collective).parse_args(argv)
+    recs = runner.run_sweep(bench, collective, args)
+    ran = {r.algo for r in recs}
+    if ran != algos or not all(r.extra.get("checked") for r in recs):
+        raise AssertionError(f"{bench} {' '.join(argv)}: ran {sorted(ran)}, "
+                             f"want {sorted(algos)}, every point checked")
+    return recs
+
+
+def hold_to_fused(t, verb: str, x: torch.Tensor, algos, n: int) -> dict:
+    """Each arm of ``verb`` on ``x`` against the fused arm on the card: a
+    verb that only moves data bitwise; a sum within twice the (n-1)-add
+    rounding bound gamma * sum_r |x_r|, since the arm and the library each
+    lie within it of the exact sum. Returns the max abs error per arm."""
+    want = getattr(t, verb)(x, "fused")
+    bound = None
+    if verb != "allgather":
+        u = 2.0 ** -24
+        gamma = (n - 1) * u / (1 - (n - 1) * u)
+        bound = 2 * gamma * x.abs().sum(0)
+        if verb == "reduce_scatter":
+            bound = bound.reshape(n, -1)
+    errs = {}
+    for algo in algos:
+        got = getattr(t, verb)(x, algo)
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"1 GiB {verb} {algo}: non-finite or misshapen")
+        if bound is None:
+            errs[algo] = hold(f"1 GiB {verb} {algo} vs fused", got, want)
+        else:
+            err = 0.0
+            for r in range(n):  # row by row: the temporaries stay 1 GiB deep
+                diff = (got[r] - want[r]).abs()
+                b = bound[r] if verb == "reduce_scatter" else bound
+                if bool((diff > b).any()):
+                    raise AssertionError(
+                        f"1 GiB {verb} {algo} vs fused: rank {r} off by "
+                        f"{float(diff.max())}, beyond twice the rounding bound")
+                err = max(err, float(diff.max()))
+                del diff
+            errs[algo] = err
+        del got
+    return errs
+
+
+def schedules_phase(ops, runner, kind: str, n: int = 8) -> list:
+    """The explicit schedules, rooted verbs and sendrecv at full width
+    through the bench CLIs' runner (see the module docstring, phase 6).
+    Returns the records."""
+    from rocnrdma_tpu_torch.metrics import GiB
+    from rocnrdma_tpu_torch.runtime import rank_mesh
+    from rocnrdma_tpu_torch.transport import Transport
+
+    ops.reset_launch_counts()
+    common = ["--fake-devices", str(n), "--repeats", "3", "--iters", "2"]
+    trees = ("tree", "khd", "dtree", "ptree", "ktree")
+    # the 1 GiB arms held to the fused arm on the card, before the sweeps
+    # time them (the sweeps check each point against numpy first)
+    t = Transport(rank_mesh(n))
+    errs = {}
+    x = randn((n, GiB // 4), torch.float32, seed=21)
+    errs["allreduce"] = hold_to_fused(t, "allreduce", x, trees, n)
+    errs["reduce_scatter"] = hold_to_fused(t, "reduce_scatter", x, ("khd",), n)
+    del x
+    x = randn((n, GiB // 4 // n), torch.float32, seed=22)
+    errs["allgather"] = hold_to_fused(t, "allgather", x, ("khd",), n)
+    del x
+    print("1 GiB arms against fused on the card, max abs err: " + json.dumps(errs))
+    recs = []
+    # the tree64 point, scaled to 8 ranks on the one card
+    recs += sweep(runner, "bench_allreduce", "allreduce",
+                  ["--preset", "tree64", "--algos", ",".join(trees + ("fused",))]
+                  + common, set(trees) | {"fused"})
+    for bench, coll in (("bench_reducescatter", "reducescatter"),
+                        ("bench_allgather", "allgather")):
+        recs += sweep(runner, bench, coll, ["--ranks", str(n), "--sizes", "1G",
+                                            "--algos", "khd,fused"] + common,
+                      {"khd", "fused"})
+    if {(r.n_ranks, r.size_bytes) for r in recs} != {(n, GiB)}:
+        raise AssertionError("the tree64 point should be 8 ranks at 1 GiB")
+    # the multislice sweep, scaled to a 2x4 mesh
+    ms = ["--preset", "multislice"] + common
+    recs += sweep(runner, "bench_allreduce", "allreduce",
+                  ms + ["--algos", "hierarchical,khd2d,fused"],
+                  {"hierarchical", "khd2d", "fused"})
+    recs += sweep(runner, "bench_allreduce", "allreduce",
+                  ms + ["--algos", "hierarchical", "--intra-algo", "khd"],
+                  {"hierarchical"})
+    recs += sweep(runner, "bench_allreduce", "allreduce",
+                  ms + ["--algos", "hierarchical", "--cross-dtype", "bfloat16",
+                        "--sizes", "64M"], {"hierarchical"})
+    recs += sweep(runner, "bench_alltoall", "alltoall",
+                  ms + ["--algos", "hierarchical,fused", "--sizes", "256M"],
+                  {"hierarchical", "fused"})
+    # the rooted verbs and sendrecv at 256 MiB per rank
+    for coll in ("broadcast", "reduce", "gather", "scatter"):
+        recs += sweep(runner, f"bench_{coll}", coll,
+                      ["--ranks", str(n), "--sizes", "256M", "--algos",
+                       "binomial,fused", "--root", "3"] + common,
+                      {"binomial", "fused"})
+    recs += sweep(runner, "bench_sendrecv", "sendrecv",
+                  ["--ranks", str(n), "--sizes", "256M", "--shift", "3"] + common,
+                  {"fused"})
+    print(f"launches on the schedules path (no kernel is on it): "
+          f"{ops.launch_counts()}", flush=True)
+
+    print(f"schedules at full width, {kind}, fp32, us per call "
+          f"(busbw in GB/s, peak device memory in GiB):")
+    print(f"{'collective':>13} {'algo':>12} {'knobs':>22} {'mesh':>5} {'bytes':>11} "
+          f"{'time(us)':>11} {'busbw':>8} {'peak GiB':>9}")
+    for r in recs:
+        knobs = ",".join(f"{k}={r.extra[k]}" for k in
+                         ("cross_dtype", "intra_algo", "root", "shift", "op")
+                         if r.extra.get(k) is not None)
+        mesh = "x".join(map(str, r.extra["mesh2d"])) if r.extra.get("mesh2d") else str(r.n_ranks)
+        print(f"{r.collective:>13} {r.algo:>12} {knobs:>22} {mesh:>5} {r.size_bytes:>11} "
+              f"{r.mean_s * 1e6:>11.1f} {r.busbw_GBps:>8.2f} "
+              f"{r.extra['peak_mem_bytes'] / GiB:>9.2f}")
+    over = [(r.collective, r.algo, r.size_bytes) for r in recs
+            if r.extra["peak_mem_bytes"] > PEAK_LIMIT]
+    if over:
+        raise AssertionError(f"arms above {PEAK_LIMIT >> 30} GiB of device memory: {over}")
+    return recs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -525,6 +673,10 @@ def main() -> int:
         counts["alltoall"], errs["alltoall"] = main_verb(
             ops, runner, "alltoall", x, ops.alltoall_plain, kind)
         del x
+
+    # ---- the explicit schedules, rooted verbs and sendrecv (no kernel) ----
+    with phase("schedules"):
+        schedules_phase(ops, runner, kind, n)
 
     # ---- main path: bench_local (combine kernels) ----
     with phase("main_bench_local"):

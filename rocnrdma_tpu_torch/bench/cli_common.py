@@ -4,7 +4,8 @@
 ``--fake-devices N`` hosts N ranks on ONE physical device: the GPU under
 the default ``--platform auto`` (which raises without one), the CPU under
 ``--platform cpu``. ``--platform cpu`` alone hosts ``max(default_ranks, 2)``
-ranks on the CPU, as the reference's CPU oracle does.
+ranks on the CPU, as the reference's CPU oracle does. ``--mesh2d SxI``
+names a 2-D ``('slice', 'intra')`` mesh of S slices of I ranks.
 """
 
 from __future__ import annotations
@@ -17,3 +18,12 @@ def setup_backend(fake_devices: int | None, platform: str,
     if not fake_devices and platform == "cpu":
         fake_devices = max(default_ranks or 8, 2)
     return detect_topology(platform, fake_devices)
+
+
+def parse_mesh2d(spec: str) -> tuple[int, int]:
+    """'SLICESxPER' -> (slices, per_slice), e.g. '2x4' -> (2, 4)."""
+    try:
+        s, per = spec.lower().split("x")
+        return int(s), int(per)
+    except ValueError as e:
+        raise SystemExit(f"--mesh2d wants SLICESxPER (e.g. 2x4), got {spec!r}") from e

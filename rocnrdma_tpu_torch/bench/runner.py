@@ -1,11 +1,16 @@
 """Shared sweep runner behind the bench CLIs: parse flags -> backend and
 rank mesh -> Transport -> timed loop -> bus-bandwidth report.
 
-Counterpart of ``rocnrdma_tpu/bench/runner.py`` for allreduce,
-reducescatter, allgather and alltoall, with the reference's per-collective
+Counterpart of ``rocnrdma_tpu/bench/runner.py`` for every collective of
+the reference's CLIs (allreduce, reducescatter, allgather, alltoall,
+broadcast, reduce, gather, scatter, sendrecv), with its per-collective
 shapes and size conventions (``_shape_and_bytes``: ``--sizes`` is the
-per-rank buffer S; allgather's is the gathered output, each rank
-contributing S/n). Differences:
+per-rank buffer S; allgather's and gather's is the gathered output, each
+rank contributing S/n) and its flags, ``--mesh2d SxI`` (a 2-D
+``('slice', 'intra')`` mesh), ``--root``, ``--shift`` and
+``--cross-dtype`` among them, refused as it refuses them (a root out of
+range, or sendrecv on a 2-D mesh: the Transport raises, exit 1).
+Differences:
 
 - ``--fake-devices N`` hosts N ranks on one physical device, the GPU unless
   ``--platform cpu``. A busbw measured with ranks sharing one GPU is an
@@ -28,9 +33,15 @@ contributing S/n). Differences:
   ``cuda_ring`` has no such limit and runs at every size. Like the
   reference, it skips a reduce-scatter kernel point whose size is not a
   multiple of ``n*128`` elements.
-- The 2-D mesh, rooted-verb and hierarchical flags (``--mesh2d``,
-  ``--root``, ``--shift``, ``--cross-dtype``) wait for the slices that port
-  those verbs; ``--profile DIR`` writes a ``torch.profiler`` Chrome trace.
+- ``--intra-algo ring|khd`` (the port's own flag) reaches the
+  hierarchical allreduce's intra-slice phases, which the reference reaches
+  only through ``Transport.allreduce(intra_algo=...)``. Like
+  ``--cross-dtype`` it applies to the hierarchical allreduce only and is
+  part of a record's identity.
+- On the GPU each record carries ``extra["peak_mem_bytes"]``, the
+  ``torch.cuda.max_memory_allocated`` of its check and timed calls, input
+  and expected result included.
+- ``--profile DIR`` writes a ``torch.profiler`` Chrome trace.
 """
 
 from __future__ import annotations
@@ -49,7 +60,7 @@ from rocnrdma_tpu_torch.bench import cli_common
 from rocnrdma_tpu_torch.bench import presets as P
 from rocnrdma_tpu_torch.bench.timing import time_fn
 from rocnrdma_tpu_torch.collectives.reduce_op import REDUCE_OPS
-from rocnrdma_tpu_torch.runtime import PLATFORMS, rank_mesh
+from rocnrdma_tpu_torch.runtime import PLATFORMS, rank_mesh, slice_mesh
 from rocnrdma_tpu_torch.transport import ALGOS, Transport, supports
 
 _UNITS = {"": 1, "K": M.KiB, "M": M.MiB, "G": M.GiB}
@@ -72,6 +83,8 @@ def make_parser(bench_name: str, collective: str) -> argparse.ArgumentParser:
     p.add_argument("--preset", choices=sorted(P.PRESETS), default=None,
                    help="named BASELINE.json config; flags override fields")
     p.add_argument("--ranks", type=int, default=None)
+    p.add_argument("--mesh2d", type=str, default=None, metavar="SLICESxPER",
+                   help="2-D ('slice','intra') mesh, e.g. 2x4 (hierarchical)")
     p.add_argument("--sizes", type=str, default=None,
                    help="comma list of per-rank bytes, e.g. 4K,1M,256M")
     p.add_argument("--dtypes", type=str, default=None, help="e.g. float32,bfloat16")
@@ -79,8 +92,19 @@ def make_parser(bench_name: str, collective: str) -> argparse.ArgumentParser:
     p.add_argument("--warmup", type=int, default=2)
     p.add_argument("--repeats", type=int, default=5)
     p.add_argument("--iters", type=int, default=10, help="calls per timed repeat")
+    p.add_argument("--root", type=int, default=0,
+                   help="root rank (broadcast/reduce/gather/scatter only)")
+    p.add_argument("--shift", type=int, default=1,
+                   help="ring offset: send to rank+shift mod n (sendrecv only)")
+    p.add_argument("--cross-dtype", default=None, metavar="DTYPE",
+                   help="cross-slice dtype of the hierarchical allreduce on "
+                        "--mesh2d sweeps (e.g. bfloat16); other algos in the "
+                        "sweep run unaffected")
+    p.add_argument("--intra-algo", choices=("ring", "khd"), default=None,
+                   help="intra-slice phases of the hierarchical allreduce "
+                        "on --mesh2d sweeps; other algos run unaffected")
     p.add_argument("--redop", choices=REDUCE_OPS, default="sum",
-                   help="reduction operator")
+                   help="reduction operator (allreduce/reducescatter/reduce)")
     p.add_argument("--platform", choices=PLATFORMS, default="auto",
                    help="auto = the GPU (raises without one); cpu = the CPU "
                         "correctness oracle")
@@ -104,17 +128,23 @@ def make_parser(bench_name: str, collective: str) -> argparse.ArgumentParser:
 
 
 _OP = {"allreduce": "allreduce", "reducescatter": "reduce_scatter",
-       "allgather": "allgather", "alltoall": "alltoall"}
+       "allgather": "allgather", "alltoall": "alltoall",
+       "broadcast": "broadcast", "reduce": "reduce", "gather": "gather",
+       "scatter": "scatter", "sendrecv": "sendrecv"}
 
-# Collectives that reduce (honor --redop).
-_REDUCING = ("allreduce", "reducescatter")
+# Collectives that reduce (honor --redop) / are rooted (honor --root).
+_REDUCING = ("allreduce", "reducescatter", "reduce")
+_ROOTED = ("broadcast", "reduce", "gather", "scatter")
 
 # Default algo pair when no preset/--algos names one: the explicit schedule
 # the collective owns, benchmarked against the fused library call.
-_DEFAULT_ALGOS = {"allreduce": ("ring", "fused"),
-                  "reducescatter": ("ring", "fused"),
-                  "allgather": ("ring", "fused"),
-                  "alltoall": ("ring", "fused")}
+_DEFAULT_ALGOS = {
+    "allreduce": ("ring", "fused"), "reducescatter": ("ring", "fused"),
+    "allgather": ("ring", "fused"), "alltoall": ("ring", "fused"),
+    "broadcast": ("binomial", "fused"), "reduce": ("binomial", "fused"),
+    "gather": ("binomial", "fused"), "scatter": ("binomial", "fused"),
+    "sendrecv": ("fused",),
+}
 
 
 def resolve_preset(args, collective: str) -> P.Preset:
@@ -123,12 +153,16 @@ def resolve_preset(args, collective: str) -> P.Preset:
         pre = P.get_preset(args.preset)
     else:
         pre = P.Preset(name="custom", baseline_config="(custom flags)",
-                       n_ranks=args.ranks or 8, sizes=(4 * M.MiB,),
+                       n_ranks=args.ranks or 8, mesh2d=None, sizes=(4 * M.MiB,),
                        dtypes=("float32",),
                        algos=_DEFAULT_ALGOS.get(collective, ("fused",)))
     over = {}
     if args.ranks:
         over["n_ranks"] = args.ranks
+    if args.mesh2d:
+        s, per = cli_common.parse_mesh2d(args.mesh2d)
+        over["mesh2d"] = (s, per)
+        over["n_ranks"] = s * per
     if args.sizes:
         over["sizes"] = tuple(parse_size(x) for x in args.sizes.split(","))
     if args.dtypes:
@@ -150,28 +184,31 @@ def _shape_and_bytes(collective: str, n: int, size_bytes: int, dtype: str):
     the reference's do."""
     itemsize = DTYPES[dtype].itemsize
     elems = max(1, size_bytes // itemsize)
-    if collective == "allgather":
+    if collective in ("allgather", "gather"):
         elems = max(n, elems // n * n)  # input chunk = S/n
         shape = (n, elems // n)
     elif collective == "alltoall":
         elems = max(n, elems // n * n)
         shape = (n, n, elems // n)
-    elif collective == "reducescatter":
+    elif collective in ("reducescatter", "scatter"):
         elems = max(n, elems // n * n)
         shape = (n, elems)
-    else:  # allreduce: full S per rank
+    else:  # allreduce / broadcast / reduce / sendrecv: full S per rank
         shape = (n, elems)
     return shape, elems * itemsize
 
 
 def _build_input(t: Transport, collective: str, size_bytes: int, dtype: str):
-    """(tensor on the mesh device, the same values as float32 numpy, bytes)."""
+    """(tensor on the mesh device, the same values as float32 numpy, bytes).
+    The tensor's leading dims are the mesh shape; the numpy array is
+    rank-major with one leading rank dim."""
     shape, actual = _shape_and_bytes(collective, t.n_ranks, size_bytes, dtype)
-    x_np = np.random.default_rng(0).standard_normal(size=shape, dtype=np.float32)
+    x_np = np.random.default_rng(0).standard_normal(
+        size=tuple(t.mesh.shape) + shape[1:], dtype=np.float32)
     x = t.shard(x_np, DTYPES[dtype])
     if DTYPES[dtype] != torch.float32:
         x_np = x.float().cpu().numpy()  # the values the ranks actually hold
-    return x, x_np, actual
+    return x, x_np.reshape(shape), actual
 
 
 def _np_reduce(flat: np.ndarray, op: str) -> np.ndarray:
@@ -185,7 +222,8 @@ def _np_reduce(flat: np.ndarray, op: str) -> np.ndarray:
 _UNIT_ROUNDOFF = {torch.float32: 2.0 ** -24, torch.bfloat16: 2.0 ** -8}
 
 
-def _expected(collective: str, x_np: np.ndarray, op: str) -> np.ndarray:
+def _expected(collective: str, x_np: np.ndarray, op: str = "sum",
+              root: int = 0, shift: int = 1) -> np.ndarray:
     """What the ranks must hold after ``collective``, float32, one row per
     rank, or one row that every rank must hold."""
     n = x_np.shape[0]
@@ -198,51 +236,83 @@ def _expected(collective: str, x_np: np.ndarray, op: str) -> np.ndarray:
         return flat.reshape(1, -1)
     if collective == "alltoall":
         return x_np.transpose(1, 0, 2).reshape(n, -1)
+    if collective == "broadcast":
+        return flat[root][None]
+    if collective == "reduce":
+        out = np.zeros_like(flat)
+        out[root] = _np_reduce(flat, op)
+        return out
+    if collective == "gather":
+        out = np.zeros((n, flat.size), flat.dtype)
+        out[root] = flat.reshape(-1)
+        return out
+    if collective == "scatter":
+        return flat[root].reshape(n, -1)  # row r = chunk r of root's buffer
+    if collective == "sendrecv":
+        return np.roll(flat, shift, axis=0)
     raise ValueError(collective)
 
 
 def _rounding_bound(x_np: np.ndarray, op: str, dtype: str,
-                    collective: str = "allreduce") -> np.ndarray | None:
-    """Worst-case rounding of any order of n-1 adds in ``dtype``, per element:
-    gamma * sum_r |x_r| with gamma = (n-1)u / (1 - (n-1)u), laid out as
+                    collective: str = "allreduce", root: int = 0,
+                    wire: str | None = None) -> np.ndarray | None:
+    """Worst-case rounding of any order of n-1 adds in ``dtype`` (or in the
+    coarser ``wire`` dtype a phase casts to), per element: gamma *
+    sum_r |x_r| with gamma = (n-1)u / (1 - (n-1)u), laid out as
     ``_expected`` lays out the result (sum/avg only; None for the other
     ops and for the verbs that only move data)."""
     if op not in ("sum", "avg") or collective not in _REDUCING:
         return None
     n = x_np.shape[0]
-    nu = (n - 1) * _UNIT_ROUNDOFF[DTYPES[dtype]]
+    u = max(_UNIT_ROUNDOFF[DTYPES[d]] for d in (dtype, wire or dtype))
+    nu = (n - 1) * u
     bound = nu / (1 - nu) * np.abs(x_np.reshape(n, -1)).sum(axis=0)
     bound = bound / n if op == "avg" else bound
+    if collective == "reduce":
+        out = np.zeros((n, bound.size), bound.dtype)
+        out[root] = bound
+        return out
     return bound.reshape(n, -1) if collective == "reducescatter" else bound
 
 
 def _check(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float,
-           what: str, bound: torch.Tensor | None = None) -> None:
+           what: str, bound: torch.Tensor | None = None,
+           ranks: int | None = None) -> None:
     """``got`` (n, ...) against ``want``, on the device: one expected row
     per rank (n, E), or one row (E,) every rank must hold. An element
     passes within ``atol + rtol*|want|`` or within the rounding ``bound``;
     ``rtol = atol = 0`` with no bound asks for exact equality."""
-    n = got.shape[0]
-    g = got.reshape(n, -1).float()
-    want = want.reshape(-1, g.shape[1])
-    tol = atol + rtol * want.abs()
+    rows = got.reshape(ranks or got.shape[0], -1)
+    want = want.reshape(-1, rows.shape[1])
     if bound is not None:
-        tol = torch.maximum(tol, bound.reshape(-1, g.shape[1]))
-    bad = (g - want).abs() > tol
-    if bool(bad.any()):
-        r, i = (int(v) for v in bad.nonzero()[0])
+        bound = bound.reshape(-1, rows.shape[1])
+    off = []
+    # rank by rank, so the temporaries stay one row deep
+    for r in range(rows.shape[0]):
+        w = want[r % want.shape[0]]
+        tol = atol + rtol * w.abs()
+        if bound is not None:
+            tol = torch.maximum(tol, bound[r % bound.shape[0]])
+        bad = (rows[r].float() - w).abs() > tol
+        if bool(bad.any()):
+            off.append((r, int(bad.sum()), int(bad.nonzero()[0])))
+    if off:
+        r, _, i = off[0]
         raise AssertionError(
-            f"{what}: {int(bad.sum())} element(s) off; first rank {r} elem {i}: "
-            f"got {float(g[r, i])}, want {float(want[r % want.shape[0], i])} "
-            f"(rtol={rtol}, atol={atol})")
+            f"{what}: {sum(c for _, c, _ in off)} element(s) off; first rank "
+            f"{r} elem {i}: got {float(rows[r, i])}, want "
+            f"{float(want[r % want.shape[0], i])} (rtol={rtol}, atol={atol})")
 
 
-def algos_for(collective: str, algos: tuple) -> tuple:
-    """Keep the algos this collective defines; unknown names raise."""
+def algos_for(collective: str, algos: tuple, is_2d: bool = False) -> tuple:
+    """Keep the algos this collective defines on this mesh; unknown names
+    raise. Presets bundle algos for a whole config (``multislice`` names
+    the hierarchical allreduce and alltoall), so each CLI keeps its own,
+    falling back to ``fused``."""
     unknown = [a for a in algos if a not in ALGOS]
     if unknown:
         raise ValueError(f"unknown algo(s) {unknown}; know {ALGOS}")
-    kept = tuple(a for a in algos if supports(_OP[collective], a))
+    kept = tuple(a for a in algos if supports(_OP[collective], a, is_2d))
     return kept or ("fused",)
 
 
@@ -269,25 +339,47 @@ def run_sweep(bench_name: str, collective: str, args) -> list:
         scaled = pre.scaled_to(topo.n_devices, max_bytes)
         if scaled != pre:
             print(f"# preset {pre.name!r} scaled to backend: ranks {pre.n_ranks}->"
-                  f"{scaled.n_ranks}, {len(scaled.sizes)} size(s)", file=sys.stderr)
+                  f"{scaled.n_ranks}, mesh2d {pre.mesh2d}->{scaled.mesh2d}, "
+                  f"{len(scaled.sizes)} size(s)", file=sys.stderr)
         pre = scaled
     if pre.n_ranks > topo.n_devices:
         raise SystemExit(f"preset needs {pre.n_ranks} ranks; backend has "
                          f"{topo.n_devices} devices (use --fake-devices or drop "
                          f"--strict-preset)")
 
-    t = Transport(rank_mesh(pre.n_ranks, topo.device))
-    algos = algos_for(collective, pre.algos)
+    mesh = (slice_mesh(*pre.mesh2d, topo.device) if pre.mesh2d
+            else rank_mesh(pre.n_ranks, topo.device))
+    t = Transport(mesh)
+    algos = algos_for(collective, pre.algos, t.is_2d)
     if set(algos) != set(pre.algos):
-        print(f"# algos for {collective}: {algos} (preset named {pre.algos})",
-              file=sys.stderr)
+        print(f"# algos for {collective} on this mesh: {algos} "
+              f"(preset named {pre.algos})", file=sys.stderr)
 
-    knobs = ({"op": args.redop}
-             if collective in _REDUCING and args.redop != "sum" else {})
+    # per-collective knobs from the CLI; only what the verb understands
+    knobs = {}
+    if collective in _REDUCING and args.redop != "sum":
+        knobs["op"] = args.redop
+    if collective in _ROOTED and args.root:
+        knobs["root"] = args.root
+    if collective == "sendrecv" and args.shift != 1:
+        knobs["shift"] = args.shift
     op = knobs.get("op", "sum")
     extra = {"device": topo.device_name}
     if pre.n_ranks > 1:
         extra["link"] = "hbm-loopback" if topo.platform == "gpu" else "cpu-loopback"
+    on_gpu = topo.device.type == "cuda"
+
+    def hier_knobs(algo: str) -> dict:
+        # --cross-dtype / --intra-algo apply only where they exist (the
+        # hierarchical allreduce) and are part of the sweep point's identity
+        if collective != "allreduce" or algo != "hierarchical":
+            return {}
+        return {k: v for k, v in (("cross_dtype", args.cross_dtype),
+                                  ("intra_algo", args.intra_algo)) if v}
+
+    # every arm's callable first: a refused knob (a root out of range,
+    # sendrecv on a 2-D mesh) fails before any input is built
+    fns = {a: t.jit_fn(_OP[collective], a, **knobs, **hier_knobs(a)) for a in algos}
 
     done = M.load_completed(args.out) if (args.out and args.resume) else set()
     out_fp = open(args.out, "a") if args.out else None
@@ -299,19 +391,28 @@ def run_sweep(bench_name: str, collective: str, args) -> list:
                     def _key(algo, nbytes):
                         return M.record_key(bench_name, collective, algo,
                                             pre.n_ranks, nbytes, dtype,
-                                            M.knob_key(knobs))
+                                            M.knob_key({**knobs, **hier_knobs(algo)}))
                     actual = _shape_and_bytes(collective, pre.n_ranks, size, dtype)[1]
                     if done and all(_key(a, size) in done or _key(a, actual) in done
                                     for a in algos):
                         continue
                     x, x_np, actual = _build_input(t, collective, size, dtype)
-                    want = bound = None
+                    want = None
+                    bounds: dict = {}  # wire dtype -> rounding bound on the device
                     if pre.check:
-                        want = torch.from_numpy(_expected(collective, x_np, op)).to(t.device)
-                        b = _rounding_bound(x_np, op, dtype, collective)
-                        bound = None if b is None else torch.from_numpy(b).to(t.device)
+                        want = torch.from_numpy(_expected(
+                            collective, x_np, op, knobs.get("root", 0),
+                            knobs.get("shift", 1))).to(t.device)
+                        for algo in algos:
+                            wire = hier_knobs(algo).get("cross_dtype")
+                            if wire not in bounds:
+                                b = _rounding_bound(x_np, op, dtype, collective,
+                                                    knobs.get("root", 0), wire)
+                                bounds[wire] = (None if b is None
+                                                else torch.from_numpy(b).to(t.device))
                     del x_np
                     for algo in algos:
+                        xk = hier_knobs(algo)
                         if _key(algo, actual) in done:
                             continue
                         if (algo == "cuda_ring" and collective == "reducescatter"
@@ -321,7 +422,9 @@ def run_sweep(bench_name: str, collective: str, args) -> list:
                                   f"kernel needs size % (n*128) elems == 0",
                                   file=sys.stderr)
                             continue
-                        fn = t.jit_fn(_OP[collective], algo, **knobs)
+                        fn = fns[algo]
+                        if on_gpu:
+                            torch.cuda.reset_peak_memory_stats(t.device)
                         r1 = None
                         if args.paranoid:
                             # same input, same schedule: a bit difference is a
@@ -335,25 +438,31 @@ def run_sweep(bench_name: str, collective: str, args) -> list:
                             got = r1 if r1 is not None else fn(x)
                             if collective not in _REDUCING:
                                 rtol = atol = 0.0  # data movement: exact
-                            elif dtype != "float32":
+                            elif dtype != "float32" or xk.get("cross_dtype"):
                                 rtol, atol = 5e-2, 5e-2
                             else:
                                 rtol, atol = 1e-4, 1e-5
                             _check(got, want, rtol, atol,
-                                   f"{collective}/{algo} {dtype} {actual} B", bound)
+                                   f"{collective}/{algo} {dtype} {actual} B",
+                                   bounds.get(xk.get("cross_dtype")), t.n_ranks)
                             del got
                         r1 = None
                         tm = time_fn(fn, x, warmup=args.warmup, repeats=args.repeats,
                                      calls_per_repeat=args.iters)
+                        rec_extra = dict(extra)
+                        if on_gpu:
+                            rec_extra["peak_mem_bytes"] = torch.cuda.max_memory_allocated(
+                                t.device)
                         rec = M.BenchRecord.measure(
                             bench_name, collective, algo, pre.n_ranks, actual, dtype,
                             tm.mean_s, platform=topo.platform, preset=pre.name,
+                            mesh2d=list(pre.mesh2d) if pre.mesh2d else None,
                             min_s=tm.min_s, max_s=tm.max_s, checked=pre.check,
-                            **extra, **knobs)
+                            **rec_extra, **knobs, **xk)
                         records.append(rec)
                         if out_fp:
                             rec.write(out_fp)
-                    del x, want, bound
+                    del x, want, bounds
     finally:
         if out_fp:
             out_fp.close()

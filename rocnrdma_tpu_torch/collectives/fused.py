@@ -4,35 +4,24 @@ With every rank a row of one tensor, each collective is one library call
 over the rank axis: a reduction written back to every rank row
 (allreduce), a reduction cut into rank shards (reduce-scatter), a
 concatenation broadcast to every row (allgather), a transpose of the rank
-and chunk axes (alltoall). The reference's fused arm is XLA's own
-lowering, so a library call is its counterpart here. A reduction's order
-of summation is torch's, not the ring's: compare it with a tolerance. The
-data-moving verbs are exact.
+and chunk axes (alltoall), a row copied to every row (broadcast), a roll
+of the rank axis (sendrecv). The rooted verbs zero the off-root rows of
+reduce and gather, as the reference does. The reference's fused arm is
+XLA's own lowering, so a library call is its counterpart here. A
+reduction's order of summation is torch's, not the ring's: compare it with
+a tolerance. The data-moving verbs are exact.
 """
 
 from __future__ import annotations
 
 import torch
 
-from rocnrdma_tpu_torch.collectives.reduce_op import REDUCE_OPS, finalize
-
-
-def _reduce(x: torch.Tensor, op: str) -> torch.Tensor:
-    """The ``op``-reduction of the rank rows, one row."""
-    if op in ("sum", "avg"):
-        return finalize(x.sum(0), op, x.shape[0])
-    if op == "prod":
-        return x.prod(0)
-    if op == "max":
-        return x.amax(0)
-    if op == "min":
-        return x.amin(0)
-    raise ValueError(f"unknown reduce op {op!r}; know {REDUCE_OPS}")
+from rocnrdma_tpu_torch.collectives.reduce_op import fused_reduce
 
 
 def fused_allreduce(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
     """(n, ...) -> (n, ...), every row the ``op``-reduction of all rows."""
-    return _reduce(x, op).unsqueeze(0).expand(x.shape).contiguous()
+    return fused_reduce(x, op).unsqueeze(0).expand(x.shape).contiguous()
 
 
 def fused_reduce_scatter(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
@@ -45,7 +34,7 @@ def fused_reduce_scatter(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
     flat = x.reshape(n, -1)
     if flat.shape[1] % n:
         raise ValueError(f"reduce_scatter buffer ({flat.shape[1]}) must divide by {n}")
-    return _reduce(flat, op).reshape(n, -1)
+    return fused_reduce(flat, op).reshape(n, -1)
 
 
 def fused_allgather(x: torch.Tensor) -> torch.Tensor:
@@ -69,3 +58,41 @@ def fused_alltoall(x: torch.Tensor) -> torch.Tensor:
     chunk axes, row r's chunk j = what rank j sent to rank r."""
     alltoall_ranks(x)
     return x.transpose(0, 1).contiguous()
+
+
+def fused_sendrecv(x: torch.Tensor, shift: int = 1) -> torch.Tensor:
+    """Pairwise shift exchange: every rank sends its row to rank
+    ``r + shift`` (mod n), so row r of the result is row ``r - shift``."""
+    return torch.roll(x, shift % x.shape[0], dims=0)
+
+
+def fused_broadcast(x: torch.Tensor, root: int = 0) -> torch.Tensor:
+    """Every row becomes row ``root``."""
+    return x[root].unsqueeze(0).expand(x.shape).contiguous()
+
+
+def fused_rooted_reduce(x: torch.Tensor, root: int = 0,
+                        op: str = "sum") -> torch.Tensor:
+    """Row ``root`` becomes the ``op``-reduction of all rows; the others
+    zero."""
+    out = torch.zeros_like(x)
+    out[root] = fused_reduce(x, op)
+    return out
+
+
+def fused_gather(x: torch.Tensor, root: int = 0) -> torch.Tensor:
+    """(n, ...) -> (n, n, ...): row ``root`` holds every rank's row in rank
+    order; the others zero."""
+    out = x.new_zeros((x.shape[0],) + tuple(x.shape))
+    out[root] = x
+    return out
+
+
+def fused_scatter(x: torch.Tensor, root: int = 0) -> torch.Tensor:
+    """Row ``root`` (flattening to n*c) is split n ways: row r of the
+    result is its chunk r. Only row ``root`` is read."""
+    n = x.shape[0]
+    flat = x.reshape(n, -1)
+    if flat.shape[1] % n:
+        raise ValueError(f"scatter buffer ({flat.shape[1]}) must divide by {n}")
+    return flat[root].reshape(n, -1).clone()

@@ -122,7 +122,7 @@ class BenchRecord:
 
 
 # Collective knobs that change the program (and so the sweep-point identity).
-_KNOB_KEYS = ("op", "root", "shift", "cross_dtype")
+_KNOB_KEYS = ("op", "root", "shift", "cross_dtype", "intra_algo")
 
 
 def knob_key(extra: dict) -> tuple:

@@ -4,7 +4,10 @@ In this slice every rank of a mesh lives on ONE device: ``rank_mesh(n)``
 on a GPU maps all n ranks to ``cuda:0`` (the counterpart of the
 reference's ``--fake-devices N`` CPU oracle, which faked N devices on one
 host), and on the CPU to ``cpu``. The collectives then act on one
-rank-major tensor whose row r is rank r's buffer.
+rank-major tensor whose row r is rank r's buffer. A 2-D
+``('slice', 'intra')`` mesh (``slice_mesh``) is ``(slices, per_slice,
+...)`` rank-major: row ``(s, i)`` is the buffer of rank (slice s, intra i),
+flat rank ``s * per_slice + i``.
 
 Device rule: ``platform="auto"`` means the GPU; if there is none, the call
 raises. Only ``platform="cpu"`` selects the CPU.
@@ -17,6 +20,8 @@ import dataclasses
 import torch
 
 RANK_AXIS = "rank"
+SLICE_AXIS = "slice"
+INTRA_AXIS = "intra"
 
 PLATFORMS = ("auto", "cpu")
 
@@ -66,9 +71,17 @@ def detect_topology(platform: str = "auto",
 
 @dataclasses.dataclass(frozen=True)
 class RankMesh:
-    """n ranks on a 1-D ring, each with its torch device."""
+    """Ranks on a 1-D ring (``axis_names == ("rank",)``) or a 2-D
+    ``("slice", "intra")`` grid, each with its torch device; ``shape`` is
+    the mesh shape, the leading dims of a rank-major tensor on it."""
 
     devices: tuple
+    axis_names: tuple = (RANK_AXIS,)
+    shape: tuple = ()
+
+    def __post_init__(self):
+        if not self.shape:
+            object.__setattr__(self, "shape", (len(self.devices),))
 
     @property
     def n_ranks(self) -> int:
@@ -88,7 +101,25 @@ def rank_mesh(n: int, device: torch.device | str | None = None) -> RankMesh:
     """``n`` ranks on ``device`` (default: the GPU; raises without one)."""
     if n < 1:
         raise ValueError(f"need n >= 1 ranks, got {n}")
+    return RankMesh(devices=(_mesh_device(device),) * n)
+
+
+def slice_mesh(n_slices: int, per_slice: int,
+               device: torch.device | str | None = None) -> RankMesh:
+    """A 2-D ``('slice', 'intra')`` mesh of ``n_slices`` slices of
+    ``per_slice`` ranks, every rank on ``device`` (default: the GPU; raises
+    without one): the hierarchical schedules' layout, simulated on one
+    device as the reference simulates it on fake CPU devices."""
+    if n_slices < 1 or per_slice < 1:
+        raise ValueError(f"need a mesh of >= 1 x >= 1 ranks, got "
+                         f"{n_slices} x {per_slice}")
+    return RankMesh(devices=(_mesh_device(device),) * (n_slices * per_slice),
+                    axis_names=(SLICE_AXIS, INTRA_AXIS),
+                    shape=(n_slices, per_slice))
+
+
+def _mesh_device(device) -> torch.device:
     dev = resolve_device() if device is None else torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    return RankMesh(devices=(dev,) * n)
+    return dev

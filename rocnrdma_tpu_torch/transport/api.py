@@ -1,37 +1,61 @@
 """The Transport interface: rank-major collectives over a rank mesh.
 
-Counterpart of ``rocnrdma_tpu/transport/api.py`` for the data-plane verbs
-allreduce, reduce_scatter, allgather, alltoall and alltoallv. Data layout
-contract: the leading tensor dim is the rank axis, ``x[r]`` is rank r's
-buffer, and the result keeps that layout: every row the reduction
-(allreduce), row r the reduced shard r (reduce_scatter, ``(n, S/n)``),
-every row the concatenation (allgather, ``(n, n*c)``), row r's chunk j
-what rank j sent rank r (alltoall, ``(n, n, c)``). In this slice every
+Counterpart of ``rocnrdma_tpu/transport/api.py``: the verbs allreduce,
+reduce_scatter, allgather, alltoall, alltoallv, broadcast, reduce, gather,
+scatter and sendrecv, every explicit schedule of the reference, grouped
+launch (``group()``) and custom schedules (``program_fn``). Data layout
+contract: the leading tensor dims are the mesh; on a 1-D mesh ``x[r]`` is
+rank r's buffer, on a 2-D ``('slice', 'intra')`` mesh ``x[s, i]`` is the
+buffer of rank (slice s, intra i), flat rank ``s * per_slice + i``. The
+result keeps that layout: every rank's row the reduction (allreduce), row
+r the reduced shard r (reduce_scatter, ``(n, S/n)``), every row the
+concatenation (allgather, ``(n, n*c)``), row r's chunk j what rank j sent
+rank r (alltoall, ``(n, n, c)``), every row root's (broadcast), root's row
+the reduction and the others zero (reduce), root's row the concatenation
+and the others zero (gather, ``(n, n*c)``), row r root's chunk r
+(scatter, ``(n, c)``), row r what rank r - shift sent (sendrecv). Every
 rank lives on the mesh's one device.
 
-Algorithms (``SCHEDULES``):
+Algorithms (``SCHEDULES``; the reference's names, except that its
+``pallas_ring`` is ``cuda_ring`` here):
 
 - ``"fused"`` - one library call over the rank axis (XLA's collectives in
   the reference).
-- ``"ring"`` / ``"ring_bidir"`` - the explicit PyTorch ring schedules; for
-  alltoall ``"ring"`` is the rotation schedule.
-- ``"bruck"`` - the log-step alltoall.
-- ``"cuda_ring"`` - the hand-written CUDA kernels (``pallas_ring`` in the
-  reference): the ring kernel for allreduce, reduce_scatter and allgather,
-  the direct alltoall kernel for alltoall(v). Allreduce and reduce_scatter
-  are sum-only. The ring verbs take the tile policy below: one tile while
-  a chunk (a rank's buffer over n; for allgather the rank's buffer) fits
-  in one ``CUDA_RING_TILE_BYTES`` tile, else the fewest tiles of at most
-  that size. Allreduce runs its tiled tier out of place (the result of
-  ``ring_cuda.hbm_ring_allreduce``), so the caller's tensor is never
-  changed.
-- ``"auto"`` - ``RNR_ALGO`` when set and supported, else ``fused``.
+- ``"ring"`` / ``"ring_bidir"`` - the explicit ring schedules; for
+  alltoall ``"ring"`` is the rotation schedule. ``"bruck"`` - the log-step
+  alltoall.
+- ``"tree"`` (halving-doubling), ``"khd"`` (mixed-radix halving-doubling,
+  bidirectional), ``"dtree"`` (double binary tree), ``"ptree"`` (its
+  chunk-pipelined form), ``"ktree"`` (k-ary tree): the explicit 1-D
+  schedules. ``khd`` without ``digits``/``max_radix`` runs
+  ``schedule.khd_digits(n)``: the reference's cost-model radix
+  (``tuner.khd_model_digits``) waits for the tuner's port.
+- ``"khd2d"`` and ``"hierarchical"`` - the 2-D mesh schedules.
+- ``"binomial"`` - the rooted verbs' binomial trees.
+- ``"cuda_ring"`` - the hand-written CUDA kernels: the ring kernel for
+  allreduce, reduce_scatter and allgather, the direct alltoall kernel for
+  alltoall(v). Allreduce and reduce_scatter are sum-only. The ring verbs
+  take the tile policy below: one tile while a chunk (a rank's buffer over
+  n; for allgather the rank's buffer) fits in one ``CUDA_RING_TILE_BYTES``
+  tile, else the fewest tiles of at most that size. Allreduce runs its
+  tiled tier out of place (the result of ``ring_cuda.hbm_ring_allreduce``),
+  so the caller's tensor is never changed.
+- ``"auto"`` - ``RNR_ALGO`` when set and supported; else ``hierarchical``
+  for allreduce and alltoall on a 2-D mesh, ``fused`` otherwise. The
+  reference's ``algo="model"`` and tuning table wait for the tuner.
 
-``RNR_DEBUG=1`` logs one stderr line per verb dispatch.
+Knobs, with the reference's validation: ``op``, ``root``, ``shift``,
+``acc`` (accumulate in a wider dtype, cast back), ``premul`` (scale every
+contribution before a sum), ``donate`` (write the result into the input's
+storage and return the input; refused on verbs whose output shape differs),
+``cross_dtype`` / ``intra_algo`` (hierarchical allreduce), ``chunks``
+(ptree), ``digits`` / ``max_radix`` (khd). ``RNR_DEBUG=1`` logs one stderr
+line per verb dispatch.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import sys
 
@@ -40,13 +64,23 @@ import torch
 
 from rocnrdma_tpu_torch import collectives as C
 from rocnrdma_tpu_torch.collectives.reduce_op import REDUCE_OPS
+from rocnrdma_tpu_torch.collectives.schedule import khd_digits
 from rocnrdma_tpu_torch.metrics import MiB
 from rocnrdma_tpu_torch.ops import alltoall_cuda, ring_cuda
-from rocnrdma_tpu_torch.runtime.mesh import RankMesh, detect_topology, rank_mesh
+from rocnrdma_tpu_torch.runtime.mesh import (
+    INTRA_AXIS,
+    RANK_AXIS,
+    SLICE_AXIS,
+    RankMesh,
+    detect_topology,
+    rank_mesh,
+)
 
 _DEBUG_LOG = os.environ.get("RNR_DEBUG", "") not in ("", "0")
 
-ALGOS = ("auto", "fused", "ring", "ring_bidir", "bruck", "cuda_ring")
+ALGOS = ("auto", "fused", "ring", "ring_bidir", "tree", "khd", "khd2d",
+         "dtree", "ptree", "ktree", "hierarchical", "cuda_ring", "bruck",
+         "binomial")
 
 # The largest tile of the cuda_ring arm. The ring kernel folds each chunk in
 # one direct pass, so tiles no longer set its time: they set only the
@@ -82,41 +116,106 @@ def _cuda_ring_reduce_scatter(x: torch.Tensor) -> torch.Tensor:
 
 def _sum_only(verb: str, kernel):
     """A schedule running ``kernel``, which sums, that refuses other ops."""
-    def schedule(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+    def schedule(x: torch.Tensor, shape, op: str = "sum", root: int = 0) -> torch.Tensor:
         if op != "sum":
             raise ValueError(f"cuda_ring {verb} is sum-only, got op={op!r}")
         return kernel(x)
     return schedule
 
 
+def _khd(digits) -> dict:
+    return {} if digits is None else {"digits": digits}
+
+
 # THE (op, algo) table, consumed by Transport and by the bench runner's
-# algo filter. Each entry maps a rank-major tensor through the schedule;
-# every entry takes ``op`` and the data-moving verbs ignore it.
+# algo filter. Each entry maps a rank-major tensor ``x`` of shape (n, ...),
+# the mesh's ranks flattened, through the schedule; ``shape`` is the mesh
+# shape (the 2-D schedules read it). Keyword knobs: ``op`` (the reduction,
+# ignored by the verbs that only move data), ``root`` (the rooted verbs),
+# ``shift`` (sendrecv) and the schedule-specific ones.
 SCHEDULES = {
     "allreduce": {
-        "fused": lambda x, op="sum": C.fused_allreduce(x, op=op),
-        "ring": lambda x, op="sum": C.ring_allreduce(x, op=op),
-        "ring_bidir": lambda x, op="sum": C.ring_allreduce(x, bidir=True, op=op),
+        "fused": lambda x, shape, op="sum", root=0: C.fused_allreduce(x, op=op),
+        "ring": lambda x, shape, op="sum", root=0: C.ring_allreduce(x, op=op),
+        "ring_bidir": lambda x, shape, op="sum", root=0:
+            C.ring_allreduce(x, bidir=True, op=op),
+        "tree": lambda x, shape, op="sum", root=0: C.hd_allreduce(x, op=op),
+        # the registered khd runs bidir: a part's halves ride opposite
+        # rotations where the split is real (collectives/khd.py)
+        "khd": lambda x, shape, op="sum", root=0, digits=None:
+            C.khd_allreduce(x, op=op, bidir=True, **_khd(digits)),
+        # digits = the mesh shape, round t within mesh axis t
+        "khd2d": lambda x, shape, op="sum", root=0:
+            C.khd2d_allreduce(x, shape, op=op, bidir=True),
+        "dtree": lambda x, shape, op="sum", root=0: C.dbtree_allreduce(x, op=op),
+        # ``chunks`` overrides the pipeline depth
+        "ptree": lambda x, shape, op="sum", root=0, chunks=None:
+            C.ptree_allreduce(x, op=op, chunks=chunks),
+        "ktree": lambda x, shape, op="sum", root=0: C.kary_tree_allreduce(x, op=op),
+        # ``intra_algo``: ring|khd for the two intra-slice phases
+        "hierarchical": lambda x, shape, op="sum", root=0, cross_dtype=None,
+                               intra_algo=None:
+            C.hierarchical_allreduce(x, shape, op=op, cross_dtype=cross_dtype,
+                                     intra_algo=intra_algo or "ring"),
         "cuda_ring": _sum_only("allreduce", _cuda_ring_allreduce),
     },
     "reduce_scatter": {
-        "fused": lambda x, op="sum": C.fused_reduce_scatter(x, op=op),
-        "ring": lambda x, op="sum": C.ring_reduce_scatter(x, op=op),
+        "fused": lambda x, shape, op="sum", root=0: C.fused_reduce_scatter(x, op=op),
+        "ring": lambda x, shape, op="sum", root=0: C.ring_reduce_scatter(x, op=op),
+        "khd": lambda x, shape, op="sum", root=0, digits=None:
+            C.khd_reduce_scatter(x, op=op, **_khd(digits)),
+        "khd2d": lambda x, shape, op="sum", root=0:
+            C.khd2d_reduce_scatter(x, shape, op=op),
         "cuda_ring": _sum_only("reduce_scatter", _cuda_ring_reduce_scatter),
     },
     "allgather": {
-        "fused": lambda x, op="sum": C.fused_allgather(x),
-        "ring": lambda x, op="sum": C.ring_allgather(x),
-        "cuda_ring": lambda x, op="sum": ring_cuda.ring_allgather(
+        "fused": lambda x, shape, op="sum", root=0: C.fused_allgather(x),
+        "ring": lambda x, shape, op="sum", root=0: C.ring_allgather(x),
+        "khd": lambda x, shape, op="sum", root=0, digits=None:
+            C.khd_allgather(x, **_khd(digits)).reshape(x.shape[0], -1),
+        "khd2d": lambda x, shape, op="sum", root=0:
+            C.khd2d_allgather(x, shape).reshape(x.shape[0], -1),
+        "cuda_ring": lambda x, shape, op="sum", root=0: ring_cuda.ring_allgather(
             x, tile_rows=cuda_ring_tile_rows(x, "allgather")),
     },
     "alltoall": {
         # "ring" selects the rotation schedule; "bruck" the log-step one
-        "fused": lambda x, op="sum": C.fused_alltoall(x),
-        "ring": lambda x, op="sum": C.rotation_alltoall(x),
-        "bruck": lambda x, op="sum": C.bruck_alltoall(x),
+        "fused": lambda x, shape, op="sum", root=0: C.fused_alltoall(x),
+        "ring": lambda x, shape, op="sum", root=0: C.rotation_alltoall(x),
+        "bruck": lambda x, shape, op="sum", root=0: C.bruck_alltoall(x),
+        # 2-D mesh only: within slices, then one crossing per chunk
+        "hierarchical": lambda x, shape, op="sum", root=0:
+            C.hierarchical_alltoall(x, shape),
         # direct writes, one per chunk, no relay
-        "cuda_ring": lambda x, op="sum": alltoall_cuda.alltoall(x),
+        "cuda_ring": lambda x, shape, op="sum", root=0: alltoall_cuda.alltoall(x),
+    },
+    # The rooted verbs; off-root rows of reduce/gather are zeroed.
+    "broadcast": {
+        "fused": lambda x, shape, op="sum", root=0: C.fused_broadcast(x, root=root),
+        "binomial": lambda x, shape, op="sum", root=0:
+            C.binomial_broadcast(x, root=root),
+    },
+    "reduce": {
+        "fused": lambda x, shape, op="sum", root=0:
+            C.fused_rooted_reduce(x, root=root, op=op),
+        "binomial": lambda x, shape, op="sum", root=0:
+            C.binomial_reduce(x, root=root, op=op),
+    },
+    "gather": {
+        "fused": lambda x, shape, op="sum", root=0:
+            C.fused_gather(x, root=root).reshape(x.shape[0], -1),
+        "binomial": lambda x, shape, op="sum", root=0:
+            C.binomial_gather(x, root=root).reshape(x.shape[0], -1),
+    },
+    "scatter": {
+        "fused": lambda x, shape, op="sum", root=0: C.fused_scatter(x, root=root),
+        "binomial": lambda x, shape, op="sum", root=0:
+            C.binomial_scatter(x, root=root),
+    },
+    # Point to point: rank r sends to r + shift (mod n). One step is the
+    # whole schedule, so there is no explicit-vs-fused split.
+    "sendrecv": {
+        "fused": lambda x, shape, shift=1: C.fused_sendrecv(x, shift=shift),
     },
 }
 
@@ -125,20 +224,71 @@ SCHEDULES = {
 ALLTOALLV_ALGOS = ("fused", "cuda_ring")
 
 
-def supports(op: str, algo: str) -> bool:
-    """Does ``(op, algo)`` resolve on a 1-D rank mesh?"""
-    return algo == "auto" or algo in SCHEDULES.get(op, {})
+def supports(op: str, algo: str, is_2d: bool = False) -> bool:
+    """Does ``(op, algo)`` resolve on a mesh of this dimensionality?"""
+    if algo == "auto":
+        return True
+    if algo not in SCHEDULES.get(op, {}):
+        return False
+    if algo in ("hierarchical", "khd2d"):
+        return is_2d
+    if op == "sendrecv":
+        return not is_2d  # a shift permutation is only defined on one ring
+    if algo == "fused":
+        return True
+    return not is_2d  # every explicit schedule rings a 1-D rank mesh
+
+
+def _dtype(spec) -> torch.dtype:
+    """A torch dtype from a torch dtype, a numpy dtype or scalar type, or a
+    name ("bfloat16")."""
+    if isinstance(spec, torch.dtype):
+        return spec
+    name = spec if isinstance(spec, str) else (
+        getattr(spec, "name", None) or getattr(spec, "__name__", None))
+    dt = getattr(torch, name, None) if isinstance(name, str) else None
+    if not isinstance(dt, torch.dtype):
+        raise TypeError(f"not a dtype: {spec!r}")
+    return dt
+
+
+def _dtype_name(dt: torch.dtype) -> str:
+    return str(dt).removeprefix("torch.")
+
+
+def _unflatten(out: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """A schedule's (n, ...) result back to the mesh's leading dims."""
+    return out.reshape(shape + out.shape[1:])
 
 
 class Transport:
-    """Collectives over a rank mesh (default: one rank per GPU)."""
+    """Collectives over a rank mesh (default: one rank per GPU). Build one
+    per mesh; the callables of each (verb, algo, knobs) are cached."""
 
     def __init__(self, mesh: RankMesh | None = None):
         self.mesh = mesh if mesh is not None else rank_mesh(detect_topology().n_devices)
+        self.axes = self.mesh.axis_names
+        if self.axes not in ((RANK_AXIS,), (SLICE_AXIS, INTRA_AXIS)):
+            raise ValueError(f"mesh axes {self.axes} unsupported; use "
+                             f"runtime.rank_mesh() or runtime.slice_mesh()")
         self.n_ranks = self.mesh.n_ranks
+        self.is_2d = len(self.axes) == 2
+        self._lead = tuple(self.mesh.shape)  # the leading dims of a tensor on it
         self.device = self.mesh.device
+        self._cache: dict = {}  # (verb, algo, knobs) -> callable
         # per-(verb, algo) dispatch counts and input bytes, read via stats()
         self._stats: dict[tuple, dict] = {}
+        # re-rooting hook: an int or zero-arg callable naming the root that
+        # grouped rooted verbs take when the caller passes none (None = 0)
+        self.root_hint = None
+
+    def _default_root(self) -> int:
+        """Resolve :attr:`root_hint` for a grouped rooted verb issued with
+        no explicit root (0 when unset)."""
+        hint = self.root_hint
+        if hint is None:
+            return 0
+        return int(hint() if callable(hint) else hint)
 
     # -- policy ------------------------------------------------------------
 
@@ -161,13 +311,19 @@ class Transport:
             # RNR_ALGO replaces only the policy default, and only where the
             # op supports it, so one env var doesn't break unrelated verbs
             forced = self._forced_algo()
-            if forced and supports(op, forced):
+            if forced and supports(op, forced, self.is_2d):
                 algo = forced
         if algo == "auto":
-            algo = "fused"
-        if not supports(op, algo):
-            raise ValueError(f"op {op!r} has no {algo!r} schedule; compatible "
-                             f"here: {list(SCHEDULES[op])}")
+            # 2-D mesh: the two-level schedules are the default for the
+            # verbs that have one
+            algo = ("hierarchical"
+                    if self.is_2d and op in ("allreduce", "alltoall")
+                    else "fused")
+        if not supports(op, algo, self.is_2d):
+            raise ValueError(
+                f"op {op!r} has no {algo!r} schedule on a "
+                f"{'2-D' if self.is_2d else '1-D'} mesh; compatible here: "
+                f"{[a for a in SCHEDULES[op] if supports(op, a, self.is_2d)]}")
         return algo
 
     def _count(self, verb: str, algo: str, x: torch.Tensor) -> None:
@@ -177,11 +333,13 @@ class Transport:
         s["bytes"] += nbytes
         if _DEBUG_LOG:  # the NCCL_DEBUG=INFO analogue (env RNR_DEBUG=1)
             print(f"# rnr {verb} algo={algo} bytes={nbytes} "
-                  f"ranks={self.n_ranks} device={self.device}", file=sys.stderr)
+                  f"ranks={self.n_ranks} mesh={'2d' if self.is_2d else '1d'} "
+                  f"device={self.device}", file=sys.stderr)
 
     def stats(self) -> dict:
         """Per-(verb, algo) dispatch counts and cumulative input bytes of the
-        verb methods (bare ``jit_fn`` callables are not counted)."""
+        verb methods and grouped launches (bare ``jit_fn`` callables are not
+        counted)."""
         return {f"{v}/{a}": dict(s) for (v, a), s in sorted(self._stats.items())}
 
     def format_stats(self) -> str:
@@ -191,45 +349,84 @@ class Transport:
         return "\n".join(rows)
 
     def shard(self, x, dtype: torch.dtype | None = None) -> torch.Tensor:
-        """Place a global buffer (numpy or tensor, ``x[r]`` = rank r's buffer)
-        on the mesh as one rank-major tensor, optionally cast to ``dtype``
-        on the device."""
+        """Place a global buffer (numpy or tensor, leading dims the mesh
+        shape) on the mesh as one rank-major tensor, optionally cast to
+        ``dtype`` on the device."""
         t = torch.from_numpy(np.ascontiguousarray(x)) if isinstance(x, np.ndarray) else x
-        if t.dim() < 1 or t.shape[0] != self.n_ranks:
-            raise ValueError(f"leading dim must be the {self.n_ranks} ranks, "
-                             f"got shape {tuple(t.shape)}")
+        lead = self._lead
+        if t.shape[:len(lead)] != lead:
+            what = (f"the {self.n_ranks} ranks" if not self.is_2d
+                    else f"the mesh shape {lead}")
+            raise ValueError(f"leading dim must be {what}, got shape "
+                             f"{tuple(t.shape)}")
         t = t.to(self.device)
         return t if dtype is None else t.to(dtype)
 
     # -- verbs -------------------------------------------------------------
 
+    @staticmethod
+    def _force_algo(algo: str, **knobs) -> str:
+        """Schedule-specific knobs force their schedule under ``auto``: the
+        knob is the algorithm choice. An explicit algo resolves normally
+        and is validated in ``_build``."""
+        if algo == "auto":
+            if (knobs.get("cross_dtype") is not None
+                    or knobs.get("intra_algo") is not None):
+                return "hierarchical"
+            if knobs.get("chunks") is not None:
+                return "ptree"
+            if (knobs.get("digits") is not None
+                    or knobs.get("max_radix") is not None):
+                return "khd"
+        return algo
+
     def _dispatch(self, verb: str, x: torch.Tensor, algo: str, **knobs):
-        algo = self._resolve(algo, verb)
+        algo = self._resolve(self._force_algo(algo, **knobs), verb)
         fn = self._jit(verb, algo, **knobs)  # validates knobs first:
         self._count(verb, algo, x)           # rejected calls don't count
         return fn(x)
 
-    def allreduce(self, x: torch.Tensor, algo: str = "auto",
-                  op: str = "sum") -> torch.Tensor:
-        """(ranks, ...) -> same shape; every rank row = elementwise ``op``
-        reduction (sum/prod/max/min/avg)."""
-        return self._dispatch("allreduce", x, algo, op=op)
+    def allreduce(self, x: torch.Tensor, algo: str = "auto", op: str = "sum",
+                  acc=None, premul=None, cross_dtype=None, intra_algo=None,
+                  chunks=None, digits=None, max_radix=None,
+                  donate: bool = False) -> torch.Tensor:
+        """(ranks..., S) -> same shape; every rank row = elementwise ``op``
+        reduction (sum/prod/max/min/avg). ``acc``: accumulate in this dtype
+        and cast back (e.g. ``"float32"`` on bf16 buffers). ``premul``:
+        scale every contribution by this scalar before summing (op='sum',
+        float buffers). ``cross_dtype`` / ``intra_algo``: hierarchical only
+        (the cross-slice phase's dtype; ring|khd for the intra phases).
+        ``chunks``: ptree's pipeline depth. ``digits`` / ``max_radix``:
+        khd's round radices, explicit or capped. Each schedule-specific
+        knob forces its schedule under ``auto``. ``donate``: write the
+        result into ``x`` and return it."""
+        return self._dispatch("allreduce", x, algo, op=op, acc=acc,
+                              premul=premul, cross_dtype=cross_dtype,
+                              intra_algo=intra_algo, chunks=chunks,
+                              digits=digits, max_radix=max_radix, donate=donate)
 
-    def reduce_scatter(self, x: torch.Tensor, algo: str = "auto",
-                       op: str = "sum") -> torch.Tensor:
-        """(ranks, S) -> (ranks, S/n); rank r keeps the ``op``-reduced r-th
-        shard."""
-        return self._dispatch("reduce_scatter", x, algo, op=op)
+    def reduce_scatter(self, x: torch.Tensor, algo: str = "auto", op: str = "sum",
+                       acc=None, premul=None, digits=None, max_radix=None,
+                       donate: bool = False) -> torch.Tensor:
+        """(ranks..., S) -> (ranks..., S/n); rank r keeps the ``op``-reduced
+        r-th shard. ``digits``/``max_radix``: khd's round radices."""
+        return self._dispatch("reduce_scatter", x, algo, op=op, acc=acc,
+                              premul=premul, digits=digits,
+                              max_radix=max_radix, donate=donate)
 
-    def allgather(self, x: torch.Tensor, algo: str = "auto") -> torch.Tensor:
-        """(ranks, c) -> (ranks, n*c); every rank ends with the
-        concatenation in rank order."""
-        return self._dispatch("allgather", x, algo)
+    def allgather(self, x: torch.Tensor, algo: str = "auto", digits=None,
+                  max_radix=None, donate: bool = False) -> torch.Tensor:
+        """(ranks..., c) -> (ranks..., n*c); every rank ends with the
+        concatenation in rank order. ``digits``/``max_radix``: khd's
+        round radices."""
+        return self._dispatch("allgather", x, algo, digits=digits,
+                              max_radix=max_radix, donate=donate)
 
-    def alltoall(self, x: torch.Tensor, algo: str = "auto") -> torch.Tensor:
-        """(ranks, n, c) -> same shape, the global transpose of the rank and
-        chunk dims."""
-        return self._dispatch("alltoall", x, algo)
+    def alltoall(self, x: torch.Tensor, algo: str = "auto",
+                 donate: bool = False) -> torch.Tensor:
+        """(ranks..., n, c) -> same shape, the global transpose of the rank
+        and chunk dims."""
+        return self._dispatch("alltoall", x, algo, donate=donate)
 
     def alltoallv(self, x: torch.Tensor, counts,
                   algo: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
@@ -243,7 +440,10 @@ class Transport:
         ``recv_counts[r] = counts[:, r]``. The wire always ships
         ``max_count`` rows a chunk. ``algo``: ``fused`` (one transpose) or
         ``cuda_ring`` (the direct alltoall kernel); ``auto`` is ``fused``
-        unless ``RNR_ALGO`` names one of the two."""
+        unless ``RNR_ALGO`` names one of the two. 1-D meshes only."""
+        if self.is_2d:
+            raise ValueError("alltoallv rings a 1-D rank mesh (use the "
+                             "dense alltoall on 2-D meshes)")
         if algo == "auto":
             forced = self._forced_algo()
             algo = forced if forced in ALLTOALLV_ALGOS else "fused"
@@ -256,24 +456,223 @@ class Transport:
         self._count("alltoallv", algo, x)
         return out
 
+    def broadcast(self, x: torch.Tensor, algo: str = "auto", root: int = 0,
+                  donate: bool = False) -> torch.Tensor:
+        """(ranks..., S) -> same shape; every rank row = root's row."""
+        return self._dispatch("broadcast", x, algo, root=root, donate=donate)
+
+    def reduce(self, x: torch.Tensor, algo: str = "auto", root: int = 0,
+               op: str = "sum", acc=None, premul=None,
+               donate: bool = False) -> torch.Tensor:
+        """(ranks..., S) -> same shape; root's row = the ``op`` reduction,
+        the others zero."""
+        return self._dispatch("reduce", x, algo, root=root, op=op, acc=acc,
+                              premul=premul, donate=donate)
+
+    def gather(self, x: torch.Tensor, algo: str = "auto", root: int = 0,
+               donate: bool = False) -> torch.Tensor:
+        """(ranks..., c) -> (ranks..., n*c); root's row = the concatenation
+        in rank order, the others zero."""
+        return self._dispatch("gather", x, algo, root=root, donate=donate)
+
+    def scatter(self, x: torch.Tensor, algo: str = "auto", root: int = 0,
+                donate: bool = False) -> torch.Tensor:
+        """(ranks..., n*c) -> (ranks..., c); rank r's row = chunk r of
+        root's row (only root's input is read)."""
+        return self._dispatch("scatter", x, algo, root=root, donate=donate)
+
+    def sendrecv(self, x: torch.Tensor, algo: str = "auto", shift: int = 1,
+                 donate: bool = False) -> torch.Tensor:
+        """(ranks, S) -> same shape; rank r's row = row (r - shift) mod n
+        (every rank sends to r + shift, the ncclSend/ncclRecv pairwise
+        exchange). 1-D rank mesh only."""
+        return self._dispatch("sendrecv", x, algo, shift=shift, donate=donate)
+
     def jit_fn(self, verb: str, algo: str = "auto", **knobs):
-        """The callable the benches time. PyTorch runs eagerly, so this is
-        the schedule bound to its knobs, with the input checks in front."""
+        """The callable the benches time: the schedule bound to its knobs,
+        with the input checks in front (PyTorch runs eagerly)."""
+        algo = self._force_algo(algo, **knobs)
         return self._jit(verb, self._resolve(algo, verb), **knobs)
 
-    def _jit(self, verb: str, algo: str, op: str = "sum"):
-        if op not in REDUCE_OPS:
-            raise ValueError(f"unknown reduce op {op!r}; know {REDUCE_OPS}")
-        schedule = SCHEDULES[verb][algo]
+    def group(self):
+        """Open an aggregation scope (the ncclGroupStart/End analogue): the
+        verbs queued on the returned :class:`transport.group.Group` run at
+        ``with``-exit, in order. See ``transport/group.py``."""
+        from rocnrdma_tpu_torch.transport.group import Group
+        return Group(self)
+
+    def program_fn(self, prog):
+        """A callable running a custom :class:`collectives.Program` (the
+        MSCCL-analogue schedule IR) over this mesh's ranks. 1-D meshes only:
+        a Program's perm speaks flat rank ids."""
+        if self.is_2d:
+            raise ValueError("custom programs run on a 1-D rank mesh")
+        if prog.n_ranks != self.n_ranks:
+            raise ValueError(
+                f"program is for {prog.n_ranks} ranks, mesh has {self.n_ranks}")
+        from rocnrdma_tpu_torch.collectives.program import execute, validate
+        validate(prog)
 
         def run(x: torch.Tensor) -> torch.Tensor:
             self._check_rank_major(x)
-            return schedule(x, op=op)
+            return execute(prog, x)
+        return run
+
+    # -- lowering ----------------------------------------------------------
+
+    def _normalize_knobs(self, **knobs) -> dict:
+        """Validate knobs and strip defaults so every caller (verb methods,
+        bare jit_fn(), grouped calls) shares one callable per program."""
+        root = knobs.get("root")
+        if root is not None and not 0 <= root < self.n_ranks:
+            raise ValueError(f"root {root} out of range for {self.n_ranks} ranks")
+        if knobs.get("acc") is not None:
+            # one spelling per dtype ("float32" / np.float32 / torch.float32)
+            try:
+                knobs["acc"] = _dtype_name(_dtype(knobs["acc"]))
+            except TypeError as e:
+                raise ValueError(f"bad acc dtype {knobs['acc']!r}: {e}") from None
+        if knobs.get("premul") is not None:
+            if knobs.get("op", "sum") != "sum":
+                raise ValueError(
+                    f"premul requires op='sum' (the ncclRedOpCreatePreMulSum "
+                    f"semantics), got op={knobs['op']!r}")
+            knobs["premul"] = float(knobs["premul"])  # one cache key per value
+        if knobs.get("donate") is not None:
+            knobs["donate"] = bool(knobs["donate"])
+        if knobs.get("cross_dtype") is not None:
+            try:
+                dt = _dtype(knobs["cross_dtype"])
+            except TypeError as e:
+                raise ValueError(
+                    f"bad cross_dtype {knobs['cross_dtype']!r}: {e}") from None
+            if not dt.is_floating_point:
+                # an int wire dtype would TRUNCATE the cross-slice partials
+                # (0.5 -> 0), not just round them; the same rule as premul
+                raise ValueError(
+                    f"cross_dtype must be a float dtype, got {_dtype_name(dt)}")
+            if knobs.get("op", "sum") not in ("sum", "avg"):
+                raise ValueError(
+                    f"cross_dtype only composes with op sum/avg (a coarser-"
+                    f"dtype {knobs['op']} would change which element wins)")
+            knobs["cross_dtype"] = _dtype_name(dt)
+        if knobs.get("intra_algo") is not None:
+            if knobs["intra_algo"] not in ("ring", "khd"):
+                raise ValueError(f"intra_algo must be ring|khd, got "
+                                 f"{knobs['intra_algo']!r}")
+        if knobs.get("chunks") is not None:
+            chunks = int(knobs["chunks"])
+            if chunks < 1:
+                raise ValueError(f"chunks must be >= 1, got {chunks}")
+            knobs["chunks"] = chunks  # one cache entry per depth
+        if knobs.get("max_radix") is not None:
+            # canonicalize to digits (ONE cache key form for the khd shape)
+            if knobs.get("digits") is not None:
+                raise ValueError("give digits OR max_radix, not both")
+            mr = int(knobs.pop("max_radix"))
+            if mr < 2:
+                raise ValueError(f"max_radix must be >= 2, got {mr}")
+            knobs["digits"] = khd_digits(self.n_ranks, mr)
+        if knobs.get("digits") is not None:
+            digits = tuple(int(d) for d in knobs["digits"])
+            prod = math.prod(digits)
+            if any(d < 2 for d in digits) or prod != self.n_ranks:
+                raise ValueError(
+                    f"digits {digits} must each be >= 2 and multiply to "
+                    f"the {self.n_ranks}-rank axis (product {prod})")
+            knobs["digits"] = digits
+        return {k: v for k, v in knobs.items()
+                if not (k == "op" and v == "sum") and not (k == "root" and v == 0)
+                and not (k == "shift" and v == 1) and not (k == "donate" and not v)
+                and v is not None}
+
+    # verbs whose output shape differs from the input: donating could not
+    # hold the result in the input's storage
+    _SHAPE_CHANGING = ("reduce_scatter", "allgather", "gather", "scatter")
+
+    def _jit(self, verb: str, algo: str, **knobs):
+        knobs = self._normalize_knobs(**knobs)
+        if knobs.get("donate") and verb in self._SHAPE_CHANGING:
+            raise ValueError(
+                f"donate=True is useless on {verb!r}: its output shape "
+                f"differs from the input, so nothing is reused but the "
+                f"input buffer would still be invalidated")
+        key = (verb, algo, tuple(sorted(knobs.items())))
+        if key not in self._cache:
+            self._cache[key] = self._build(verb, algo, **knobs)
+        return self._cache[key]
+
+    def _group_fn(self, sig: tuple):
+        """One callable running every (verb, algo, knobs) in ``sig`` in
+        order, on the current stream, cached per signature."""
+        key = ("__group__", sig)
+        if key not in self._cache:
+            mapped = [self._jit(verb, algo, **dict(knobs))
+                      for verb, algo, knobs in sig]
+            self._cache[key] = lambda *xs: tuple(fn(x) for fn, x in zip(mapped, xs))
+        return self._cache[key]
+
+    def _build(self, verb: str, algo: str, **knobs):
+        schedule = SCHEDULES[verb].get(algo)
+        if schedule is None:
+            raise ValueError(f"op {verb!r} has no {algo!r} schedule")
+        if "cross_dtype" in knobs and (verb, algo) != ("allreduce",
+                                                       "hierarchical"):
+            raise ValueError(
+                f"cross_dtype is a hierarchical-ALLREDUCE knob (the DCN "
+                f"wire dtype); got ({verb!r}, algo {algo!r})")
+        if "intra_algo" in knobs and (verb, algo) != ("allreduce",
+                                                      "hierarchical"):
+            raise ValueError(
+                f"intra_algo is a hierarchical-ALLREDUCE knob (the ICI "
+                f"phase schedule); got ({verb!r}, algo {algo!r})")
+        if "chunks" in knobs and (verb, algo) != ("allreduce", "ptree"):
+            raise ValueError(
+                f"chunks is a PTREE-allreduce knob (the pipeline depth); "
+                f"got ({verb!r}, algo {algo!r})")
+        if "digits" in knobs and algo != "khd":
+            raise ValueError(
+                f"digits/max_radix is a KHD knob (the round radices); "
+                f"got ({verb!r}, algo {algo!r})")
+        if "op" in knobs and knobs["op"] not in REDUCE_OPS:
+            raise ValueError(f"unknown reduce op {knobs['op']!r}; know {REDUCE_OPS}")
+        donate = knobs.pop("donate", False)
+        acc = knobs.pop("acc", None)
+        premul = knobs.pop("premul", None)
+        shape = self._lead
+        fn = lambda v: schedule(v, shape, **knobs)
+        if premul is not None:
+            # scale each rank's contribution before the sum: a
+            # pre-transform, so it wraps any sum schedule
+            def _premul(base):
+                def wrapped(v):
+                    if not v.dtype.is_floating_point:
+                        # an int cast would truncate 0.25 to 0 and zero the sum
+                        raise ValueError(f"premul requires a float buffer, "
+                                         f"got {_dtype_name(v.dtype)}")
+                    return base(v * torch.tensor(premul, dtype=v.dtype))
+                return wrapped
+            fn = _premul(fn)
+        if acc is not None:
+            acc_dtype = _dtype(acc)
+            fn = (lambda base: lambda v: base(v.to(acc_dtype)).to(v.dtype))(fn)
+        if self.is_2d:
+            # the schedules take the ranks flattened: (n, ...) in and out
+            fn = (lambda base: lambda v: _unflatten(
+                base(v.reshape((self.n_ranks,) + v.shape[2:])), shape))(fn)
+
+        def run(x: torch.Tensor) -> torch.Tensor:
+            self._check_rank_major(x)
+            out = fn(x)
+            return x.copy_(out) if donate else out
         return run
 
     def _check_rank_major(self, x: torch.Tensor) -> None:
-        if x.dim() < 1 or x.shape[0] != self.n_ranks:
-            raise ValueError(f"expected a rank-major tensor with {self.n_ranks} "
-                             f"rows, got shape {tuple(x.shape)}")
+        lead = self._lead
+        if x.shape[:len(lead)] != lead:
+            what = (f"{self.n_ranks} rows" if not self.is_2d
+                    else f"leading dims {lead}")
+            raise ValueError(f"expected a rank-major tensor with {what}, "
+                             f"got shape {tuple(x.shape)}")
         if x.device != self.device:
             raise ValueError(f"tensor is on {x.device}; the mesh is on {self.device}")

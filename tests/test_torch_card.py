@@ -5,7 +5,11 @@ with a card and no JAX it runs without the suite's conftest::
     python -m pytest --noconftest tests/test_torch_card.py -q
 
 Each kernel is held bitwise to its plain PyTorch version, in float32 and
-bfloat16, and a CUDA tensor never falls back to the plain version.
+bfloat16, and a CUDA tensor never falls back to the plain version. The
+explicit schedules, rooted verbs, sendrecv, the 2-D mesh schedules,
+programs and groups (plain tensor code, no kernel) are held bitwise to
+their result on the CPU; the fused arms that reduce to rtol = atol = 1e-5
+(the card's order of summation is not the CPU's).
 """
 
 import pytest
@@ -13,7 +17,8 @@ import torch
 
 from rocnrdma_tpu_torch import ops as T
 from rocnrdma_tpu_torch.bench import bench_allreduce, bench_alltoall
-from rocnrdma_tpu_torch.runtime import rank_mesh
+from rocnrdma_tpu_torch.collectives import program
+from rocnrdma_tpu_torch.runtime import rank_mesh, slice_mesh
 from rocnrdma_tpu_torch.transport import Transport, api
 
 pytestmark = pytest.mark.cuda
@@ -209,3 +214,86 @@ def test_bench_alltoall_on_the_card(cuda_device):
         ["--fake-devices", "8", "--sizes", "4K,8M", "--dtypes", "float32,bfloat16",
          "--algos", "fused,ring,bruck,cuda_ring", "--repeats", "1",
          "--iters", "1"]) == 0
+
+
+_ARMS = [("allreduce", "tree", {}), ("allreduce", "khd", {"digits": (4, 2)}),
+         ("allreduce", "khd", {}), ("allreduce", "dtree", {}),
+         ("allreduce", "ptree", {"chunks": 3}), ("allreduce", "ptree", {}),
+         ("allreduce", "ktree", {}), ("allreduce", "ring", {"premul": 0.5}),
+         ("reduce_scatter", "khd", {"digits": (2, 4)}), ("allgather", "khd", {}),
+         ("broadcast", "binomial", {"root": 3}), ("reduce", "binomial", {"root": 3}),
+         ("reduce", "binomial", {"root": 5, "op": "max"}),
+         ("gather", "binomial", {"root": 3}), ("scatter", "binomial", {"root": 3}),
+         ("broadcast", "fused", {"root": 3}), ("gather", "fused", {"root": 3}),
+         ("scatter", "fused", {"root": 3}), ("sendrecv", "fused", {"shift": 3})]
+
+
+@pytest.mark.parametrize("verb,algo,kw", _ARMS,
+                         ids=[f"{v}-{a}-{'-'.join(map(str, kw.values()))}"
+                              for v, a, kw in _ARMS])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_schedules_on_the_card_equal_their_cpu_result(cuda_device, verb, algo, kw, dtype):
+    x = _randn((8, 8 * 125), dtype, 7, "cpu")
+    want = getattr(Transport(rank_mesh(8, "cpu")), verb)(x, algo, **kw)
+    got = getattr(Transport(rank_mesh(8, cuda_device)), verb)(
+        x.to(cuda_device), algo, **kw)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("verb,algo,kw", [
+    ("allreduce", "hierarchical", {}), ("allreduce", "hierarchical", {"intra_algo": "khd"}),
+    ("allreduce", "hierarchical", {"cross_dtype": "bfloat16", "op": "avg"}),
+    ("allreduce", "khd2d", {"op": "min"}), ("reduce_scatter", "khd2d", {}),
+    ("allgather", "khd2d", {}), ("alltoall", "hierarchical", {}),
+    ("allreduce", "fused", {}), ("reduce", "fused", {"root": 5})])
+def test_2d_schedules_on_the_card_equal_their_cpu_result(cuda_device, verb, algo, kw):
+    x = _randn((2, 4, 8, 125), torch.float32, 8, "cpu")
+    if verb != "alltoall":
+        x = x.reshape(2, 4, -1)
+    want = getattr(Transport(slice_mesh(2, 4, "cpu")), verb)(x, algo, **kw)
+    got = getattr(Transport(slice_mesh(2, 4, cuda_device)), verb)(
+        x.to(cuda_device), algo, **kw).cpu()
+    if algo == "fused" and verb != "alltoall":
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert torch.equal(got, want)
+
+
+def test_programs_and_groups_on_the_card(cuda_device):
+    t = Transport(rank_mesh(8, cuda_device))
+    x = _randn((8, 203), torch.float32, 9, cuda_device)
+    want = program.sim_program(program.prog_ring_allreduce(8), x.cpu().numpy())
+    assert torch.equal(t.program_fn(program.prog_ring_allreduce(8))(x).cpu(),
+                       torch.from_numpy(want))
+    with t.group() as g:
+        h1 = g.allreduce(x, "dtree")
+        h2 = g.gather(x, "binomial", root=3)
+    assert torch.equal(h1.result(), t.allreduce(x, "dtree"))
+    assert torch.equal(h2.result(), t.gather(x, "binomial", root=3))
+    y = x.clone()
+    assert t.allreduce(y, "khd", donate=True).data_ptr() == y.data_ptr()
+    assert torch.equal(y, t.allreduce(x, "khd"))
+
+
+@pytest.mark.parametrize("collective", ["broadcast", "reduce", "gather", "scatter",
+                                        "sendrecv"])
+def test_rooted_clis_on_the_card(cuda_device, collective):
+    from importlib import import_module
+    cli = import_module(f"rocnrdma_tpu_torch.bench.bench_{collective}")
+    assert cli.main(["--fake-devices", "6", "--sizes", "4K,8M", "--root", "3",
+                     "--shift", "3", "--dtypes", "float32,bfloat16", "--repeats", "1",
+                     "--iters", "1"]) == 0
+
+
+def test_tree64_and_multislice_presets_on_the_card(cuda_device):
+    assert bench_allreduce.main(
+        ["--preset", "tree64", "--fake-devices", "8", "--sizes", "4K,8M",
+         "--algos", "tree,khd,dtree,ptree,ktree,fused", "--repeats", "1",
+         "--iters", "1"]) == 0
+    assert bench_allreduce.main(
+        ["--preset", "multislice", "--fake-devices", "8", "--sizes", "4K,8M",
+         "--algos", "hierarchical,khd2d,fused", "--cross-dtype", "bfloat16",
+         "--repeats", "1", "--iters", "1"]) == 0
+    assert bench_alltoall.main(
+        ["--preset", "multislice", "--fake-devices", "8", "--sizes", "8M",
+         "--repeats", "1", "--iters", "1"]) == 0

@@ -104,7 +104,7 @@ def test_cuda_ring_is_sum_only():
     with pytest.raises(ValueError, match="unknown reduce op"):
         t.allreduce(x, "ring", op="median")
     with pytest.raises(ValueError, match="unknown algo"):
-        t.allreduce(x, "tree")
+        t.allreduce(x, "pallas_ring")
 
 
 def test_rnr_algo_reroutes_auto(monkeypatch):
