@@ -63,7 +63,21 @@ Phases, each timed, any failure exits non-zero:
      per rank with root 3, and sendrecv with shift 3;
    each arm's time, busbw and peak device memory (which must stay under
    60 GiB) in one table;
-7. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
+7. tuner, after the schedules: the per-launch dispatch alpha
+   (``tuner.measure_alpha``, three runs) and the fold ladder at widths
+   2, 3, 4, 8, 16, 32 and 64 (``bench/fold_ladder.py``), printed beside
+   ``nvidia-smi``'s name and power limit; then a ``Transport`` with the
+   committed ``rocnrdma_tpu_torch/results/tuning_h100_8x1.json``: at each
+   size of its sweep ``auto`` must run the table's arm (``stats()``), which
+   must be the sweep's winner, and match ``fused`` (data-moving verbs
+   bitwise, sums within twice the (n-1)-add rounding bound);
+   ``algo="model"`` for the four verbs at 4 KiB, 1 MiB and 256 MiB, held
+   the same way; ``khd`` without digits at 8 x 16 MiB bitwise equal to
+   ``khd`` with ``digits=khd_model_digits(...)`` (allreduce and
+   reduce_scatter); the model's price of every allreduce arm at 8 x 1 GiB
+   beside the arms' measured times there, and the model's pick beside the
+   sweep's winner at every size of the table;
+8. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
    main path, its time, its plain version's and the library call's time at
    the main path's shapes, and its bound: the larger of its bytes (each
    input read once, each output written once) at the datasheet HBM rate
@@ -453,13 +467,14 @@ def sweep(runner, bench: str, collective: str, argv: list, algos: set) -> list:
 
 
 def hold_to_fused(t, verb: str, x: torch.Tensor, algos, n: int) -> dict:
-    """Each arm of ``verb`` on ``x`` against the fused arm on the card: a
-    verb that only moves data bitwise; a sum within twice the (n-1)-add
-    rounding bound gamma * sum_r |x_r|, since the arm and the library each
-    lie within it of the exact sum. Returns the max abs error per arm."""
+    """Each arm of ``verb`` on ``x`` against the fused arm on the card
+    (1-D mesh): a verb that only moves data bitwise; a sum within twice the
+    (n-1)-add rounding bound gamma * sum_r |x_r|, since the arm and the
+    library each lie within it of the exact sum. Returns the max abs error
+    per arm."""
     want = getattr(t, verb)(x, "fused")
     bound = None
-    if verb != "allgather":
+    if verb not in ("allgather", "alltoall"):
         u = 2.0 ** -24
         gamma = (n - 1) * u / (1 - (n - 1) * u)
         bound = 2 * gamma * x.abs().sum(0)
@@ -566,6 +581,113 @@ def schedules_phase(ops, runner, kind: str, n: int = 8) -> list:
     if over:
         raise AssertionError(f"arms above {PEAK_LIMIT >> 30} GiB of device memory: {over}")
     return recs
+
+
+# the arms' measured ms at 8 x 1 GiB fp32 on one card (the tree64 point,
+# PERF.md section 6)
+MEASURED_1GIB_MS = {"fused": 12.326, "tree": 20.700, "khd": 21.099, "ktree": 22.909,
+                    "dtree": 34.942, "ptree": 37.517}
+TUNING_TABLE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "rocnrdma_tpu_torch", "results", "tuning_h100_8x1.json")
+
+
+def verb_input(verb: str, n: int, size: int, seed: int) -> torch.Tensor:
+    """A rank-major fp32 input of message size ``size`` (the tuning table's
+    key: per rank, for allgather the gathered total)."""
+    e = size // 4
+    shape = {"allreduce": (n, e), "reduce_scatter": (n, e),
+             "allgather": (n, e // n), "alltoall": (n, n, e // n)}[verb]
+    return randn(shape, torch.float32, seed)
+
+
+def dispatched(t, verb: str, x: torch.Tensor, algo: str) -> str:
+    """Run ``verb`` on ``x`` under the policy ``algo`` and return the arm
+    ``Transport.stats`` counted for the call."""
+    before = {k: v["calls"] for k, v in t.stats().items()}
+    getattr(t, verb)(x, algo)
+    ran = [k.split("/")[1] for k, v in t.stats().items()
+           if v["calls"] != before.get(k, 0)]
+    if len(ran) != 1:
+        raise AssertionError(f"{verb} {algo}: stats moved for {ran}")
+    return ran[0]
+
+
+def tuner_phase(kind: str, smi: str, n: int = 8) -> None:
+    """The tuner's device half on the card (see the module docstring,
+    phase 7)."""
+    from rocnrdma_tpu_torch.bench import fold_ladder
+    from rocnrdma_tpu_torch.metrics import GiB
+    from rocnrdma_tpu_torch.runtime import rank_mesh
+    from rocnrdma_tpu_torch.transport import Transport
+    from rocnrdma_tpu_torch.transport import tuner as TU
+
+    alphas = [TU.measure_alpha() for _ in range(3)]
+    print(f"dispatch alpha ({smi}): runs {[round(a * 1e9, 1) for a in alphas]} ns, "
+          f"median {sorted(alphas)[1] * 1e9:.1f} ns per launch", flush=True)
+    rows = fold_ladder.run_ladder((2, 3, 4, 8, 16, 32, 64), fold_ladder.ADDEND_BUDGET,
+                                  GiB, 2, 10, 3, 3, torch.device("cuda"))
+    print(f"fold ladder ({smi}), median accounted GB/s at (w+1) bytes/element: "
+          + json.dumps({r["n_ops"]: round(r["GBps_median"], 1) for r in rows}), flush=True)
+
+    # the committed table under auto: each of its sizes runs the table's arm
+    table = TU.TuningTable.load(TUNING_TABLE)
+    t = Transport(rank_mesh(n), tuning=table)
+    if t.platform != "gpu" or table.lookup("allreduce", 4096, n, 1, "gpu") is None:
+        raise AssertionError(f"{TUNING_TABLE} has no gpu row for {n} ranks")
+    seed = 30
+    picks = []
+    for verb, by_size in sorted(table.meta["times_s"].items()):
+        for size in sorted(map(int, by_size)):
+            x = verb_input(verb, n, size, seed)
+            seed += 1
+            arm = table.lookup(verb, size, n, 1, "gpu")
+            ran = dispatched(t, verb, x, "auto")
+            if ran != arm:
+                raise AssertionError(f"{verb} at {size} B: auto ran {ran}, the table says {arm}")
+            hold_to_fused(t, verb, x, ("auto",), n)
+            times = by_size[str(size)]
+            winner = min(times, key=times.get)
+            if winner != arm:
+                raise AssertionError(f"{verb} at {size} B: table {arm}, its sweep's winner {winner}")
+            model = t._resolve("model", verb, size)
+            picks.append({"verb": verb, "bytes": size, "sweep_winner": winner,
+                          "sweep_us": times[winner] * 1e6, "model_pick": model,
+                          "model_pick_sweep_us": times.get(model, float("nan")) * 1e6})
+            del x
+    # algo="model" at three sizes of each verb
+    models = {}
+    for verb in ("allreduce", "reduce_scatter", "allgather", "alltoall"):
+        for size in (4 << 10, 1 << 20, 256 << 20):
+            x = verb_input(verb, n, size, seed)
+            seed += 1
+            models[f"{verb}@{size}"] = dispatched(t, verb, x, "model")
+            hold_to_fused(t, verb, x, ("model",), n)
+            del x
+    # khd without digits runs the model's digits, bitwise
+    digits = {}
+    for verb in ("allreduce", "reduce_scatter"):
+        x = verb_input(verb, n, 16 << 20, seed)
+        seed += 1
+        digits[verb] = t.khd_model_digits(verb, t._msg_bytes(verb, x))
+        hold(f"{verb} khd vs khd digits={digits[verb]}", getattr(t, verb)(x, "khd"),
+             getattr(t, verb)(x, "khd", digits=digits[verb]))
+        del x
+    print(f"algo=model dispatched ({smi}): {json.dumps(models)}; khd digits at "
+          f"8 x 16 MiB: {json.dumps(digits)}", flush=True)
+    # the model's price of each arm at 8 x 1 GiB beside the measured times
+    alpha, beta, hbm = t._constants("allreduce")
+    price = {a: TU.model_time("allreduce", a, n, GiB, alpha, beta, hbm,
+                              device_kind=kind) * 1e3
+             for a in ("ring", "ring_bidir", "tree", "khd", "dtree", "ptree", "ktree",
+                       "cuda_ring")}
+    price["fused"] = TU.fused_model_time("allreduce", n, GiB, alpha, beta, hbm,
+                                         device_kind=kind) * 1e3
+    print(f"model ms at 8 x 1 GiB allreduce ({smi}; alpha {alpha:.3e} s, beta "
+          f"{beta:.3e} s/B, hbm_beta {hbm:.3e} s/B) vs measured (the tree64 point, PERF.md): "
+          + json.dumps({a: [round(ms, 3), MEASURED_1GIB_MS.get(a)]
+                        for a, ms in sorted(price.items(), key=lambda kv: kv[1])}))
+    print(f"model pick vs sweep winner at the table's sizes ({smi}): " + json.dumps(picks),
+          flush=True)
 
 
 def main() -> int:
@@ -677,6 +799,10 @@ def main() -> int:
     # ---- the explicit schedules, rooted verbs and sendrecv (no kernel) ----
     with phase("schedules"):
         schedules_phase(ops, runner, kind, n)
+
+    # ---- the tuner: calibration, the committed table, algo="model" ----
+    with phase("tuner"):
+        tuner_phase(kind, smi, n)
 
     # ---- main path: bench_local (combine kernels) ----
     with phase("main_bench_local"):

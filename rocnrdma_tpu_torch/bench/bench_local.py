@@ -1,16 +1,18 @@
 """``bench_local`` - the on-device combine, the memory-bound half of a ring
 step, timed three ways:
 
-  torch2 / torch3   a chain of ``torch.add`` (counterpart of xla2 / xla3)
-  cuda2 / cuda3     ``ops.hbm_combine``, the hand-written CUDA combine
-                    kernel (counterpart of pallas2 / pallas3)
-  pipe2 / pipe3     ``ops.hbm_combine_pipelined``, the persistent Triton
+  torch2..torch9    a chain of ``torch.add`` (counterpart of xla2..xla9)
+  cuda2..cuda5      ``ops.hbm_combine``, the hand-written CUDA combine
+                    kernel (counterpart of pallas2..pallas5)
+  pipe2..pipe5      ``ops.hbm_combine_pipelined``, the persistent Triton
                     kernel whose loads the compiler's pipeliner overlaps
                     (the same names as the reference's emit_pipeline rows)
 
-The trailing digit is the operand count: 2 = a ring step's fold, 3 = a
-tree node's. On the CPU (``--platform cpu``) the cudaN and pipeN rows run
-the kernels' plain version: correct, not a measurement of the kernels.
+The trailing digits are the operand count: 2 = a ring step's fold, 3 = a
+tree node's, 9 = the ktree's. ``--kernels`` also takes the fold ladder's
+wide widths as ``torch12``..``torch64`` (``WIDE_KERNELS``). On the CPU
+(``--platform cpu``) the cudaN and pipeN rows run the kernels' plain
+version: correct, not a measurement of the kernels.
 
 Timing: the two-depth chained marginal (``timing.marginal_s_per_op``);
 GB/s counts (k+1) bytes moved per element (k reads + 1 write).
@@ -28,11 +30,16 @@ import torch
 
 from rocnrdma_tpu_torch import metrics as M
 from rocnrdma_tpu_torch.bench import cli_common
+from rocnrdma_tpu_torch.bench.fold_ladder import DEFAULT_WIDTHS
 from rocnrdma_tpu_torch.bench.runner import DTYPES, parse_size
 from rocnrdma_tpu_torch.bench.timing import marginal_s_per_op
 from rocnrdma_tpu_torch.ops import hbm_combine, hbm_combine_pipelined
 
-KERNELS = ("torch2", "torch3", "cuda2", "cuda3", "pipe2", "pipe3")
+KERNELS = ("torch2", "torch3", "torch4", "torch5", "torch6", "torch7",
+           "torch8", "torch9", "cuda2", "cuda3", "cuda4", "cuda5",
+           "pipe2", "pipe3", "pipe4", "pipe5")
+# the fold ladder's widths past 9, on request only
+WIDE_KERNELS = tuple(f"torch{w}" for w in DEFAULT_WIDTHS if w > 9)
 
 
 def kernel_n_ops(kernel: str) -> int:
@@ -78,7 +85,7 @@ def make_parser() -> argparse.ArgumentParser:
                    help="per-operand bytes (default: 256M on the GPU, 512K "
                         "on the CPU)")
     p.add_argument("--kernels", type=str, default=None,
-                   help=f"comma subset of {','.join(KERNELS)}")
+                   help=f"comma subset of {','.join(KERNELS + WIDE_KERNELS)}")
     p.add_argument("--dtype", choices=tuple(DTYPES), default="float32")
     p.add_argument("--k1", type=int, default=4)
     p.add_argument("--k2", type=int, default=None,
@@ -99,8 +106,9 @@ def run(args) -> list[dict]:
     k2 = args.k2 or (8 if topo.is_oracle else 32)
     kernels = args.kernels.split(",") if args.kernels else list(KERNELS)
     for kname in kernels:
-        if kname not in KERNELS:
-            raise SystemExit(f"unknown kernel {kname!r}; pick from {KERNELS}")
+        if kname not in KERNELS + WIDE_KERNELS:
+            raise SystemExit(f"unknown kernel {kname!r}; pick from "
+                             f"{KERNELS + WIDE_KERNELS}")
     dtype = DTYPES[args.dtype]
     elems = size // dtype.itemsize
     rng = np.random.default_rng(0)

@@ -27,9 +27,9 @@ Algorithms (``SCHEDULES``; the reference's names, except that its
 - ``"tree"`` (halving-doubling), ``"khd"`` (mixed-radix halving-doubling,
   bidirectional), ``"dtree"`` (double binary tree), ``"ptree"`` (its
   chunk-pipelined form), ``"ktree"`` (k-ary tree): the explicit 1-D
-  schedules. ``khd`` without ``digits``/``max_radix`` runs
-  ``schedule.khd_digits(n)``: the reference's cost-model radix
-  (``tuner.khd_model_digits``) waits for the tuner's port.
+  schedules. ``khd`` without ``digits``/``max_radix`` runs the radix
+  ladder's pick at the message size (``Transport.khd_model_digits``, the
+  cost model's ``tuner.khd_model_digits``), as the reference does.
 - ``"khd2d"`` and ``"hierarchical"`` - the 2-D mesh schedules.
 - ``"binomial"`` - the rooted verbs' binomial trees.
 - ``"cuda_ring"`` - the hand-written CUDA kernels: the ring kernel for
@@ -40,9 +40,14 @@ Algorithms (``SCHEDULES``; the reference's names, except that its
   tile, else the fewest tiles of at most that size. Allreduce runs its
   tiled tier out of place (the result of ``ring_cuda.hbm_ring_allreduce``),
   so the caller's tensor is never changed.
-- ``"auto"`` - ``RNR_ALGO`` when set and supported; else ``hierarchical``
-  for allreduce and alltoall on a 2-D mesh, ``fused`` otherwise. The
-  reference's ``algo="model"`` and tuning table wait for the tuner.
+- ``"auto"`` - ``RNR_ALGO`` when set and supported; else the tuning
+  table's arm at this message size when a table is attached
+  (``Transport(tuning=...)`` or ``RNR_TUNING``) and names one this mesh
+  supports; else ``hierarchical`` for allreduce and alltoall on a 2-D
+  mesh, ``fused`` otherwise.
+- ``"model"`` - the cost model's cheapest arm at this message size
+  (``tuner.model_pick``, with this device's constants); ``cuda_ring``
+  competes only on a CUDA device.
 
 Knobs, with the reference's validation: ``op``, ``root``, ``shift``,
 ``acc`` (accumulate in a wider dtype, cast back), ``premul`` (scale every
@@ -265,7 +270,7 @@ class Transport:
     """Collectives over a rank mesh (default: one rank per GPU). Build one
     per mesh; the callables of each (verb, algo, knobs) are cached."""
 
-    def __init__(self, mesh: RankMesh | None = None):
+    def __init__(self, mesh: RankMesh | None = None, tuning=None, dcn=None):
         self.mesh = mesh if mesh is not None else rank_mesh(detect_topology().n_devices)
         self.axes = self.mesh.axis_names
         if self.axes not in ((RANK_AXIS,), (SLICE_AXIS, INTRA_AXIS)):
@@ -275,6 +280,25 @@ class Transport:
         self.is_2d = len(self.axes) == 2
         self._lead = tuple(self.mesh.shape)  # the leading dims of a tensor on it
         self.device = self.mesh.device
+        on_card = self.device.type == "cuda"
+        # the tuning-table platform (detect_topology's) and the cost
+        # model's device kind
+        self.platform = "gpu" if on_card else "cpu"
+        self.device_kind = torch.cuda.get_device_name(self.device) if on_card else "cpu"
+        cards = len(set(self.mesh.devices))
+        self.ranks_per_card = self.n_ranks // cards
+        # ``dcn``: does the slice axis cross the network? None = only when
+        # the ranks span more than one device; explicit True/False
+        # overrides. It sets the cost model's constants only.
+        self.dcn = bool(cards > 1 if dcn is None else dcn) and self.is_2d
+        if tuning is None:
+            # RNR_TUNING (the NCCL_TUNER_PLUGIN habit): a saved table for
+            # every Transport of the process; an explicit ``tuning=`` wins
+            tuning = os.environ.get("RNR_TUNING", "").strip() or None
+        if isinstance(tuning, str):
+            from rocnrdma_tpu_torch.transport.tuner import TuningTable
+            tuning = TuningTable.load(tuning)
+        self.tuning = tuning
         self._cache: dict = {}  # (verb, algo, knobs) -> callable
         # per-(verb, algo) dispatch counts and input bytes, read via stats()
         self._stats: dict[tuple, dict] = {}
@@ -302,17 +326,46 @@ class Transport:
                              f"know {ALGOS}")
         return forced
 
-    def _resolve(self, algo: str, op: str) -> str:
+    def _constants(self, verb: str) -> tuple[float, float, float]:
+        """The cost model's (alpha, beta, hbm_beta) for ``verb`` on this
+        mesh's device and layout (``tuner.constants_for``)."""
+        from rocnrdma_tpu_torch.transport.tuner import constants_for
+        return constants_for(self.device_kind, verb, self.ranks_per_card)
+
+    def _resolve(self, algo: str, op: str, nbytes: int | None = None,
+                 itemsize: int = 4) -> str:
         if op not in SCHEDULES:
             raise ValueError(f"unknown op {op!r}")
+        if algo == "model":
+            # the cost model's pick among the arms this mesh supports; the
+            # kernel arm only on a CUDA device (on the CPU it runs its plain
+            # version, which the model does not price)
+            from rocnrdma_tpu_torch.transport.tuner import dcn_constants_for, model_pick
+            cands = [a for a in SCHEDULES[op]
+                     if supports(op, a, self.is_2d)
+                     and (self.platform == "gpu" or a != "cuda_ring")]
+            alpha, beta, hbm_beta = self._constants(op)
+            picked = (model_pick(op, self.n_ranks, nbytes, candidates=cands,
+                                 alpha=alpha, beta=beta, hbm_beta=hbm_beta,
+                                 mesh_shape=self._lead if self.is_2d else None,
+                                 dcn=(dcn_constants_for(self.device_kind)
+                                      if self.dcn else None),
+                                 device_kind=self.device_kind, itemsize=itemsize)
+                      if nbytes is not None else None)
+            algo = picked or "auto"
         if algo not in ALGOS:
-            raise ValueError(f"unknown algo {algo!r}; know {ALGOS}")
+            raise ValueError(f"unknown algo {algo!r}; know {ALGOS} + 'model'")
         if algo == "auto":
             # RNR_ALGO replaces only the policy default, and only where the
             # op supports it, so one env var doesn't break unrelated verbs
             forced = self._forced_algo()
             if forced and supports(op, forced, self.is_2d):
                 algo = forced
+        if algo == "auto" and self.tuning is not None and nbytes is not None:
+            tuned = self.tuning.lookup(op, nbytes, self.n_ranks, len(self.axes),
+                                       self.platform)
+            if tuned is not None and supports(op, tuned, self.is_2d):
+                algo = tuned
         if algo == "auto":
             # 2-D mesh: the two-level schedules are the default for the
             # verbs that have one
@@ -325,6 +378,16 @@ class Transport:
                 f"{'2-D' if self.is_2d else '1-D'} mesh; compatible here: "
                 f"{[a for a in SCHEDULES[op] if supports(op, a, self.is_2d)]}")
         return algo
+
+    def _msg_bytes(self, verb: str, x: torch.Tensor) -> int:
+        """Message size S, the tuning table's and the model's size key (the
+        bench sweeps' ``size_bytes``): for allgather and gather the input
+        row is already the S/n chunk, so S is the whole input; every other
+        verb's row is the full S."""
+        nbytes = x.numel() * x.element_size()
+        if verb in ("allgather", "gather"):
+            return max(1, nbytes)
+        return max(1, nbytes // self.n_ranks)
 
     def _count(self, verb: str, algo: str, x: torch.Tensor) -> None:
         s = self._stats.setdefault((verb, algo), {"calls": 0, "bytes": 0})
@@ -366,10 +429,10 @@ class Transport:
 
     @staticmethod
     def _force_algo(algo: str, **knobs) -> str:
-        """Schedule-specific knobs force their schedule under ``auto``: the
-        knob is the algorithm choice. An explicit algo resolves normally
-        and is validated in ``_build``."""
-        if algo == "auto":
+        """Schedule-specific knobs force their schedule under ``auto`` and
+        ``model``: the knob is the algorithm choice. An explicit algo
+        resolves normally and is validated in ``_build``."""
+        if algo in ("auto", "model"):
             if (knobs.get("cross_dtype") is not None
                     or knobs.get("intra_algo") is not None):
                 return "hierarchical"
@@ -380,8 +443,25 @@ class Transport:
                 return "khd"
         return algo
 
+    def khd_model_digits(self, verb: str, nbytes: int) -> tuple[int, ...]:
+        """The digits ``algo="khd"`` dispatches for ``verb`` at message size
+        ``nbytes`` when the caller gives none: the radix ladder's pick with
+        this mesh's constants, the same the cost model prices."""
+        from rocnrdma_tpu_torch.transport.tuner import khd_model_digits
+        alpha, beta, hbm_beta = self._constants(verb)
+        return khd_model_digits(verb, self.n_ranks, nbytes, alpha, beta,
+                                hbm_beta, device_kind=self.device_kind)
+
     def _dispatch(self, verb: str, x: torch.Tensor, algo: str, **knobs):
-        algo = self._resolve(self._force_algo(algo, **knobs), verb)
+        algo = self._force_algo(algo, **knobs)
+        nbytes = self._msg_bytes(verb, x)
+        algo = self._resolve(algo, verb, nbytes, x.element_size())
+        if (algo == "khd" and knobs.get("digits") is None
+                and knobs.get("max_radix") is None):
+            # the radix is a modelled, size-dependent choice: resolved with
+            # the function the cost model prices, so the program that runs
+            # is the one priced
+            knobs["digits"] = self.khd_model_digits(verb, nbytes)
         fn = self._jit(verb, algo, **knobs)  # validates knobs first:
         self._count(verb, algo, x)           # rejected calls don't count
         return fn(x)
@@ -397,9 +477,10 @@ class Transport:
         float buffers). ``cross_dtype`` / ``intra_algo``: hierarchical only
         (the cross-slice phase's dtype; ring|khd for the intra phases).
         ``chunks``: ptree's pipeline depth. ``digits`` / ``max_radix``:
-        khd's round radices, explicit or capped. Each schedule-specific
-        knob forces its schedule under ``auto``. ``donate``: write the
-        result into ``x`` and return it."""
+        khd's round radices, explicit or capped (default: the radix
+        ladder's pick at this size, ``khd_model_digits``). Each
+        schedule-specific knob forces its schedule under ``auto`` and
+        ``model``. ``donate``: write the result into ``x`` and return it."""
         return self._dispatch("allreduce", x, algo, op=op, acc=acc,
                               premul=premul, cross_dtype=cross_dtype,
                               intra_algo=intra_algo, chunks=chunks,
@@ -439,12 +520,13 @@ class Transport:
         first ``counts[j, r]`` rows rank j sent r (tail zeroed) and
         ``recv_counts[r] = counts[:, r]``. The wire always ships
         ``max_count`` rows a chunk. ``algo``: ``fused`` (one transpose) or
-        ``cuda_ring`` (the direct alltoall kernel); ``auto`` is ``fused``
-        unless ``RNR_ALGO`` names one of the two. 1-D meshes only."""
+        ``cuda_ring`` (the direct alltoall kernel); ``auto`` and ``model``
+        are ``fused`` unless ``RNR_ALGO`` names one of the two. 1-D meshes
+        only."""
         if self.is_2d:
             raise ValueError("alltoallv rings a 1-D rank mesh (use the "
                              "dense alltoall on 2-D meshes)")
-        if algo == "auto":
+        if algo in ("auto", "model"):
             forced = self._forced_algo()
             algo = forced if forced in ALLTOALLV_ALGOS else "fused"
         if algo not in ALLTOALLV_ALGOS:

@@ -55,11 +55,11 @@ class Group:
     def _queue(self, verb: str, x, algo: str, **knobs) -> GroupHandle:
         if self._results is not None:
             raise GroupError("group already executed; start a new group()")
-        # schedule-specific knobs force their schedule under auto, exactly
-        # as on the direct verb methods
+        # schedule-specific knobs force their schedule under auto/model,
+        # exactly as on the direct verb methods
         algo = self._t._force_algo(algo, **knobs)
         knobs = self._t._normalize_knobs(**knobs)
-        resolved = self._t._resolve(algo, verb)
+        resolved = self._t._resolve(algo, verb, self._t._msg_bytes(verb, x))
         # validate the (verb, algo, knobs) combination now, as the direct
         # verbs do at call time, so a bad call cannot poison the batch
         self._t._jit(verb, resolved, **knobs)

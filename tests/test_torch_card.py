@@ -297,3 +297,24 @@ def test_tree64_and_multislice_presets_on_the_card(cuda_device):
     assert bench_alltoall.main(
         ["--preset", "multislice", "--fake-devices", "8", "--sizes", "8M",
          "--repeats", "1", "--iters", "1"]) == 0
+
+
+def test_tuner_policies_on_the_card(cuda_device):
+    import os
+
+    from rocnrdma_tpu_torch.transport import tuner
+    table = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         "rocnrdma_tpu_torch", "results", "tuning_h100_8x1.json")
+    t = Transport(rank_mesh(8, cuda_device), tuning=table)
+    assert (t.platform, t.ranks_per_card) == ("gpu", 8)
+    x = _randn((8, 1024), torch.float32, 10, cuda_device)
+    arm = tuner.TuningTable.load(table).lookup("allreduce", 4096, 8, 1, "gpu")
+    t.allreduce(x)
+    assert t.stats()[f"allreduce/{arm}"]["calls"] == 1
+    # khd without digits runs the card's model digits, bitwise as on the CPU
+    y = _randn((8, 1 << 20), torch.float32, 11, cuda_device)
+    digits = t.khd_model_digits("allreduce", 4 << 20)
+    want = Transport(rank_mesh(8, "cpu")).allreduce(y.cpu(), "khd", digits=digits)
+    assert torch.equal(t.allreduce(y, "khd").cpu(), want)
+    t.allreduce(y, "model")
+    assert tuner.measure_alpha(k1=64, k2=512, repeats=2, trials=1) > 0

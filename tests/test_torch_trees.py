@@ -12,8 +12,9 @@ against the JAX reference, on the CPU.
 - bfloat16: the stated tolerance is zero. Each fold rounds to bf16 in
   both packages (XLA's CPU backend rounds every add here), so the sums
   are bitwise equal too.
-- khd runs with explicit digits, since the reference's default radix comes
-  from its cost model; the port's default is ``khd_digits(n)``.
+- khd without ``digits`` runs the cost model's radix pick
+  (``tuner.khd_model_digits``) in both packages, so it is held bitwise to
+  the reference as well.
 """
 
 import numpy as np
@@ -148,16 +149,33 @@ def test_khd_allgather_equals_reference(devices, n, digits):
     _hold(t.allgather(t.shard(x), "khd", digits=digits), ref)
 
 
-def test_khd_default_digits_and_max_radix():
-    # without digits the port runs khd_digits(n); max_radix caps it
+def test_khd_default_digits_and_max_radix(devices):
+    # without digits the port runs the cost model's radix pick, the
+    # reference's; max_radix caps khd_digits(n)
     t = Transport(rank_mesh(8, "cpu"))
     x = t.shard(np.random.default_rng(3).standard_normal((8, 300)).astype(np.float32))
-    want = t.allreduce(x, "khd", digits=PS.khd_digits(8))
-    assert PS.khd_digits(8) == (8,)
+    digits = t.khd_model_digits("allreduce", 300 * 4)
+    assert digits == RefTransport(rt.rank_mesh(8)).khd_model_digits("allreduce", 300 * 4)
+    want = t.allreduce(x, "khd", digits=digits)
     assert torch.equal(t.allreduce(x, "khd"), want)
     assert torch.equal(t.allreduce(x, max_radix=2),
                        t.allreduce(x, "khd", digits=(2, 2, 2)))
     assert t.stats()["allreduce/khd"]["calls"] == 4  # max_radix forced khd
+
+
+@pytest.mark.parametrize("n", [4, 6, 8])
+@pytest.mark.parametrize("verb", ["allreduce", "reduce_scatter"])
+@pytest.mark.parametrize("size", [4096, 16384])
+def test_khd_without_digits_bitwise_equals_reference(devices, n, verb, size):
+    # the default radix is resolved at dispatch from the message size, by
+    # the same cost model in both packages
+    elems = size // 4 // n * n
+    x = np.random.default_rng(0).standard_normal((n, elems)).astype(np.float32)
+    r = RefTransport(rt.rank_mesh(n))
+    t = Transport(rank_mesh(n, "cpu"))
+    assert t.khd_model_digits(verb, elems * 4) == r.khd_model_digits(verb, elems * 4)
+    ref = getattr(r, verb)(r.shard(x), "khd")
+    _hold(getattr(t, verb)(t.shard(x), "khd"), ref)
 
 
 def test_tree_needs_a_power_of_two():
