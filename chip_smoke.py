@@ -77,7 +77,31 @@ Phases, each timed, any failure exits non-zero:
    reduce_scatter); the model's price of every allreduce arm at 8 x 1 GiB
    beside the arms' measured times there, and the model's pick beside the
    sweep's winner at every size of the table;
-8. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
+8. workloads, 8 ranks on the one GPU, each path with the launch counts
+   zeroed before it and read after it:
+   - the top-k MoE layer at Mixtral-8x7B width (``workloads.moe --model
+     mixtral-8x7b --routing topk --tokens 4096 --expert-compute``) with
+     ``cuda_ring`` (the alltoall kernel) and ``fused``; then the same layer
+     on one input through both arms, bitwise equal, each timed, beside two
+     alltoalls of its dispatch shape (the alltoall share of the step);
+   - ``workloads.ddp_replay`` and ``workloads.fsdp_replay`` at ``--scale
+     16`` (the Llama-3-8B trace, ~2 GiB a rank) with ``cuda_ring`` (the
+     ring kernel's AR, RS and AG modes) and ``fused``, every mode, through
+     the CLI; then, in the same counted run, ``replay`` in every mode on
+     one set of buffers, each output of its timed repeats held to the
+     ring's plain version: ``cuda_ring`` bitwise, ``fused`` bitwise
+     (allgather) or within twice the (n-1)-add rounding bound (sums);
+   - ``workloads.overlap`` at its defaults, ``fused`` and ``ring``;
+   - ``graft_entry.entry()`` and ``dryrun_multichip(8)`` on the card;
+9. headline: ``bench.headline`` with one rank (the fold) and with
+   ``--fake-devices 8`` (the allreduce; its ``cuda_ring`` candidate
+   launches the in-place ring kernel; then the alltoall leg), each scored
+   line printed here, each followed by the MFU leg on stderr; a line on
+   stderr that says a leg or candidate failed, a missing forward or train
+   MFU line, a ``cuda_ring`` candidate missing from the 8-rank winner
+   line or a missing alltoall artifact fails the phase; then
+   ``bench.mfu_profile --profile`` and its top ops by device time;
+10. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
    main path, its time, its plain version's and the library call's time at
    the main path's shapes, and its bound: the larger of its bytes (each
    input read once, each output written once) at the datasheet HBM rate
@@ -86,7 +110,9 @@ Phases, each timed, any failure exits non-zero:
    a 4 KiB-per-rank ``cuda_ring`` allreduce and alltoall, each split into
    host enqueue time and device time, with its kernel timed alone with and
    without its barrier and arrivals; and per verb the ``cuda_ring`` arm
-   against ``fused`` at 4 KiB and at the sweep's crossover size.
+   against ``fused`` at 4 KiB and at the sweep's crossover size. Each
+   kernel's ``workload_launches`` are its launches on the workload and
+   headline paths (phases 8 and 9).
 
 The last line is ``{"ok": true, "device": {...}}``. With ranks sharing one
 GPU, every bus bandwidth printed here is an HBM number, not NVLink.
@@ -94,6 +120,7 @@ This script imports nothing of JAX or of the JAX package.
 """
 
 import contextlib
+import io
 import json
 import os
 import subprocess
@@ -466,20 +493,34 @@ def sweep(runner, bench: str, collective: str, argv: list, algos: set) -> list:
     return recs
 
 
+def sum_bound(x: torch.Tensor, n: int, verb: str) -> torch.Tensor:
+    """Twice the (n-1)-add rounding bound gamma * sum_r |x_r| of a sum over
+    the ranks of rank-major fp32 ``x``: the arm and its reference each lie
+    within it of the exact sum. One rank's output shape (it bounds every
+    rank), reduce-scatter as ``(n, c)``, row r bounding rank r's chunk."""
+    u = 2.0 ** -24
+    gamma = (n - 1) * u / (1 - (n - 1) * u)
+    b = 2 * gamma * x.abs().sum(0)
+    return b.reshape(n, -1) if verb == "reduce_scatter" else b
+
+
+def within(what: str, got: torch.Tensor, want: torch.Tensor,
+           bound: torch.Tensor) -> float:
+    """Require ``got`` finite and within ``bound`` of ``want``; returns the
+    max abs error."""
+    diff = (got.float() - want.float()).abs()
+    if not bool(torch.isfinite(got).all()) or bool((diff > bound).any()):
+        raise AssertionError(f"{what}: off by {float(diff.max())}, beyond twice the "
+                             f"rounding bound")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
 def hold_to_fused(t, verb: str, x: torch.Tensor, algos, n: int) -> dict:
     """Each arm of ``verb`` on ``x`` against the fused arm on the card
-    (1-D mesh): a verb that only moves data bitwise; a sum within twice the
-    (n-1)-add rounding bound gamma * sum_r |x_r|, since the arm and the
-    library each lie within it of the exact sum. Returns the max abs error
-    per arm."""
+    (1-D mesh): a verb that only moves data bitwise, a sum within
+    ``sum_bound``. Returns the max abs error per arm."""
     want = getattr(t, verb)(x, "fused")
-    bound = None
-    if verb not in ("allgather", "alltoall"):
-        u = 2.0 ** -24
-        gamma = (n - 1) * u / (1 - (n - 1) * u)
-        bound = 2 * gamma * x.abs().sum(0)
-        if verb == "reduce_scatter":
-            bound = bound.reshape(n, -1)
+    bound = None if verb in ("allgather", "alltoall") else sum_bound(x, n, verb)
     errs = {}
     for algo in algos:
         got = getattr(t, verb)(x, algo)
@@ -488,17 +529,10 @@ def hold_to_fused(t, verb: str, x: torch.Tensor, algos, n: int) -> dict:
         if bound is None:
             errs[algo] = hold(f"1 GiB {verb} {algo} vs fused", got, want)
         else:
-            err = 0.0
-            for r in range(n):  # row by row: the temporaries stay 1 GiB deep
-                diff = (got[r] - want[r]).abs()
-                b = bound[r] if verb == "reduce_scatter" else bound
-                if bool((diff > b).any()):
-                    raise AssertionError(
-                        f"1 GiB {verb} {algo} vs fused: rank {r} off by "
-                        f"{float(diff.max())}, beyond twice the rounding bound")
-                err = max(err, float(diff.max()))
-                del diff
-            errs[algo] = err
+            # row by row: the temporaries stay 1 GiB deep
+            errs[algo] = max(within(
+                f"1 GiB {verb} {algo} vs fused, rank {r}", got[r], want[r],
+                bound[r] if verb == "reduce_scatter" else bound) for r in range(n))
         del got
     return errs
 
@@ -690,6 +724,237 @@ def tuner_phase(kind: str, smi: str, n: int = 8) -> None:
           flush=True)
 
 
+OUT_DIR = "smoke_out"  # artifacts of the headline and mfu_profile runs
+
+
+def count_launches(ops, label: str, fn, need: tuple = ()) -> dict:
+    """Run ``fn()`` with the launch counts zeroed before it; read them after
+    and require each kernel of ``need`` launched. Returns the counts."""
+    ops.reset_launch_counts()
+    fn()
+    torch.cuda.synchronize()
+    got = dict(ops.launch_counts())
+    print(f"launches on the {label} path: {got}", flush=True)
+    for k in need:
+        if got[k] < 1:
+            raise AssertionError(f"the {label} path never launched {k}")
+    return got
+
+
+def moe_part(ops, n: int, launches: dict) -> dict:
+    """The top-k MoE layer at Mixtral-8x7B width, 4096 tokens a rank
+    (phase 8)."""
+    from rocnrdma_tpu_torch.runtime import rank_mesh
+    from rocnrdma_tpu_torch.transport import Transport
+    from rocnrdma_tpu_torch.workloads import moe
+    from rocnrdma_tpu_torch.workloads import routing as R
+
+    T, spec = 4096, moe.MOE_MODELS["mixtral-8x7b"]
+    d, k = spec["d_model"], spec["top_k"]
+    for algo in ("cuda_ring", "fused"):
+        argv = ["--model", "mixtral-8x7b", "--routing", "topk", "--tokens", str(T),
+                "--fake-devices", str(n), "--algo", algo, "--expert-compute",
+                "--repeats", "3", "--iters", "5"]
+        launches[f"moe/{algo}"] = count_launches(
+            ops, f"moe {algo}", lambda: moe.main(argv),
+            ("alltoall",) if algo == "cuda_ring" else ())
+    if launches["moe/fused"]["alltoall"]:
+        raise AssertionError("the fused MoE path launched the alltoall kernel")
+    # one input through both arms: the kernel only moves data, so the
+    # layer's output is the fused arm's bit for bit
+    t = Transport(rank_mesh(n))
+    cap = R.expert_capacity(T, n, k, 1.25)
+    tok = randn((n, T, d), torch.float32, seed=40)
+    logits = randn((n, T, n), torch.float32, seed=41)
+    res = {"tokens": T, "d_model": d, "capacity": cap}
+    outs = {}
+    for algo in ("cuda_ring", "fused"):
+        step = moe.moe_topk_step(t, algo, True, n, cap, k)
+        out, keep = step(tok, logits)
+        if not bool(torch.isfinite(out).all()) or out.shape != tok.shape:
+            raise AssertionError(f"moe {algo}: non-finite or misshapen output")
+        outs[algo] = out
+        res[f"step_ms_{algo}"] = ms_of(lambda a, b: step(a, b)[0], tok, logits,
+                                       repeats=3, iters=5)
+    res["max_abs_err"] = hold("moe layer cuda_ring vs fused", outs["cuda_ring"],
+                              outs["fused"])
+    res["drop_rate"] = R.route_stats(keep)["drop_rate"]
+    del outs, out, keep
+    disp = randn((n, n, cap * d), torch.float32, seed=42)
+    for algo in ("cuda_ring", "fused"):
+        a2a = ms_of(t.jit_fn("alltoall", algo), disp, repeats=3, iters=5)
+        res[f"alltoall_ms_{algo}"] = a2a
+        res[f"alltoall_share_{algo}"] = 2 * a2a / res[f"step_ms_{algo}"]
+    del disp, tok, logits
+    return res
+
+
+def replay_part(ops, n: int, launches: dict) -> dict:
+    """The Llama-3-8B DDP and FSDP replays at 1/16 size (phase 8). Returns
+    ms per step of each checked replay and the fused arms' max errors."""
+    from rocnrdma_tpu_torch.runtime import rank_mesh
+    from rocnrdma_tpu_torch.transport import Transport
+    from rocnrdma_tpu_torch.transport.api import cuda_ring_tile_rows
+    from rocnrdma_tpu_torch.workloads import ddp_replay, fsdp_replay
+    from rocnrdma_tpu_torch.workloads.llama_trace import LLAMA3_8B, generate_trace
+
+    scale, modes = 16, ddp_replay.MODES
+    common = ["--fake-devices", str(n), "--scale", str(scale), "--repeats", "3"]
+    t = Transport(rank_mesh(n))
+    res = {"ms": {}, "ddp_fused_err": 0.0, "fsdp_rs_fused_err": 0.0}
+
+    def ar_plain(b):
+        tr = cuda_ring_tile_rows(b)
+        return (ops.ring_allreduce_plain(b) if tr is None
+                else ops.hbm_ring_allreduce_plain(b.clone(), tr))
+
+    def check(what, algo, got, want, x, verb, err_key):
+        # cuda_ring bitwise; fused: data moves bitwise, sums within the bound
+        if algo == "cuda_ring" or verb == "allgather":
+            hold(f"{what} {algo} vs plain", got, want)
+        else:
+            res[err_key] = max(res[err_key], within(
+                f"{what} {algo} vs plain", got, want, sum_bound(x, n, verb)))
+
+    def ddp(algo):
+        ddp_replay.main(common + ["--algo", algo])
+        torch.cuda.empty_cache()
+        bufs = ddp_replay._bucket_arrays(t, generate_trace(LLAMA3_8B), scale, "float32")
+        for mode in modes:
+            out = []
+            res["ms"][f"ddp/{algo}/{mode}"] = 1e3 * ddp_replay.replay(
+                t, bufs, algo, mode, repeats=2, out=out)
+            for i, (b, got) in enumerate(zip(bufs, out)):
+                check(f"ddp {mode} bucket {i}", algo, got, ar_plain(b), b, "allreduce",
+                      "ddp_fused_err")
+            del out
+        print(f"ddp {algo}: {len(bufs)} buckets x {len(modes)} modes held to the plain "
+              f"ring", flush=True)
+        del bufs
+        torch.cuda.empty_cache()
+
+    def fsdp(algo):
+        fsdp_replay.main(common + ["--algo", algo])
+        torch.cuda.empty_cache()
+        units = fsdp_replay.flat_units(LLAMA3_8B)
+        shards, fulls = fsdp_replay._unit_arrays(t, units, scale, "float32",
+                                                 grain=fsdp_replay.CUDA_RING_GRAIN)
+        plan = fsdp_replay.step_plan(len(units))
+        for mode in modes:
+            out = []
+            res["ms"][f"fsdp/{algo}/{mode}"] = 1e3 * fsdp_replay.replay(
+                t, shards, fulls, algo, mode, repeats=2, out=out)
+            for (kind, i), got in zip(plan, out):
+                if kind == "ag":
+                    check(f"fsdp {mode} unit {i} allgather", algo, got,
+                          ops.ring_allgather_plain(shards[i]), shards[i], "allgather",
+                          "fsdp_rs_fused_err")
+                else:
+                    check(f"fsdp {mode} unit {i} reduce_scatter", algo, got,
+                          ops.ring_reduce_scatter_plain(fulls[i]), fulls[i],
+                          "reduce_scatter", "fsdp_rs_fused_err")
+            del out
+        print(f"fsdp {algo}: {len(plan)} collectives x {len(modes)} modes held to the "
+              f"plain ring", flush=True)
+        del shards, fulls
+        torch.cuda.empty_cache()
+
+    for wl, run, need in (("ddp", ddp, ("ring_allreduce",)),
+                          ("fsdp", fsdp, ("ring_reduce_scatter", "ring_allgather"))):
+        for algo in ("cuda_ring", "fused"):
+            launches[f"{wl}/{algo}"] = count_launches(
+                ops, f"{wl}_replay {algo}", lambda: run(algo),
+                need if algo == "cuda_ring" else ())
+    return res
+
+
+def workloads_phase(ops, n: int = 8) -> dict:
+    """The workloads on the card (module docstring, phase 8). Returns the
+    launch counts per path and the MoE and replay results."""
+    from rocnrdma_tpu_torch import graft_entry
+    from rocnrdma_tpu_torch.workloads import overlap
+
+    launches = {}
+    res = {"moe": moe_part(ops, n, launches)}
+    print("moe layer, Mixtral-8x7B width, 8 ranks, fp32, ms (alltoall share: two "
+          "alltoalls of the dispatch over the step): " + json.dumps(res["moe"]), flush=True)
+    torch.cuda.empty_cache()
+    res["replay"] = replay_part(ops, n, launches)
+    for algo in ("fused", "ring"):
+        launches[f"overlap/{algo}"] = count_launches(
+            ops, f"overlap {algo}",
+            lambda: overlap.main(["--fake-devices", str(n), "--algo", algo]))
+
+    def graft():
+        fn, args = graft_entry.entry()
+        out, new = fn(*args)
+        if not all(bool(torch.isfinite(v).all()) for v in [out, *new]):
+            raise AssertionError("graft entry: non-finite output")
+        graft_entry.dryrun_multichip(n)
+    launches["graft"] = count_launches(ops, "graft entry + dryrun_multichip(8)", graft,
+                                       ("ring_allreduce", "alltoall"))
+    res["launches"] = launches
+    return res
+
+
+def headline_phase(ops, n: int = 8) -> dict:
+    """The headline's two branches and mfu_profile (module docstring,
+    phase 9). Returns the launch counts per branch and the scored lines."""
+    from rocnrdma_tpu_torch.bench import headline, mfu_profile
+
+    res = {}
+    a2a_path = os.path.join(OUT_DIR, "alltoall_algbw.json")
+    for label, argv, need in (
+            ("1 rank", [], ()),
+            (f"{n} ranks", ["--fake-devices", str(n), "--out", a2a_path],
+             ("hbm_ring_allreduce",))):
+        out, err = io.StringIO(), io.StringIO()
+        if os.path.exists(a2a_path):
+            os.remove(a2a_path)  # the artifact must come from this run
+
+        def run():
+            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                if headline.main(argv) != 0:
+                    raise AssertionError(f"headline {label}: non-zero exit")
+        try:
+            res[f"launches {label}"] = count_launches(ops, f"headline {label}", run,
+                                                      need)
+        finally:
+            sys.stderr.write(err.getvalue())
+            sys.stderr.flush()
+        # headline.main keeps its scored line when an extra leg or a candidate
+        # fails, and says so on stderr: here any such line fails the phase
+        notes = err.getvalue().splitlines()
+        if any("failed" in ln for ln in notes):
+            raise AssertionError(f"headline {label}: a leg or candidate failed")
+        for head in ("# flagship step (", "# flagship TRAIN step ("):
+            if not any(ln.startswith(head) for ln in notes):
+                raise AssertionError(f"headline {label}: no '{head}' line")
+        if label != "1 rank":
+            won = [ln for ln in notes if ln.startswith("# allreduce @ ")]
+            if len(won) != 1 or "cuda_ring=" not in won[0]:
+                raise AssertionError(f"headline {label}: cuda_ring missing from {won}")
+            if not os.path.exists(a2a_path):
+                raise AssertionError(f"headline {label}: no alltoall artifact")
+        row = json.loads(out.getvalue().splitlines()[0])  # the scored line comes first
+        want = "local_reduce_GBps" if label == "1 rank" else "allreduce_busbw_GBps_per_chip"
+        if row["metric"] != want or not 0 < row["value"] < float("inf"):
+            raise AssertionError(f"headline {label}: bad scored line {row}")
+        res[label] = row
+        print(f"headline ({label}): {json.dumps(row)}", flush=True)
+    torch.cuda.empty_cache()
+    rows = os.path.join(OUT_DIR, "mfu_profile.jsonl")
+    if mfu_profile.main(["--profile", os.path.join(OUT_DIR, "mfu_profile"),
+                         "--out", rows]) != 0:
+        raise AssertionError("mfu_profile: non-zero exit")
+    with open(rows) as fp:
+        res["mfu_profile"] = json.loads(fp.read().splitlines()[-1])
+    if (not res["mfu_profile"].get("top_ops")
+            or res["mfu_profile"].get("top_ops_clock") != "device"):
+        raise AssertionError("mfu_profile --profile gave no top ops by device time")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -817,6 +1082,18 @@ def main() -> int:
                 raise AssertionError(f"bench_local never launched {k}")
         if len(local_rows) != 6:
             raise AssertionError(f"bench_local gave {len(local_rows)} rows")
+
+    # ---- the workloads and the headline (their own paths) ----
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with phase("workloads"):
+        work = workloads_phase(ops, n)
+    with phase("headline"):
+        head = headline_phase(ops, n)
+    workload_launches = {}
+    for counts_ in list(work["launches"].values()) + [
+            v for k, v in head.items() if k.startswith("launches")]:
+        for k, v in counts_.items():
+            workload_launches[k] = workload_launches.get(k, 0) + v
 
     # ---- the kernels line, at the main path's shapes ----
     with phase("kernel_times"):
@@ -946,6 +1223,11 @@ def main() -> int:
           "a spinning kernel): " + json.dumps(split))
     print("cuda_ring vs fused in the ring8 sweeps, fp32, us (crossover: the smallest "
           "size from which cuda_ring is at or under fused): " + json.dumps(CROSSOVER))
+    print(f"workloads ({smi}): " + json.dumps(
+        {k: v for k, v in work.items() if k != "launches"}))
+    print(f"mfu_profile ({smi}): " + json.dumps(head["mfu_profile"]))
+    for kern in kernels:
+        kern["workload_launches"] = workload_launches[kern["name"]]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

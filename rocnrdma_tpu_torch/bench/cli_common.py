@@ -10,7 +10,8 @@ names a 2-D ``('slice', 'intra')`` mesh of S slices of I ranks.
 
 from __future__ import annotations
 
-from rocnrdma_tpu_torch.runtime import Topology, detect_topology
+from rocnrdma_tpu_torch.runtime import (RankMesh, Topology, detect_topology,
+                                        rank_mesh, slice_mesh)
 
 
 def setup_backend(fake_devices: int | None, platform: str,
@@ -27,3 +28,12 @@ def parse_mesh2d(spec: str) -> tuple[int, int]:
         return int(s), int(per)
     except ValueError as e:
         raise SystemExit(f"--mesh2d wants SLICESxPER (e.g. 2x4), got {spec!r}") from e
+
+
+def build_mesh(mesh2d: str | None, ranks: int | None, topo: Topology) -> RankMesh:
+    """The mesh a workload CLI runs over, on ``topo``'s device: 2-D when
+    asked, else a 1-D ring of ``ranks`` (default: every rank the backend
+    hosts), capped at those."""
+    if mesh2d:
+        return slice_mesh(*parse_mesh2d(mesh2d), topo.device)
+    return rank_mesh(min(ranks or topo.n_devices, topo.n_devices), topo.device)

@@ -172,3 +172,18 @@ def format_table(records: list) -> str:
             f"{r.dtype:>9} {r.tier:>18} {r.mean_s * 1e6:>12.1f} "
             f"{r.algbw_GBps:>11.2f} {r.busbw_GBps:>11.2f}")
     return "\n".join(lines)
+
+
+def scored_algbw_row(trials_s, per_rank_bytes: int, n_ranks: int,
+                     algo: str, on_cpu: bool) -> dict:
+    """The contract's second metric (alltoall algbw, ``BASELINE.json:2``) as
+    a scored artifact row: the median of the trials' algbw and their
+    spread. The headline's multi-rank branch writes it."""
+    from statistics import median
+    gb = sorted(algbw_GBps(per_rank_bytes, s) for s in trials_s)
+    return {"metric": "alltoall_algbw_GBps_per_chip",
+            "value": round(median(gb), 3), "unit": "GB/s", "algo": algo,
+            "n_ranks": n_ranks, "size_bytes": per_rank_bytes,
+            "stat": "median-of-trials",
+            "spread": [round(gb[0], 3), round(gb[-1], 3)],
+            "on_cpu": on_cpu}

@@ -318,3 +318,88 @@ def test_tuner_policies_on_the_card(cuda_device):
     assert torch.equal(t.allreduce(y, "khd").cpu(), want)
     t.allreduce(y, "model")
     assert tuner.measure_alpha(k1=64, k2=512, repeats=2, trials=1) > 0
+
+
+def test_moe_layer_on_the_card(cuda_device):
+    # the alltoall kernel only moves data: the cuda_ring arm equals the
+    # fused arm bitwise; the layer equals its CPU result within 1e-5 (the
+    # card's matmul and softmax round in another order)
+    from rocnrdma_tpu_torch.workloads import moe
+    from rocnrdma_tpu_torch.workloads import routing as R
+    n, tokens, d, k = 8, 256, 64, 2
+    cap = R.expert_capacity(tokens, n, k, 1.25)
+    tok = _randn((n, tokens, d), torch.float32, 90, cuda_device)
+    logits = _randn((n, tokens, n), torch.float32, 91, cuda_device)
+    w_in = _randn((n, d, 96), torch.float32, 92, cuda_device) / 8
+    w_out = _randn((n, 96, d), torch.float32, 93, cuda_device) / 10
+    outs = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        t = Transport(rank_mesh(n, dev))
+        expert = moe.ffn_expert(w_in.to(dev), w_out.to(dev))
+        for algo in ("cuda_ring", "fused"):
+            before = T.launch_counts()["alltoall"]
+            out, keep = moe.moe_topk_step(t, algo, True, n, cap, k, expert=expert)(
+                tok.to(dev), logits.to(dev))
+            launched = T.launch_counts()["alltoall"] - before
+            assert launched == (2 if (algo, dev.type) == ("cuda_ring", "cuda") else 0)
+            outs[(algo, dev.type)] = (out.cpu(), keep.cpu())
+    assert torch.equal(outs[("cuda_ring", "cuda")][0], outs[("fused", "cuda")][0])
+    assert torch.equal(outs[("fused", "cuda")][1], outs[("fused", "cpu")][1])
+    torch.testing.assert_close(outs[("fused", "cuda")][0], outs[("fused", "cpu")][0],
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_replays_on_the_card(cuda_device):
+    # every bucket and unit through the kernel arms, bitwise to the plain
+    # versions, in every mode
+    from rocnrdma_tpu_torch.workloads import ddp_replay, fsdp_replay
+    from rocnrdma_tpu_torch.workloads.llama_trace import LLAMA3_8B, generate_trace
+    t = Transport(rank_mesh(8, cuda_device))
+    bufs = ddp_replay._bucket_arrays(t, generate_trace(LLAMA3_8B, 1024.0), 1 << 12,
+                                     "float32")
+    units = fsdp_replay.flat_units(LLAMA3_8B)[:4]
+    shards, fulls = fsdp_replay._unit_arrays(t, units, 1 << 12, "float32",
+                                             grain=fsdp_replay.CUDA_RING_GRAIN)
+    plan = fsdp_replay.step_plan(len(units))
+    for mode in ddp_replay.MODES:
+        out = []
+        ddp_replay.replay(t, bufs, "cuda_ring", mode, repeats=1, out=out)
+        for b, o in zip(bufs, out):
+            tr = api.cuda_ring_tile_rows(b)
+            want = (T.ring_allreduce_plain(b) if tr is None
+                    else T.hbm_ring_allreduce_plain(b.clone(), tr))
+            assert torch.equal(o, want)
+        out = []
+        fsdp_replay.replay(t, shards, fulls, "cuda_ring", mode, repeats=1, out=out)
+        for (kind, i), o in zip(plan, out):
+            want = (T.ring_allgather_plain(shards[i]) if kind == "ag"
+                    else T.ring_reduce_scatter_plain(fulls[i]))
+            assert torch.equal(o, want)
+
+
+def test_overlap_on_two_streams_equals_its_parts(cuda_device):
+    from rocnrdma_tpu_torch.workloads import overlap
+    for algo in ("fused", "ring"):
+        t = Transport(rank_mesh(8, cuda_device))
+        compute, comm, both = overlap.build_fns(t, algo)
+        y, Ws, grads = overlap.example_inputs(t, layers=4, dim=256, batch=64,
+                                              grad_elems=1 << 16)
+        yb, gb = both(y, Ws, grads)
+        assert torch.equal(yb, compute(y, Ws)) and torch.equal(gb, comm(grads))
+
+
+def test_graft_entry_on_the_card(cuda_device):
+    from rocnrdma_tpu_torch import graft_entry
+    fn, args = graft_entry.entry()
+    assert args[0].device.type == "cuda"
+    out, new = fn(*args)
+    ref_fn, ref_args = graft_entry.entry("cpu")
+    ref_out, ref_new = ref_fn(*ref_args)
+    torch.testing.assert_close(out.cpu(), ref_out, rtol=1e-5, atol=1e-5)
+    for p, r in zip(new, ref_new):
+        torch.testing.assert_close(p.cpu(), r, rtol=1e-6, atol=1e-6)
+    before = T.launch_counts()
+    graft_entry.dryrun_multichip(8)
+    after = T.launch_counts()
+    assert after["ring_allreduce"] > before["ring_allreduce"]
+    assert after["alltoall"] > before["alltoall"]

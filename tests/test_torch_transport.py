@@ -304,6 +304,10 @@ def test_metrics_equal_reference():
                                         "float32", ("op", "max"))
     assert rec.tier == "performance"
     assert "busbw GB/s" in metrics.format_table([rec])
+    for trials in ([1e-3], [1e-3, 2e-3, 1.5e-3], [4e-3, 1e-3, 2e-3, 3e-3]):
+        for on_cpu in (True, False):
+            assert metrics.scored_algbw_row(trials, 1 << 20, 8, "fused", on_cpu) == \
+                RM.scored_algbw_row(trials, 1 << 20, 8, "fused", on_cpu)
 
 
 def test_hw_and_topology():
@@ -332,8 +336,13 @@ def test_port_imports_no_jax_and_no_reference_package():
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'rocnrdma_tpu', 'triton'))\n"
-        "print(bad)\n"
-        "sys.exit(1 if bad else 0)\n")
+        "need = ('rocnrdma_tpu_torch.' + m for m in ('workloads', 'workloads.routing', "
+        "'workloads.moe', 'workloads.llama_trace', 'workloads._replay', "
+        "'workloads.ddp_replay', 'workloads.fsdp_replay', 'workloads.overlap', "
+        "'bench.headline', 'bench.mfu_profile', 'graft_entry'))\n"
+        "missing = [m for m in need if m not in sys.modules]\n"
+        "print(bad, missing)\n"
+        "sys.exit(1 if bad or missing else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)
