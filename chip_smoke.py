@@ -101,7 +101,26 @@ Phases, each timed, any failure exits non-zero:
    MFU line, a ``cuda_ring`` candidate missing from the 8-rank winner
    line or a missing alltoall artifact fails the phase; then
    ``bench.mfu_profile --profile`` and its top ops by device time;
-10. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
+10. tooling, after the headline: ``runtime.topo_cli --json`` on the card
+   (one device with ``nvidia-smi``'s name and power limit, the parsed
+   link matrix, printed raw before it, and ring order [0]; the matrix is
+   ``nvidia-smi topo -m``'s, or where that cannot run, as in a container
+   without the PCI tree, the NVLink P2P matrix ``topo -p2p n``); ``trace --measured --align-steps`` at 8 x 4 MiB fp32 for ring,
+   dtree and khd (khd at ``khd_model_digits``' digits): each capture gives
+   exactly the schedule's step count (14 for ring, 20 for dtree), every
+   step device time above 0, and the call's output under the capture
+   bitwise the output without it; per step predicted vs measured printed,
+   the alignments written under ``smoke_out/tooling/``; ``first_contact
+   --fake-devices 8 --sizes 4K,1M,16M --calibrate-widths 2,8`` with
+   ``RNR_HW_CAL_DIR`` under ``smoke_out/`` (the package's ``results/``
+   stays as it was), exit 0 and every report row ok, its launch counts
+   zeroed before and read after (its CLI smoke and sweep run the ring and
+   alltoall kernels through ``cuda_ring``); the process runtime over NCCL:
+   ``run_workers(1, "allreduce")`` and ``(1, "alltoall")``,
+   ``run_workers(2, "fault", fault_rank=1)`` ending in the survivor's clean
+   abort, and ``run_workers(2, "allreduce")`` refused on one GPU with the
+   named "fewer GPUs than processes" error;
+11. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
    main path, its time, its plain version's and the library call's time at
    the main path's shapes, and its bound: the larger of its bytes (each
    input read once, each output written once) at the datasheet HBM rate
@@ -123,6 +142,7 @@ import contextlib
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -955,6 +975,138 @@ def headline_phase(ops, n: int = 8) -> dict:
     return res
 
 
+def tooling_phase(ops, kind: str, smi: str, n: int = 8) -> dict:
+    """The device-plane tooling and the process runtime on the card (module
+    docstring, phase 10). Returns the per-step alignments and the seconds
+    of each part."""
+    from rocnrdma_tpu_torch import first_contact, hw, trace
+    from rocnrdma_tpu_torch.runtime import multiprocess, rank_mesh, topo_cli
+    from rocnrdma_tpu_torch.transport import Transport
+
+    res, secs = {}, {}
+    out_dir = os.path.join(OUT_DIR, "tooling")
+    os.makedirs(out_dir, exist_ok=True)
+
+    # topo_cli --json: one device, its nvidia-smi name and power limit
+    t0 = time.perf_counter()
+    _, source, raw = topo_cli.link_matrix()  # topo -m, or where it fails, -p2p n
+    print(f"link matrix from {source}:\n{raw}", flush=True)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        if topo_cli.main(["--json"]) != 0:
+            raise AssertionError("topo_cli --json: non-zero exit")
+    doc = json.loads(buf.getvalue())
+    print(f"topo_cli --json: {json.dumps(doc)}", flush=True)
+    name, power = (c.strip() for c in smi.splitlines()[0].split(","))
+    dev = doc["devices"]
+    if (doc["n_devices"], len(dev), doc["ring_order"]) != (1, 1, [0]):
+        raise AssertionError(f"topo_cli: expected one device and ring [0], got {doc}")
+    if ((dev[0]["name"], dev[0]["power_limit"]) != (name, power) or not dev[0]["pci_bus_id"]
+            or dev[0]["cuda"] != 0):
+        raise AssertionError(f"topo_cli: device {dev[0]} is not {smi!r}")
+    if doc["links"] != [["X"]] or doc["gpus"] != [0]:
+        raise AssertionError(f"topo_cli: links {doc['links']} for one GPU")
+    secs["topo_cli"] = time.perf_counter() - t0
+
+    # trace --measured --align-steps: ring, dtree, khd at 8 x 4 MiB fp32
+    t0 = time.perf_counter()
+    size = 4 * MiB
+    digits = Transport(rank_mesh(n)).khd_model_digits("allreduce", size)
+    for algo in ("ring", "dtree", "khd"):
+        path = os.path.join(out_dir, f"trace_align_{algo}{n}_h100.trace.json")
+        argv = ["--collective", "allreduce", "--algo", algo, "--ranks", str(n),
+                "--size", "4M", "--fake-devices", str(n), "--measured",
+                "--align-steps", "--out", path]
+        pinned = digits if algo == "khd" else None
+        if pinned:
+            argv += ["--digits", ",".join(map(str, pinned))]
+        if trace.main(argv) != 0:
+            raise AssertionError(f"trace {algo}: non-zero exit")
+        with open(path) as fp:
+            od = json.load(fp)["otherData"]
+        steps = od["step_diff"]
+        want = max(e.step for e in trace.schedule_events(
+            "allreduce", algo, n, size, digits=pinned)) + 1
+        if len(steps) != want or want != {"ring": 14, "dtree": 20}.get(algo, want):
+            raise AssertionError(f"trace {algo}: {len(steps)} aligned steps, "
+                                 f"the schedule has {want}")
+        if not all(r["measured_max_us"] > 0 for r in steps):
+            raise AssertionError(f"trace {algo}: a step without device time")
+        if not od.get("capture_bitwise_equal") or od.get("nvidia_smi") != smi:
+            raise AssertionError(f"trace {algo}: capture not checked or no smi line")
+        pred = sum(r["predicted_us"] for r in steps)
+        meas = sum(r["measured_max_us"] for r in steps)
+        res[algo] = {"digits": list(pinned) if pinned else None, "steps": len(steps),
+                     "predicted_us": round(pred, 3), "measured_us": round(meas, 3),
+                     "per_step_us": [[r["predicted_us"], r["measured_max_us"]]
+                                     for r in steps]}
+        print(f"trace {algo} ({smi}), {n} x 4 MiB fp32, per step [predicted, measured "
+              f"device us]: " + json.dumps(res[algo]["per_step_us"]), flush=True)
+        print(f"trace {algo}: {len(steps)} steps, predicted {pred:.1f} us, measured "
+              f"{meas:.1f} us (x{meas / pred:.2f})", flush=True)
+    secs["trace"] = time.perf_counter() - t0
+
+    # first_contact, its calibration kept out of the package's results/
+    t0 = time.perf_counter()
+    fc_dir = os.path.join(out_dir, "first_contact")
+    cal_dir = os.path.join(out_dir, "hw_cal")
+    shutil.rmtree(fc_dir, ignore_errors=True)  # report.jsonl appends
+    old = os.environ.get("RNR_HW_CAL_DIR")
+    os.environ["RNR_HW_CAL_DIR"] = cal_dir
+    rc = []
+    try:
+        res["first_contact launches"] = count_launches(
+            ops, "first_contact", lambda: rc.append(first_contact.main(
+                ["--outdir", fc_dir, "--fake-devices", str(n), "--sizes",
+                 "4K,1M,16M", "--calibrate-widths", "2,8"])),
+            need=("ring_allreduce", "ring_reduce_scatter", "ring_allgather",
+                  "alltoall"))
+    finally:
+        if old is None:
+            os.environ.pop("RNR_HW_CAL_DIR")
+        else:
+            os.environ["RNR_HW_CAL_DIR"] = old
+        hw._CAL_CACHE.clear()  # later phases price with hw.MEASURED again
+    with open(os.path.join(fc_dir, "report.jsonl")) as fp:
+        report = [json.loads(ln) for ln in fp.read().splitlines()]
+    for row in report:
+        print(f"first_contact: {json.dumps(row)}", flush=True)
+    if rc != [0] or len(report) != 7 or not all(r["ok"] for r in report):
+        raise AssertionError(f"first_contact: exit {rc}, report {report}")
+    if not report[0]["artifact"].startswith(cal_dir):
+        raise AssertionError(f"first_contact: calibration at {report[0]['artifact']}")
+    secs["first_contact"] = time.perf_counter() - t0
+
+    # the process runtime over NCCL: a world of one, the fault, the refusal
+    t0 = time.perf_counter()
+    for task in ("allreduce", "alltoall"):
+        rs = multiprocess.run_workers(1, task, timeout_s=120, platform="auto")
+        if rs[0].returncode != 0 or "OK rank=0/1 backend=nccl" not in rs[0].stdout:
+            raise AssertionError(f"run_workers(1, {task}): {rs[0]}")
+        print(f"run_workers(1, {task!r}): {rs[0].stdout.strip()}", flush=True)
+    tf = time.perf_counter()
+    rs = multiprocess.run_workers(2, "fault", timeout_s=120, fault_rank=1,
+                                  platform="auto")
+    by = {r.process_id: r for r in rs}
+    if (by[1].returncode, by[0].returncode) != (3, 4) or "CLEAN-ABORT" not in by[0].stdout:
+        raise AssertionError(f"run_workers(2, 'fault'): {rs}")
+    print(f"run_workers(2, 'fault') in {time.perf_counter() - tf:.1f} s: "
+          f"{by[0].stdout.strip()[:300]}", flush=True)
+    try:
+        multiprocess.run_workers(2, "allreduce", platform="auto")
+    except RuntimeError as e:
+        if "fewer GPUs than processes" not in str(e):
+            raise
+        print(f"run_workers(2, 'allreduce') refused: {e}", flush=True)
+    else:
+        if torch.cuda.device_count() < 2:
+            raise AssertionError("run_workers(2, 'allreduce') ran on one GPU")
+    secs["runtime"] = time.perf_counter() - t0
+    res["seconds"] = {k: round(v, 1) for k, v in secs.items()}
+    print(f"tooling seconds: {json.dumps(res['seconds'])}", flush=True)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -1089,6 +1241,8 @@ def main() -> int:
         work = workloads_phase(ops, n)
     with phase("headline"):
         head = headline_phase(ops, n)
+    with phase("tooling"):
+        tools = tooling_phase(ops, kind, smi, n)
     workload_launches = {}
     for counts_ in list(work["launches"].values()) + [
             v for k, v in head.items() if k.startswith("launches")]:
@@ -1226,6 +1380,10 @@ def main() -> int:
     print(f"workloads ({smi}): " + json.dumps(
         {k: v for k, v in work.items() if k != "launches"}))
     print(f"mfu_profile ({smi}): " + json.dumps(head["mfu_profile"]))
+    print(f"tooling ({smi}): " + json.dumps(
+        {k: v for k, v in tools.items() if k not in ("ring", "dtree", "khd")}
+        | {k: {f: v[f] for f in ("digits", "steps", "predicted_us", "measured_us")}
+           for k, v in tools.items() if k in ("ring", "dtree", "khd")}))
     for kern in kernels:
         kern["workload_launches"] = workload_launches[kern["name"]]
     print(smi)

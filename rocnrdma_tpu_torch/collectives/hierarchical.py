@@ -10,21 +10,23 @@ over the slice axis on each intra index's rows. Each phase is the port's
 schedule of the same name, so fp32 results equal the reference's bit for
 bit where the phases' do (the ``ring`` and ``khd`` intra phases and the
 ``ring`` cross phase; ``fused`` is torch's order of summation). With every
-rank on one device, "across slices" is the same memory as "within".
+rank on one device, "across slices" is the same memory as "within". A
+phase's rings (and its rotation alltoalls) run in lockstep, one step span
+a step, as ``trace.hierarchical_events`` lays them out.
 """
 
 from __future__ import annotations
 
 import torch
 
-from rocnrdma_tpu_torch.collectives.alltoall import bruck_alltoall, rotation_alltoall
+from rocnrdma_tpu_torch.collectives.alltoall import bruck_rows, rotation_rows
 from rocnrdma_tpu_torch.collectives.fused import fused_alltoall
 from rocnrdma_tpu_torch.collectives.khd import khd_allgather, khd_reduce_scatter
 from rocnrdma_tpu_torch.collectives.reduce_op import finalize, fused_reduce
 from rocnrdma_tpu_torch.collectives.ring import (
-    ring_allgather,
-    ring_allreduce,
-    ring_reduce_scatter,
+    allgather_rows,
+    allreduce_rows,
+    reduce_scatter_rows,
 )
 
 
@@ -63,16 +65,16 @@ def hierarchical_allreduce(x: torch.Tensor, mesh_shape, *,
         wire = None  # nothing crosses slices: casting would only round
 
     if intra_algo == "khd":
-        rs = lambda v: khd_reduce_scatter(v, op=inner)
-        ag = lambda v: khd_allgather(v).reshape(n, -1)
+        rs = lambda g: torch.stack([khd_reduce_scatter(v, op=inner) for v in g])
+        ag = lambda g: torch.stack([khd_allgather(v).reshape(n, -1) for v in g])
     elif intra_algo == "ring":
-        rs = lambda v: ring_reduce_scatter(v, op=inner)
-        ag = ring_allgather
+        # every slice's ring in lockstep: one step span a step
+        rs = lambda g: reduce_scatter_rows(g, inner, tag="ici rs")
+        ag = lambda g: allgather_rows(g, tag="ici ag")
     else:
         raise ValueError(f"intra_algo must be ring|khd, got {intra_algo!r}")
 
-    g = flat.reshape(m, n, -1)
-    shard = torch.stack([rs(g[s]) for s in range(m)])  # (m, n, L/n)
+    shard = rs(flat.reshape(m, n, -1))  # (m, n, L/n)
     orig = shard.dtype
     if wire is not None and wire != orig:
         shard = shard.to(wire)
@@ -80,23 +82,25 @@ def hierarchical_allreduce(x: torch.Tensor, mesh_shape, *,
         red = torch.stack([fused_reduce(shard[:, i], inner) for i in range(n)])
         shard = red.unsqueeze(0).expand(shard.shape)
     elif cross_algo == "ring":
-        shard = torch.stack([ring_allreduce(shard[:, i].contiguous(), op=inner)
-                             for i in range(n)], dim=1)
+        # one ring per intra index, over the slices, in lockstep
+        shard = allreduce_rows(shard.transpose(0, 1).contiguous(), inner,
+                               tag="dcn allreduce").transpose(0, 1)
     else:  # the same fail-fast as intra_algo: a typo must not silently ring
         raise ValueError(f"cross_algo must be ring|fused, got {cross_algo!r}")
     if wire is not None and wire != orig:
         shard = shard.to(orig)
-    full = torch.stack([ag(shard[s]) for s in range(m)]).reshape(m * n, -1)
+    full = ag(shard.contiguous()).reshape(m * n, -1)
     return finalize(full[:, :size].reshape(shape), op, m * n)
 
 
-def _alltoall_1d(x: torch.Tensor, algo: str) -> torch.Tensor:
+def _alltoall_1d(xb: torch.Tensor, algo: str, tag: str) -> torch.Tensor:
+    """The per-axis alltoall of B meshes (B, n, n, c...) in lockstep."""
     if algo == "fused":
-        return fused_alltoall(x)
+        return torch.stack([fused_alltoall(v) for v in xb])
     if algo == "rotation":
-        return rotation_alltoall(x)
+        return rotation_rows(xb, tag=tag)
     if algo == "bruck":
-        return bruck_alltoall(x)
+        return bruck_rows(xb)
     raise ValueError(f"unknown per-axis alltoall algo {algo!r}")
 
 
@@ -120,10 +124,9 @@ def hierarchical_alltoall(x: torch.Tensor, mesh_shape, *,
     # phase 1, within each slice: rank (s, i) sends its blocks for intra j,
     # bundled [j, t], to (s, j); it ends with [src intra i', dest slice t]
     in1 = b.transpose(2, 3)
-    out1 = torch.stack([_alltoall_1d(in1[s], intra_algo) for s in range(m)])
+    out1 = _alltoall_1d(in1, intra_algo, "ici")
     # phase 2, across slices: rank (s, i) sends its [dest slice t] bundles
     # to (t, i); it ends with [src slice t', src intra i']
     in2 = out1.transpose(2, 3)
-    out2 = torch.stack([_alltoall_1d(in2[:, i], cross_algo) for i in range(n)],
-                       dim=1)
+    out2 = _alltoall_1d(in2.transpose(0, 1), cross_algo, "dcn").transpose(0, 1)
     return out2.reshape(x.shape)

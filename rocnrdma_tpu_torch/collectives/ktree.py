@@ -59,9 +59,9 @@ def kary_tree_allreduce(x: torch.Tensor, arity: int = KTREE_ARITY,
         return finalize(x.clone(), op, 1)
     up, down = kary_levels(n, arity)
     h = x.clone()
-    for substeps in up:  # reduce toward the root, deepest level first
-        fold_level(h, substeps, op)
-    broadcast_down(h, [p for level in down for p in level])
+    for lv, substeps in enumerate(up):  # toward the root, deepest level first
+        fold_level(h, substeps, op, tag=f"ktree up level {lv}")
+    broadcast_down(h, [p for level in down for p in level], tag="ktree down")
     return finalize(h, op, n)
 
 

@@ -12,7 +12,8 @@ receives nothing folds the op's identity into chunk 0. The port does the
 same, in the same order, so fp32 results equal the reference's bit for
 bit. Within a tick a rank sends one chunk and receives another, so rows
 update in place; receivers fold first, reading the senders' chunks before
-any identity fold touches them.
+any identity fold touches them. Loops run substep-outer, one step span per
+substep (the reference's one permute), in its order: tick, tree, substep.
 
 This is a Python loop over (C + depth - 1) ticks x 2 trees x the ranks,
 one small tensor op each: at C = 64 (``ptree_auto_chunks`` above 1 MiB a
@@ -25,6 +26,7 @@ import functools
 
 import torch
 
+from rocnrdma_tpu_torch.collectives._steps import step_span
 from rocnrdma_tpu_torch.collectives.reduce_op import finalize, fold_, fold_identity_
 from rocnrdma_tpu_torch.collectives.schedule import dbtree_parents, ptree_ticks
 
@@ -82,27 +84,30 @@ def ptree_allreduce(x: torch.Tensor, op: str = "sum",
     trees = _tick_tables(n, chunks)
 
     for t in range(len(trees[0][0])):  # up: reduce toward the roots
-        for (up, _), h in zip(trees, halves):
+        for ti, ((up, _), h) in enumerate(zip(trees, halves)):
             subs = up[t]
             if not subs:
                 continue
             receivers = sorted(set().union(*subs))
-            for r in receivers:
-                # both of a tick's arrivals at r carry the same chunk
-                idx = next(m[r][1] for m in subs if r in m)
-                for m in subs:
-                    if r in m:
-                        fold_(h[r, idx], h[m[r][0], idx], op)
-                    else:
-                        fold_identity_(h[r, idx], op)
-            for r in range(n):
-                if r not in receivers:
-                    fold_identity_(h[r, 0], op)
+            # both of a tick's arrivals at r carry the same chunk
+            idx = {r: next(m[r][1] for m in subs if r in m) for r in receivers}
+            for k, m in enumerate(subs):
+                with step_span(f"ptree{ti} up tick {t} substep {k}"):
+                    for r in receivers:
+                        if r in m:
+                            fold_(h[r, idx[r]], h[m[r][0], idx[r]], op)
+                        else:
+                            fold_identity_(h[r, idx[r]], op)
+                    if k == len(subs) - 1:  # every send of the tick is read
+                        for r in range(n):
+                            if r not in receivers:
+                                fold_identity_(h[r, 0], op)
     for t in range(len(trees[0][1])):  # down: stream the totals back
-        for (_, down), h in zip(trees, halves):
-            for m in down[t]:
-                for c, (p, i) in m.items():
-                    h[c, i] = h[p, i]
+        for ti, ((_, down), h) in enumerate(zip(trees, halves)):
+            for k, m in enumerate(down[t]):
+                with step_span(f"ptree{ti} down tick {t} substep {k}"):
+                    for c, (p, i) in m.items():
+                        h[c, i] = h[p, i]
 
     out = torch.cat([halves[0].view(n, -1)[:, :half],
                      halves[1].view(n, -1)[:, :size - half]], dim=1)

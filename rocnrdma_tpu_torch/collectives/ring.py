@@ -11,24 +11,35 @@ fold into every rank's receive chunk. The chunk indices, the chunking
 (``ceil(size/n)``, no lane padding), the fold order ``combine(mine,
 recvd)`` and the ``bidir`` split are the reference's, so on float32 the
 two agree bit for bit. This arm is plain tensor code, not a kernel.
+
+Each step runs in one step span (``_steps.step_span``). The ``*_rows``
+forms run B rings of the same size in lockstep, one span a step: the
+hierarchical schedules run a phase's rings that way, as the reference runs
+them concurrently.
 """
 
 from __future__ import annotations
 
 import torch
 
+from rocnrdma_tpu_torch.collectives._steps import step_span
 from rocnrdma_tpu_torch.collectives.reduce_op import combine_fn, finalize
+
+
+def _chunk_rows(g: torch.Tensor) -> torch.Tensor:
+    """(B, n, size) -> a fresh zero-padded (B, n ranks, n chunks, chunk)
+    buffer: B independent rings of n ranks."""
+    b, n, size = g.shape
+    chunk = -(-size // n)  # ceil
+    buf = g.new_zeros((b, n, n * chunk))
+    buf[..., :size] = g
+    return buf.reshape(b, n, n, chunk)
 
 
 def _chunked(x: torch.Tensor, n: int) -> tuple[torch.Tensor, int, tuple]:
     """Rank-major x -> a fresh zero-padded (n ranks, n chunks, chunk) buffer."""
-    shape = x.shape
-    flat = x.reshape(n, -1)
-    size = flat.shape[1]
-    chunk = -(-size // n)  # ceil
-    buf = flat.new_zeros((n, n * chunk))
-    buf[:, :size] = flat
-    return buf.reshape(n, n, chunk), size, shape
+    flat = x.reshape(1, n, -1)
+    return _chunk_rows(flat)[0], flat.shape[2], x.shape
 
 
 def _unchunk(buf: torch.Tensor, size: int, shape: tuple) -> torch.Tensor:
@@ -36,35 +47,89 @@ def _unchunk(buf: torch.Tensor, size: int, shape: tuple) -> torch.Tensor:
     return buf.reshape(n, -1)[:, :size].reshape(shape)
 
 
-def _rs_phase(buf: torch.Tensor, n: int, shift: int, offset: int = 0,
-              combine=torch.add) -> torch.Tensor:
-    """Reduce-scatter phase: n-1 rotate-and-accumulate steps. Afterwards
-    rank r owns the fully reduced chunk ``(r + d + offset) mod n``
-    (d = ring direction)."""
-    r = torch.arange(n, device=buf.device)
-    d = 1 if shift == 1 else -1
-    for s in range(n - 1):
-        send_idx = (r - d * s + offset) % n
-        recvd = torch.roll(buf[r, send_idx], shifts=shift, dims=0)
-        recv_idx = (r - d * (s + 1) + offset) % n
-        mine = buf[r, recv_idx]
-        buf[r, recv_idx] = combine(mine, recvd)
-    return buf
+def _rank_major(lanes):
+    """(B, n, n, chunk) lanes as (n, n, B, chunk) views: the rank and chunk
+    axes lead, so a step indexes them first, as for one ring."""
+    return [(buf.movedim(0, 2), shift) for buf, shift in lanes]
 
 
-def _ag_phase(buf: torch.Tensor, n: int, shift: int,
-              owned_offset: int) -> torch.Tensor:
-    """Allgather phase: rotate completed chunks. ``owned_offset`` is the
-    offset of the chunk each rank starts with (+1 after a reduce-scatter in
-    the same direction)."""
-    r = torch.arange(n, device=buf.device)
-    d = 1 if shift == 1 else -1
+def _rs_phase(lanes, n: int, offset: int = 0, combine=torch.add,
+              tag: str = "ring rs") -> None:
+    """Reduce-scatter phase, in place: n-1 rotate-and-accumulate steps.
+    ``lanes``: (buf, shift) pairs, each buf (B, n, n, chunk) holding B
+    rings; step s of every lane runs in one step span. Afterwards rank r
+    owns the fully reduced chunk ``(r + d + offset) mod n`` (d = ring
+    direction)."""
+    r = torch.arange(n, device=lanes[0][0].device)
+    lanes = _rank_major(lanes)
     for s in range(n - 1):
-        send_idx = (r + d * (owned_offset - s)) % n
-        recvd = torch.roll(buf[r, send_idx], shifts=shift, dims=0)
-        recv_idx = (r + d * (owned_offset - s - 1)) % n
-        buf[r, recv_idx] = recvd
-    return buf
+        with step_span(f"{tag} step {s}"):
+            for buf, shift in lanes:
+                d = 1 if shift == 1 else -1
+                send_idx = (r - d * s + offset) % n
+                recvd = torch.roll(buf[r, send_idx], shifts=shift, dims=0)
+                recv_idx = (r - d * (s + 1) + offset) % n
+                mine = buf[r, recv_idx]
+                buf[r, recv_idx] = combine(mine, recvd)
+
+
+def _ag_phase(lanes, n: int, owned_offset: int, tag: str = "ring ag") -> None:
+    """Allgather phase, in place: rotate completed chunks. ``owned_offset``
+    is the offset of the chunk each rank starts with (+1 after a
+    reduce-scatter in the same direction)."""
+    r = torch.arange(n, device=lanes[0][0].device)
+    lanes = _rank_major(lanes)
+    for s in range(n - 1):
+        with step_span(f"{tag} step {s}"):
+            for buf, shift in lanes:
+                d = 1 if shift == 1 else -1
+                send_idx = (r + d * (owned_offset - s)) % n
+                recvd = torch.roll(buf[r, send_idx], shifts=shift, dims=0)
+                recv_idx = (r + d * (owned_offset - s - 1)) % n
+                buf[r, recv_idx] = recvd
+
+
+def allreduce_rows(g: torch.Tensor, op: str = "sum",
+                   tag: str = "ring") -> torch.Tensor:
+    """Ring allreduce of B independent rings at once: (B, n, size) ->
+    (B, n, size), row (b, r) the ``op``-reduction of ring b's rows. Every
+    step of the B rings runs in one step span."""
+    b, n, size = g.shape
+    if n == 1:
+        return finalize(g.clone(), op, 1)
+    buf = _chunk_rows(g)
+    _rs_phase([(buf, 1)], n, combine=combine_fn(op), tag=f"{tag} rs")
+    _ag_phase([(buf, 1)], n, owned_offset=1, tag=f"{tag} ag")
+    return finalize(buf.reshape(b, n, -1)[..., :size], op, n)
+
+
+def reduce_scatter_rows(g: torch.Tensor, op: str = "sum",
+                        tag: str = "ring rs") -> torch.Tensor:
+    """Ring reduce-scatter of B rings: (B, n, S) -> (B, n, S/n)."""
+    b, n, size = g.shape
+    if n == 1:
+        return finalize(g.clone(), op, 1)
+    if size % n:
+        raise ValueError(f"reduce_scatter buffer ({size} elems) must "
+                         f"divide by axis size {n}")
+    buf = g.reshape(b, n, n, -1).clone()
+    # offset=-1: the schedule ends with rank r owning chunk r, the
+    # conventional reduce-scatter layout, with no fixup hop
+    _rs_phase([(buf, 1)], n, offset=-1, combine=combine_fn(op), tag=tag)
+    r = torch.arange(n, device=buf.device)
+    return finalize(buf[:, r, r], op, n)
+
+
+def allgather_rows(g: torch.Tensor, tag: str = "ring ag") -> torch.Tensor:
+    """Ring allgather of B rings: (B, n, c) -> (B, n, n*c)."""
+    b, n, c = g.shape
+    if n == 1:
+        return g.clone()
+    buf = g.new_zeros((b, n, n, c))
+    r = torch.arange(n, device=buf.device)
+    buf[:, r, r] = g
+    _ag_phase([(buf, 1)], n, owned_offset=0, tag=tag)
+    return buf.reshape(b, n, -1)
 
 
 def ring_allreduce(x: torch.Tensor, *, bidir: bool = False,
@@ -73,29 +138,21 @@ def ring_allreduce(x: torch.Tensor, *, bidir: bool = False,
     reduce-scatter + allgather over the ring. Returns a new tensor of the
     same shape, every row the elementwise ``op``-reduction of all rows."""
     n = x.shape[0]
-    combine = combine_fn(op)
     if n == 1:
         return finalize(x.clone(), op, 1)
     if not bidir:
-        buf, size, shape = _chunked(x, n)
-        buf = _rs_phase(buf, n, shift=1, combine=combine)
-        buf = _ag_phase(buf, n, shift=1, owned_offset=1)
-        return finalize(_unchunk(buf, size, shape), op, n)
+        return allreduce_rows(x.reshape(1, n, -1), op)[0].reshape(x.shape)
 
     # bidirectional: per rank, the first half rides the +1 ring and the
-    # second half the -1 ring
+    # second half the -1 ring; step s of both rings is one schedule step
     flat = x.reshape(n, -1)
     half = flat.shape[1] // 2
-    lo = ring_allreduce(flat[:, :half], op=op)
-    hi = _bidir_partner(flat[:, half:], n, op)
-    return torch.cat([lo, hi], dim=1).reshape(x.shape)
-
-
-def _bidir_partner(x: torch.Tensor, n: int, op: str = "sum") -> torch.Tensor:
-    buf, size, shape = _chunked(x, n)
-    buf = _rs_phase(buf, n, shift=-1, combine=combine_fn(op))
-    buf = _ag_phase(buf, n, shift=-1, owned_offset=1)
-    return finalize(_unchunk(buf, size, shape), op, n)
+    lo, hi = _chunked(flat[:, :half], n), _chunked(flat[:, half:], n)
+    lanes = [(lo[0][None], 1), (hi[0][None], -1)]
+    _rs_phase(lanes, n, combine=combine_fn(op), tag="ring_bidir rs")
+    _ag_phase(lanes, n, owned_offset=1, tag="ring_bidir ag")
+    out = torch.cat([_unchunk(*lo), _unchunk(*hi)], dim=1)
+    return finalize(out, op, n).reshape(x.shape)
 
 
 def ring_reduce_scatter(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
@@ -103,29 +160,11 @@ def ring_reduce_scatter(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
     fully ``op``-reduced r-th 1/n of the flattened rank buffers. Each
     rank's buffer must flatten to a multiple of n."""
     n = x.shape[0]
-    flat = x.reshape(n, -1)
-    combine = combine_fn(op)
-    if n == 1:
-        return finalize(flat.clone(), op, 1)
-    if flat.shape[1] % n:
-        raise ValueError(f"reduce_scatter buffer ({flat.shape[1]} elems) must "
-                         f"divide by axis size {n}")
-    buf = flat.reshape(n, n, -1).clone()
-    # offset=-1: the schedule ends with rank r owning chunk r, the
-    # conventional reduce-scatter layout, with no fixup hop
-    buf = _rs_phase(buf, n, shift=1, offset=-1, combine=combine)
-    r = torch.arange(n, device=buf.device)
-    return finalize(buf[r, r], op, n)
+    return reduce_scatter_rows(x.reshape(1, n, -1), op)[0]
 
 
 def ring_allgather(x: torch.Tensor) -> torch.Tensor:
     """Allgather of rank-major ``x`` (n, c...): returns ``(n, n*c)``, every
     row the concatenation of all rank buffers in rank order."""
     n = x.shape[0]
-    flat = x.reshape(n, -1)
-    if n == 1:
-        return flat.clone()
-    buf = flat.new_zeros((n, n, flat.shape[1]))
-    r = torch.arange(n, device=buf.device)
-    buf[r, r] = flat
-    return _ag_phase(buf, n, shift=1, owned_offset=0).reshape(n, -1)
+    return allgather_rows(x.reshape(1, n, -1))[0]

@@ -8,6 +8,8 @@ a step here copies (or folds) rank rows of one rank-major tensor, for the
 pairs ``schedule.bcast_pairs`` / ``schedule.gather_pairs`` give; senders
 and receivers of one step are disjoint, so rows update in place.
 
+- Each step of broadcast and reduce runs in one step span (``trace.py``
+  traces those two).
 - Reduce folds ``combine(mine, recvd)`` in the reference's order, so fp32
   results equal the reference's bit for bit; broadcast, gather and
   scatter only move data.
@@ -22,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from rocnrdma_tpu_torch.collectives._steps import step_span
 from rocnrdma_tpu_torch.collectives.reduce_op import finalize, fold_
 from rocnrdma_tpu_torch.collectives.schedule import (
     bcast_pairs,
@@ -45,8 +48,9 @@ def binomial_broadcast(x: torch.Tensor, root: int = 0) -> torch.Tensor:
     messages."""
     out = x.clone()
     for m in binomial_masks(x.shape[0]):
-        for src, dst in bcast_pairs(x.shape[0], m, root):
-            out[dst].copy_(out[src])
+        with step_span(f"broadcast mask {m}"):
+            for src, dst in bcast_pairs(x.shape[0], m, root):
+                out[dst].copy_(out[src])
     return out
 
 
@@ -60,8 +64,9 @@ def binomial_reduce(x: torch.Tensor, root: int = 0,
     if n == 1:
         return finalize(buf, op, 1)
     for m in reversed(binomial_masks(n)):
-        for recv, send in bcast_pairs(n, m, root):  # reversed flow
-            fold_(buf[recv], buf[send], op)
+        with step_span(f"reduce mask {m}"):
+            for recv, send in bcast_pairs(n, m, root):  # reversed flow
+                fold_(buf[recv], buf[send], op)
     buf[root] = finalize(buf[root], op, n)
     for r in range(n):
         if r != root:

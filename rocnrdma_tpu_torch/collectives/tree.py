@@ -8,13 +8,15 @@ and cut into n chunks as there; rank r's segment start and length follow
 segment with ``lax.ppermute`` to rank ``r XOR mask``, rank r here folds
 its partner's row of the same chunk range into its own (``combine(kept,
 recvd)``, the reference's order, so fp32 results equal it bit for bit). A
-pair's kept and sent halves are disjoint, so rows update in place.
+pair's kept and sent halves are disjoint, so rows update in place. Each
+mask is one step span.
 """
 
 from __future__ import annotations
 
 import torch
 
+from rocnrdma_tpu_torch.collectives._steps import step_span
 from rocnrdma_tpu_torch.collectives.reduce_op import finalize, fold_
 from rocnrdma_tpu_torch.collectives.ring import _chunked, _unchunk
 from rocnrdma_tpu_torch.collectives.schedule import hd_masks
@@ -34,16 +36,18 @@ def hd_allreduce(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
     for mask in masks:
         half = length // 2
         start = [s + half if r & mask else s for r, s in enumerate(start)]
-        for r in range(n):
-            seg = slice(start[r], start[r] + half)
-            fold_(buf[r, seg], buf[r ^ mask, seg], op)
+        with step_span(f"tree halving mask {mask}"):
+            for r in range(n):
+                seg = slice(start[r], start[r] + half)
+                fold_(buf[r, seg], buf[r ^ mask, seg], op)
         length = half
     # recursive doubling (allgather): copy in the partner's segment, the
     # sibling half of the parent segment
     for mask in reversed(masks):
-        for r in range(n):
-            p = start[r ^ mask]
-            buf[r, p:p + length] = buf[r ^ mask, p:p + length]
+        with step_span(f"tree doubling mask {mask}"):
+            for r in range(n):
+                p = start[r ^ mask]
+                buf[r, p:p + length] = buf[r ^ mask, p:p + length]
         start = [min(s, start[r ^ mask]) for r, s in enumerate(start)]
         length *= 2
     return finalize(_unchunk(buf, size, shape), op, n)

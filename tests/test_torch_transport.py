@@ -339,7 +339,9 @@ def test_port_imports_no_jax_and_no_reference_package():
         "need = ('rocnrdma_tpu_torch.' + m for m in ('workloads', 'workloads.routing', "
         "'workloads.moe', 'workloads.llama_trace', 'workloads._replay', "
         "'workloads.ddp_replay', 'workloads.fsdp_replay', 'workloads.overlap', "
-        "'bench.headline', 'bench.mfu_profile', 'graft_entry'))\n"
+        "'bench.headline', 'bench.mfu_profile', 'graft_entry', 'trace', "
+        "'first_contact', 'runtime.topology', 'runtime.topo_cli', 'runtime.init', "
+        "'runtime.multiprocess', 'runtime.mp_worker', 'collectives._steps'))\n"
         "missing = [m for m in need if m not in sys.modules]\n"
         "print(bad, missing)\n"
         "sys.exit(1 if bad or missing else 0)\n")
