@@ -120,7 +120,26 @@ Phases, each timed, any failure exits non-zero:
    ``run_workers(2, "fault", fault_rank=1)`` ending in the survivor's clean
    abort, and ``run_workers(2, "allreduce")`` refused on one GPU with the
    named "fewer GPUs than processes" error;
-11. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
+11. host plane, after the tooling (no kernel runs on it): the port's
+   ``librqp.so`` built from ``rocnrdma_tpu_torch/native/*.cpp`` into its
+   ``_build`` (path and seconds printed); ``bench_host`` fleets of 4 OS
+   processes on the card machine's host, ``--plane tcp --transport msg
+   --sizes 64K,1M,16M`` and ``--plane shm --transport rdma --sizes
+   1M,16M``, every rank holding the zero-copy gate (GB/s and
+   ``payload_bytes_copied`` printed per point), then ``bench_host
+   --smoke`` against the port's own floors; the tensor front door: 4
+   processes, each with CUDA tensors on the one card, run all_reduce,
+   all_gather, all_to_all, broadcast and send/recv at 4 KiB, 1 MiB and
+   64 MiB fp32 over tcp, each result a CUDA tensor on the input's device,
+   bitwise the call on the numpy arrays ``.cpu()`` gives; the staging
+   GB/s each way at 64 MiB beside the call's total; a bf16 CUDA tensor
+   raises ``HostPlaneDtypeError``; ``DeviceMeshNet`` with 8 ranks as rows
+   of one CUDA tensor, every (src, dst) pair bitwise the row copy and
+   every request complete; the fp8 codec resolving with torch, also in a
+   process where ``ml_dtypes`` cannot be imported, a seeded frame's sha256
+   equal to the one ``tests/test_torch_plugin_codec.py`` pins against
+   ``ml_dtypes``, and the int8 and fp8 codecs' encode and decode GB/s;
+12. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
    main path, its time, its plain version's and the library call's time at
    the main path's shapes, and its bound: the larger of its bytes (each
    input read once, each output written once) at the datasheet HBM rate
@@ -133,6 +152,7 @@ Phases, each timed, any failure exits non-zero:
    kernel's ``workload_launches`` are its launches on the workload and
    headline paths (phases 8 and 9).
 
+``python3 chip_smoke.py --host-plane`` runs the probe and phase 11 alone.
 The last line is ``{"ok": true, "device": {...}}``. With ranks sharing one
 GPU, every bus bandwidth printed here is an HBM number, not NVLink.
 This script imports nothing of JAX or of the JAX package.
@@ -1107,7 +1127,280 @@ def tooling_phase(ops, kind: str, smi: str, n: int = 8) -> dict:
     return res
 
 
+# sha256 of the fp8 frame of default_rng(0).standard_normal(65536) * 150
+# (fp32); tests/test_torch_plugin_codec.py pins it against ml_dtypes
+FP8_ROUNDTRIP_SHA256 = (
+    "b798f439b8a8c7cf330b2ad8fb4d5aff11b89e1532ea7834f87231a633c11a96")
+FRONT_DOOR_RANKS = 4
+FRONT_DOOR_SIZES = (4 << 10, 1 << 20, 64 << 20)
+
+
+def front_door_worker(rank: int, world: int, port: int) -> int:
+    """One rank of phase 11's front-door check, a process of its own:
+    ``python chip_smoke.py --front-door-worker RANK WORLD PORT``. Prints
+    one ``FRONTDOOR {json}`` line; any mismatch raises."""
+    import numpy as np
+
+    from rocnrdma_tpu_torch import distributed as dist
+
+    dev = torch.device("cuda", 0)
+    pg = dist.init_process_group(rank=rank, world_size=world,
+                                 master_addr="127.0.0.1", master_port=port,
+                                 plane="tcp", timeout_s=120.0)
+    res = {"rank": rank, "checks": 0, "call_ms": {}}
+
+    def seeded(r: int, size: int) -> torch.Tensor:
+        g = torch.Generator(device=dev).manual_seed(1000 * r + size)
+        return torch.randn(size // 4, device=dev, generator=g)
+
+    def same(got, want) -> None:
+        if not (isinstance(got, torch.Tensor) and got.device == dev
+                and got.dtype == torch.float32):
+            raise AssertionError(f"rank {rank}: result {type(got)} "
+                                 f"{getattr(got, 'device', None)}, want a "
+                                 f"float32 tensor on {dev}")
+        host = got.cpu().numpy()
+        if host.shape != want.shape or host.tobytes() != want.tobytes():
+            raise AssertionError(f"rank {rank}: CUDA result differs from the "
+                                 f"numpy path ({host.shape} vs {want.shape})")
+        res["checks"] += 1
+
+    try:
+        for size in FRONT_DOOR_SIZES:
+            x = seeded(rank, size)
+            calls = {
+                "all_reduce": lambda v: pg.all_reduce(v),
+                "all_gather": lambda v: pg.all_gather(v),
+                "all_to_all": lambda v: pg.all_to_all(v.reshape(world, -1)),
+                "broadcast": lambda v: pg.broadcast(v, src=world - 1),
+            }
+            for name, call in calls.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = call(x)
+                torch.cuda.synchronize()
+                res["call_ms"][f"{name}@{size}"] = (time.perf_counter() - t0) * 1e3
+                same(got, call(x.cpu().numpy()))
+            # send/recv: even ranks send to the next odd rank
+            if rank % 2 == 0:
+                pg.send(x, rank + 1)
+                pg.send(x.cpu().numpy(), rank + 1)
+            else:
+                got = pg.recv(torch.empty_like(x), rank - 1)
+                want = pg.recv(np.empty(x.numel(), np.float32), rank - 1)
+                same(got, want)
+                same(got, seeded(rank - 1, size).cpu().numpy())
+        # the staging each way at 64 MiB, best of three
+        x = seeded(rank, FRONT_DOOR_SIZES[-1])
+        d2h, h2d = [], []
+        for _ in range(3):
+            door = dist._Door(torch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            arr = door.stage(x)
+            d2h.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            back = door.to_tensor(arr, dev)
+            torch.cuda.synchronize()
+            h2d.append(time.perf_counter() - t0)
+            door.done()
+            if not torch.equal(back, x):
+                raise AssertionError("staging round trip changed the tensor")
+        res["staging_GBps"] = {"d2h": x.nbytes / min(d2h) / 1e9,
+                               "h2d": x.nbytes / min(h2d) / 1e9}
+        res["staging_stats"] = dist.staging_stats()
+        try:
+            pg.all_reduce(torch.ones(16, dtype=torch.bfloat16, device=dev))
+            raise AssertionError("a bf16 CUDA tensor entered the host plane")
+        except dist.HostPlaneDtypeError as e:
+            res["bf16"] = str(e).split(":")[0]
+        pg.barrier()
+    finally:
+        pg.destroy()
+    print("FRONTDOOR " + json.dumps(res), flush=True)
+    return 0
+
+
+def host_plane_phase(smi: str) -> dict:
+    """The host plane on the card's machine (module docstring, phase 11)."""
+    import argparse
+    import hashlib
+    import importlib.util
+    import socket
+
+    import numpy as np
+
+    from rocnrdma_tpu_torch import native
+    from rocnrdma_tpu_torch.bench import bench_host
+    from rocnrdma_tpu_torch.bench.host_tune import codec_rates, host_cpu
+    from rocnrdma_tpu_torch.metrics import format_host_table
+    from rocnrdma_tpu_torch.runtime import rank_mesh
+    from rocnrdma_tpu_torch.transport import codec
+    from rocnrdma_tpu_torch.transport.plugin import DeviceMeshNet
+
+    res, secs = {"smi": smi}, {}
+    cpu = host_cpu()
+    res["host_cpu"] = cpu
+    print(f"host: {cpu}", flush=True)
+
+    # the port's native library, from the port's sources
+    t0 = time.perf_counter()
+    lib = native.build(force=True)
+    secs["build"] = time.perf_counter() - t0
+    if not os.environ.get("RQP_LIB_DIR"):
+        want_dir = os.path.join(os.path.dirname(os.path.abspath(native.__file__)),
+                                "_build")
+        if os.path.dirname(lib) != want_dir:
+            raise AssertionError(f"librqp.so built at {lib}, not under {want_dir}")
+    print(f"built {lib} in {secs['build']:.1f} s", flush=True)
+
+    # bench_host fleets: 4 OS processes, every rank holding the copy gate
+    t0 = time.perf_counter()
+    fleets = {}
+    for plane, transport, sizes in (("tcp", "msg", "64K,1M,16M"),
+                                    ("shm", "rdma", "1M,16M")):
+        ns = argparse.Namespace(
+            ranks=4, plane=plane, transport=transport, sizes=sizes,
+            collectives=",".join(bench_host.COLLECTIVES), repeats=3, iters=3,
+            lat_iters=200, bulk_size="32M", bulk_rounds=40, small_ops=256,
+            bucket_size="4M", node_map=None, smoke=True)
+        recs = bench_host._run_fleet(ns)
+        print(f"bench_host --ranks 4 --plane {plane} --transport {transport} "
+              f"--sizes {sizes} ({cpu}):", flush=True)
+        print(format_host_table(recs), flush=True)
+        points = {}
+        for r in recs:
+            copied = r.extra["wire"]["payload_bytes_copied"]
+            if copied:
+                raise AssertionError(f"{plane}/{transport} {r.collective} "
+                                     f"{r.size_bytes} B: {copied} B copied")
+            points[f"{r.collective}@{r.size_bytes}"] = round(r.algbw_GBps, 4)
+        if len(recs) != len(bench_host.COLLECTIVES) * len(sizes.split(",")):
+            raise AssertionError(f"{plane}/{transport}: {len(recs)} records")
+        fleets[f"{plane}/{transport}"] = points
+        print(f"payload_bytes_copied == 0 on every rank of {len(recs)} points",
+              flush=True)
+    res["bench_host_GBps"] = fleets
+    secs["bench_host"] = time.perf_counter() - t0
+
+    # bench_host --smoke against the port's own floors
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "rocnrdma_tpu_torch.bench.bench_host",
+                        "--smoke"], capture_output=True, text=True, timeout=600)
+    print(r.stdout, flush=True)
+    if r.returncode != 0:
+        raise AssertionError(f"bench_host --smoke exit {r.returncode}:\n{r.stderr[-4000:]}")
+    res["smoke"] = [line for line in r.stdout.splitlines()
+                    if line.startswith("smoke gate ok")]
+    if len(res["smoke"]) != 7:
+        raise AssertionError(f"bench_host --smoke: {len(res['smoke'])} gates ok, want 7")
+    secs["smoke"] = time.perf_counter() - t0
+
+    # the tensor front door: 4 processes, CUDA tensors on the one card
+    t0 = time.perf_counter()
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--front-door-worker",
+         str(rk), str(FRONT_DOOR_RANKS), str(port)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rk in range(FRONT_DOOR_RANKS)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    workers = []
+    for rk, (p, (out, err)) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in out.splitlines() if ln.startswith("FRONTDOOR ")]
+        if p.returncode != 0 or not lines:
+            raise AssertionError(f"front-door rank {rk}: exit {p.returncode}\n"
+                                 f"{err[-4000:]}")
+        workers.append(json.loads(lines[-1][len("FRONTDOOR "):]))
+    want_checks = [4 * len(FRONT_DOOR_SIZES) + (2 * len(FRONT_DOOR_SIZES)
+                                                if rk % 2 else 0)
+                   for rk in range(FRONT_DOOR_RANKS)]
+    if [w["checks"] for w in workers] != want_checks:
+        raise AssertionError(f"front door checks {[w['checks'] for w in workers]}, "
+                             f"want {want_checks}")
+    big = FRONT_DOOR_SIZES[-1]
+    res["front_door"] = {
+        "checks": sum(w["checks"] for w in workers),
+        "staging_GBps_64MiB": [{k: round(v, 3) for k, v in w["staging_GBps"].items()}
+                               for w in workers],
+        "call_ms_64MiB": {verb: round(max(w["call_ms"][f"{verb}@{big}"]
+                                          for w in workers), 3)
+                          for verb in ("all_reduce", "all_gather", "all_to_all",
+                                       "broadcast")},
+        "bf16": workers[0]["bf16"]}
+    print(f"front door ({smi}; {cpu}): " + json.dumps(res["front_door"]), flush=True)
+    secs["front_door"] = time.perf_counter() - t0
+
+    # DeviceMeshNet: 8 ranks as rows of one CUDA tensor, every pair
+    t0 = time.perf_counter()
+    n = 8
+    net = DeviceMeshNet(rank_mesh(n))
+    net.init()
+    x = randn((n, MiB // 4), torch.float32, seed=21)
+    mr = net.reg_mr((0, 1), x)
+    pairs = 0
+    for src in range(n):
+        for dst in range(n):
+            if src == dst:
+                continue
+            handle, lc = net.listen(dst)
+            req = net.irecv(net.accept(lc), net.isend(net.connect(src, handle), mr))
+            out = req.wait()
+            if not net.test(req)[0]:
+                raise AssertionError(f"DeviceMeshNet ({src}, {dst}) never completed")
+            want = torch.zeros_like(x)
+            want[dst] = x[src]
+            if out.device != x.device or not torch.equal(out, want):
+                raise AssertionError(f"DeviceMeshNet ({src}, {dst}) is not the row copy")
+            pairs += 1
+    res["device_mesh_net_pairs"] = pairs
+    print(f"DeviceMeshNet: {pairs} (src, dst) pairs of 8 x 1 MiB rows on "
+          f"{x.device}, each bitwise the row copy", flush=True)
+    secs["device_mesh_net"] = time.perf_counter() - t0
+
+    # the fp8 codec with torch, here and in a process where ml_dtypes
+    # cannot be imported (a stub module that raises shadows it)
+    fp8 = codec.get("fp8")
+    frame = (np.random.default_rng(0).standard_normal(65536) * 150).astype(np.float32)
+    digest = hashlib.sha256(bytes(fp8.encode(frame))).hexdigest()
+    stub = os.path.join(OUT_DIR, "no_ml_dtypes")
+    os.makedirs(stub, exist_ok=True)
+    with open(os.path.join(stub, "ml_dtypes.py"), "w") as f:
+        f.write("raise ImportError('ml_dtypes is hidden from this process')\n")
+    code = ("import hashlib, sys, numpy as np\n"
+            "from rocnrdma_tpu_torch.transport import codec\n"
+            "x = (np.random.default_rng(0).standard_normal(65536) * 150)"
+            ".astype(np.float32)\n"
+            "print(hashlib.sha256(bytes(codec.get('fp8').encode(x))).hexdigest())\n"
+            "print(sys.modules.get('ml_dtypes') is None)\n")
+    here = os.path.dirname(os.path.abspath(__file__))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       timeout=120, env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+                           [os.path.abspath(stub), here])))
+    hidden = r.stdout.split()
+    if r.returncode != 0 or hidden != [FP8_ROUNDTRIP_SHA256, "True"]:
+        raise AssertionError(f"fp8 without ml_dtypes: exit {r.returncode}, "
+                             f"{r.stdout!r} {r.stderr[-2000:]}")
+    if digest != FP8_ROUNDTRIP_SHA256:
+        raise AssertionError(f"fp8 frame sha256 {digest}, want {FP8_ROUNDTRIP_SHA256}")
+    res["codec"] = {"fp8_sha256_ok": True, "fp8_without_ml_dtypes_ok": True,
+                    "ml_dtypes_importable": importlib.util.find_spec("ml_dtypes")
+                    is not None, "GBps_1MiB": codec_rates()}
+    print(f"codec ({cpu}): " + json.dumps(res["codec"]), flush=True)
+    res["seconds"] = {k: round(v, 1) for k, v in secs.items()}
+    return res
+
+
 def main() -> int:
+    if len(sys.argv) == 5 and sys.argv[1] == "--front-door-worker":
+        return front_door_worker(*map(int, sys.argv[2:]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
@@ -1129,6 +1422,11 @@ def main() -> int:
             capture_output=True, text=True, timeout=60, check=True).stdout.strip()
         print(f"device: {kind} (torch {torch.__version__}, CUDA {torch.version.cuda})")
         print(f"nvidia-smi: {smi}", flush=True)
+    if sys.argv[1:] == ["--host-plane"]:  # phase 11 alone, no kernels line
+        with phase("host_plane"):
+            host = host_plane_phase(smi)
+        print(f"host plane ({smi}): " + json.dumps(host))
+        return 0
 
     with phase("build"):
         t0 = time.perf_counter()
@@ -1243,6 +1541,8 @@ def main() -> int:
         head = headline_phase(ops, n)
     with phase("tooling"):
         tools = tooling_phase(ops, kind, smi, n)
+    with phase("host_plane"):
+        host = host_plane_phase(smi)
     workload_launches = {}
     for counts_ in list(work["launches"].values()) + [
             v for k, v in head.items() if k.startswith("launches")]:
@@ -1384,6 +1684,7 @@ def main() -> int:
         {k: v for k, v in tools.items() if k not in ("ring", "dtree", "khd")}
         | {k: {f: v[f] for f in ("digits", "steps", "predicted_us", "measured_us")}
            for k, v in tools.items() if k in ("ring", "dtree", "khd")}))
+    print(f"host plane ({smi}): " + json.dumps(host))
     for kern in kernels:
         kern["workload_launches"] = workload_launches[kern["name"]]
     print(smi)

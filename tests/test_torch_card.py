@@ -403,3 +403,102 @@ def test_graft_entry_on_the_card(cuda_device):
     after = T.launch_counts()
     assert after["ring_allreduce"] > before["ring_allreduce"]
     assert after["alltoall"] > before["alltoall"]
+
+
+# ---------------------------------------------------------------------------
+# The host plane's torch edges on the card: the tensor front door and
+# DeviceMeshNet
+# ---------------------------------------------------------------------------
+
+
+def _host_group(n, fn):
+    """n ranks of the port's ProcessGroup as threads over the shm plane."""
+    import threading
+
+    from rocnrdma_tpu_torch import distributed as dist
+    from rocnrdma_tpu_torch.transport import bootstrap
+    server = bootstrap.BootstrapServer(n_ranks=n)
+    outs, errs = [None] * n, []
+
+    def worker(rank):
+        pg = None
+        try:
+            pg = dist.init_process_group(rank=rank, world_size=n,
+                                         store_handle=server.handle,
+                                         plane="shm", timeout_s=60.0)
+            outs[rank] = fn(pg, rank)
+        except Exception:  # surfaced by the assert below
+            import traceback
+            errs.append(traceback.format_exc())
+        finally:
+            if pg is not None:
+                pg.destroy()
+
+    threads = [threading.Thread(target=worker, args=(r,)) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    server.close()
+    assert not errs, errs[0]
+    return outs
+
+
+def test_front_door_cuda_tensors_come_back_on_the_card(cuda_device):
+    from rocnrdma_tpu_torch import distributed as dist
+
+    def drive(pg, r):
+        x = _randn((3, 40000), torch.float32, 90 + r, cuda_device)
+        n = pg.world_size
+        res = {}
+        for name, call in (
+                ("all_reduce", lambda v: pg.all_reduce(v)),
+                ("all_gather", lambda v: pg.all_gather(v)),
+                ("all_to_all", lambda v: pg.all_to_all(v[:2].reshape(n, -1))),
+                ("broadcast", lambda v: pg.broadcast(v, src=1)),
+                ("reduce_scatter", lambda v: pg.reduce_scatter(v))):
+            res[name] = (call(x), call(x.cpu().numpy()))
+        hs = pg.batch_isend_irecv([("recv", torch.empty_like(x), (r - 1) % n),
+                                   ("send", x, (r + 1) % n)])
+        res["batch"] = (hs[0].wait(), _randn((3, 40000), torch.float32,
+                                             90 + (r - 1) % n, cuda_device)
+                        .cpu().numpy())
+        hs[1].wait()
+        ch = pg.channel("bulk", bucket_bytes=1 << 20)
+        fut = ch.allreduce_async(x[0])
+        ch.flush(timeout_s=30.0)
+        res["async"] = (fut.wait(30.0), pg.all_reduce(x[0].cpu().numpy()))
+        with pytest.raises(dist.HostPlaneDtypeError):
+            pg.all_reduce(x.to(torch.bfloat16))
+        with pytest.raises(ValueError, match="change device"):
+            pg.batch_isend_irecv([("recv", torch.empty(4), (r - 1) % n),
+                                  ("send", x, (r + 1) % n)])
+        return res
+
+    for res in _host_group(2, drive):
+        for name, (got, want) in res.items():
+            assert got.device.type == "cuda" and got.dtype == torch.float32, name
+            assert got.cpu().numpy().tobytes() == want.tobytes(), name
+    stats = dist.staging_stats()
+    assert stats["d2h_bytes"] > 0 and stats["h2d_bytes"] > 0
+
+
+def test_device_mesh_net_on_the_card(cuda_device):
+    from rocnrdma_tpu_torch.transport.plugin import DeviceMeshNet
+    n = 4
+    net = DeviceMeshNet(rank_mesh(n, cuda_device))
+    net.init()
+    x = _randn((n, 1000), torch.float32, 7, cuda_device)
+    mr = net.reg_mr((0, 1), x)
+    assert mr is x
+    for src in range(n):
+        for dst in range(n):
+            if src != dst:
+                req = net.isend(net.connect(src, net.listen(dst)[0]), mr)
+                out = req.wait()
+                assert net.test(req)[0]
+                want = torch.zeros_like(x)
+                want[dst] = x[src]
+                assert out.is_cuda and torch.equal(out, want)
+    with pytest.raises(ValueError, match="reg_mr"):
+        net.reg_mr((0, 1), x.cpu())

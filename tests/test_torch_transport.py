@@ -335,13 +335,19 @@ def test_port_imports_no_jax_and_no_reference_package():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'rocnrdma_tpu', 'triton'))\n"
+        "('jax', 'jaxlib', 'rocnrdma_tpu', 'triton', 'ml_dtypes'))\n"
         "need = ('rocnrdma_tpu_torch.' + m for m in ('workloads', 'workloads.routing', "
         "'workloads.moe', 'workloads.llama_trace', 'workloads._replay', "
         "'workloads.ddp_replay', 'workloads.fsdp_replay', 'workloads.overlap', "
         "'bench.headline', 'bench.mfu_profile', 'graft_entry', 'trace', "
         "'first_contact', 'runtime.topology', 'runtime.topo_cli', 'runtime.init', "
-        "'runtime.multiprocess', 'runtime.mp_worker', 'collectives._steps'))\n"
+        "'runtime.multiprocess', 'runtime.mp_worker', 'collectives._steps', "
+        "'distributed', 'lockwitness', 'native', 'obs', 'obs.recorder', "
+        "'obs.trace', 'obs.chrome', 'obs.conformance', 'obs.fleet', "
+        "'transport.bootstrap', 'transport.plugin', 'transport.codec', "
+        "'transport.lanes', 'transport.coalesce', 'transport.faults', "
+        "'transport.evasion', 'transport.backoff', 'transport.keyspace', "
+        "'bench.bench_host'))\n"
         "missing = [m for m in need if m not in sys.modules]\n"
         "print(bad, missing)\n"
         "sys.exit(1 if bad or missing else 0)\n")
