@@ -139,7 +139,25 @@ Phases, each timed, any failure exits non-zero:
    process where ``ml_dtypes`` cannot be imported, a seeded frame's sha256
    equal to the one ``tests/test_torch_plugin_codec.py`` pins against
    ``ml_dtypes``, and the int8 and fp8 codecs' encode and decode GB/s;
-12. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
+12. chaos and heal, after the host plane (``runtime.mp_worker`` fleets of
+   OS processes, the device plane an NCCL group on the one card; any
+   failed step fails the phase): (a) ``kill-a-host``, 3 processes, seed
+   11, rank 1 killed at op 25, 4 rounds of 2048 elements, twice: every
+   survivor exits 0 on epoch 1 with members [0, 2], re-initialises once
+   (its heal ms and ``member-device-*`` spans printed), and its
+   ``DEVICE-LOCAL`` after the heal launches the ring kernel on the card
+   (the launches counted in the worker), bitwise to the integer oracle;
+   ``DEVICE-GLOBAL`` is named unsupported with fewer GPUs than members;
+   the ``FAULTLOG``/``HEALLOG``/``DEVICEHEAL`` lines are equal across the
+   two runs; (b) with one warm spare (4 processes, seed 13, rank 2
+   killed) the spare is promoted (``now-rank=2/3``); (c) one process, a
+   world of one on NCCL: an ``all_reduce``, ``reinit_runtime`` (the
+   communicator aborted, a new group joined), an ``all_reduce`` on the new
+   group, the fence, the re-init's ms and spans; (d) the degraded mode
+   (``device_heal_fail``): every survivor exits 4 with
+   ``DEVICEHEAL-FAILED`` and ``HOST-PLANE-OK`` in under 90 s; (e) one
+   ``kill-and-heal`` and one ``die-mid-collective`` fleet;
+13. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
    main path, its time, its plain version's and the library call's time at
    the main path's shapes, and its bound: the larger of its bytes (each
    input read once, each output written once) at the datasheet HBM rate
@@ -150,9 +168,11 @@ Phases, each timed, any failure exits non-zero:
    without its barrier and arrivals; and per verb the ``cuda_ring`` arm
    against ``fused`` at 4 KiB and at the sweep's crossover size. Each
    kernel's ``workload_launches`` are its launches on the workload and
-   headline paths (phases 8 and 9).
+   headline paths (phases 8 and 9), its ``chaos_launches`` those of the
+   healed fleets' ``DEVICE-LOCAL`` (phase 12).
 
-``python3 chip_smoke.py --host-plane`` runs the probe and phase 11 alone.
+``python3 chip_smoke.py --host-plane`` runs the probe and phase 11 alone,
+``--chaos`` the probe and phase 12 alone.
 The last line is ``{"ok": true, "device": {...}}``. With ranks sharing one
 GPU, every bus bandwidth printed here is an HBM number, not NVLink.
 This script imports nothing of JAX or of the JAX package.
@@ -1398,6 +1418,214 @@ def host_plane_phase(smi: str) -> dict:
     return res
 
 
+# phase 12: the device heal and the chaos tasks on the card's machine
+CHAOS_KILL = dict(seed=11, rounds=4, kill_ranks="1", kill_ops="25", size=2048)
+
+
+def _line(r, key: str) -> str:
+    for ln in r.stdout.splitlines():
+        if ln.startswith(key + " "):
+            return ln[len(key) + 1:]
+    raise AssertionError(f"rank {r.process_id} printed no {key} line "
+                         f"(exit {r.returncode}):\n{r.stdout[-3000:]}\n"
+                         f"{r.stderr[-3000:]}")
+
+
+def _device_launches(r, epoch: int) -> dict:
+    """The ``DEVICE-LAUNCHES`` line of ``epoch``: the kernel launches of
+    that epoch's DEVICE-LOCAL allreduce, which must be on the card."""
+    for ln in r.stdout.splitlines():
+        if ln.startswith(f"DEVICE-LAUNCHES epoch={epoch} "):
+            _, _, on, counts = ln.split(" ", 3)
+            if not on.startswith("on=cuda"):
+                raise AssertionError(f"rank {r.process_id}: DEVICE-LOCAL ran {on}")
+            return json.loads(counts)
+    raise AssertionError(f"rank {r.process_id}: no DEVICE-LAUNCHES epoch={epoch}:\n"
+                         f"{r.stdout[-3000:]}")
+
+
+def _survivors_healed(rs, victim: int, epoch: str, members: str, launches: dict) -> list:
+    """Every survivor of a kill-a-host fleet exited 0 on ``epoch`` with
+    ``members``, its DEVICE-LOCAL ran the ring kernel on the card after the
+    heal, and it re-initialised once; returns the survivors' heal ms."""
+    by = {r.process_id: r for r in rs}
+    if by[victim].returncode != 7:
+        raise AssertionError(f"victim exit {by[victim].returncode}:\n{by[victim].stdout}")
+    ms = []
+    for r in rs:
+        if r.process_id == victim:
+            continue
+        if r.returncode != 0:
+            raise AssertionError(f"survivor {r.process_id} exit {r.returncode}:\n"
+                                 f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+        if (_line(r, "EPOCH"), _line(r, "MEMBERS")) != (epoch, members):
+            raise AssertionError(f"survivor {r.process_id}: epoch "
+                                 f"{_line(r, 'EPOCH')}, members {_line(r, 'MEMBERS')}")
+        if f"DEVICE-LOCAL ok epoch={epoch}" not in r.stdout:
+            raise AssertionError(f"survivor {r.process_id}: no DEVICE-LOCAL ok:\n{r.stdout}")
+        got = _device_launches(r, int(epoch))
+        if sum(got.values()) < 1:
+            raise AssertionError(f"survivor {r.process_id}: DEVICE-LOCAL launched no kernel")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        heal = json.loads(_line(r, "DEVICEHEAL_MS"))
+        if len(heal) != 1 or heal[0] <= 0.0:
+            raise AssertionError(f"survivor {r.process_id}: DEVICEHEAL_MS {heal}")
+        ms.append(heal[0])
+    return ms
+
+
+def nccl_reinit_worker() -> int:
+    """Phase 12 (c), a process of its own: an NCCL world of one runs an
+    all_reduce, aborts and re-creates its communicator with
+    ``reinit_runtime``, and runs one on the new group."""
+    import torch.distributed as dist
+
+    from rocnrdma_tpu_torch.obs import FLIGHT
+    from rocnrdma_tpu_torch.runtime import init as rinit
+    from rocnrdma_tpu_torch.runtime.multiprocess import free_port
+
+    info = rinit.init_runtime(coordinator=f"127.0.0.1:{free_port()}",
+                              num_processes=1, process_id=0, timeout_s=60,
+                              platform="auto")
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    def reduced(seed: int) -> float:
+        x = randn((1 << 20,), torch.float32, seed=seed)
+        want = x.clone()
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        if not torch.equal(x, want):  # a world of one sums to itself
+            raise AssertionError(f"all_reduce on {dist.get_backend()} changed the data")
+        return float(x.abs().sum())
+
+    before = (info.backend, dist.get_backend(), id(dist.group.WORLD))
+    reduced(31)
+    store: dict = {}
+
+    def agree(key, value=None, timeout_s=30.0):
+        return store.setdefault(key, value) if value is not None else store[key]
+
+    healed = rinit.reinit_runtime([0], 1, 0, agree=agree, timeout_s=60.0,
+                                  platform="auto")
+    after = (healed.backend, dist.get_backend(), id(dist.group.WORLD))
+    reduced(32)
+    fence = rinit.device_fence([0], 0, 1, timeout_s=10.0)
+    spans = {kind[len("member-device-"):]: round(a["dur"] * 1000.0, 3)
+             for _, kind, a in FLIGHT.events() if kind.startswith("member-device-")}
+    shut = [a for _, kind, a in FLIGHT.events() if kind == "device-plane-shutdown"]
+    res = {"device": str(dev), "torch": torch.__version__,
+           "backend_before": before[1], "backend_after": after[1],
+           "new_world_group": before[2] != after[2], "fence": fence,
+           "shutdown_clean": [a["clean"] for a in shut],
+           "reinit_ms": round(healed.reinit_s * 1000.0, 3), "spans_ms": spans}
+    rinit.shutdown_runtime()
+    print("NCCLREINIT " + json.dumps(res), flush=True)
+    return 0
+
+
+def chaos_phase(smi: str) -> dict:
+    """The device heal and the chaos tasks (module docstring, phase 12)."""
+    from rocnrdma_tpu_torch.ops import _build
+    from rocnrdma_tpu_torch.runtime.multiprocess import run_workers
+
+    _build.build()  # the fleets' processes find the kernels built
+    res, secs, launches = {"smi": smi}, {}, {}
+
+    # (a) kill-a-host twice: the heal, the ring kernel after it, replay
+    t0 = time.perf_counter()
+    runs = []
+    for _ in range(2):
+        rs = run_workers(3, "kill-a-host", timeout_s=240.0, platform="auto", **CHAOS_KILL)
+        res.setdefault("kill_a_host_ms", []).append(
+            _survivors_healed(rs, 1, "1", "[0, 2]", launches))
+        for r in rs:
+            if r.process_id != 1 and "DEVICE-GLOBAL" not in r.stdout:
+                raise AssertionError(f"survivor {r.process_id}: no DEVICE-GLOBAL line")
+        runs.append(rs)
+    for a, b in zip(*runs):
+        if a.process_id == 1:
+            continue
+        for key in ("FAULTLOG", "HEALLOG", "DEVICEHEAL"):
+            if _line(a, key) != _line(b, key):
+                raise AssertionError(f"survivor {a.process_id}: {key} differs across runs")
+    r0 = runs[0][0]
+    res["device_global"] = [ln for ln in r0.stdout.splitlines()
+                            if ln.startswith("DEVICE-GLOBAL")]
+    res["device_spans_ms"] = json.loads(_line(r0, "DEVICESPANS"))
+    print(f"kill-a-host x2 ({smi}): heal ms {res['kill_a_host_ms']}, rank 0 spans "
+          f"{res['device_spans_ms']}, {res['device_global']}", flush=True)
+    secs["kill_a_host_x2"] = time.perf_counter() - t0
+
+    # (b) the spare promotion keeps the world at 3
+    t0 = time.perf_counter()
+    rs = run_workers(4, "kill-a-host", timeout_s=240.0, platform="auto", spares=1,
+                     **dict(CHAOS_KILL, seed=13, kill_ranks="2"))
+    res["spare_ms"] = _survivors_healed(rs, 2, "1", "[0, 1, 2]", launches)
+    if "now-rank=2/3" not in rs[3].stdout:
+        raise AssertionError(f"the spare was not promoted into rank 2:\n{rs[3].stdout}")
+    print(f"kill-a-host spares=1: heal ms {res['spare_ms']}, spare now-rank=2/3", flush=True)
+    secs["spare"] = time.perf_counter() - t0
+
+    # (c) the NCCL communicator's abort and re-create, a world of one
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), "--nccl-reinit-worker"],
+                       capture_output=True, text=True, timeout=300)
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("NCCLREINIT ")]
+    if r.returncode != 0 or not lines:
+        raise AssertionError(f"NCCL re-create: exit {r.returncode}\n{r.stdout[-3000:]}\n"
+                             f"{r.stderr[-4000:]}")
+    res["nccl_reinit"] = json.loads(lines[-1][len("NCCLREINIT "):])
+    nr = res["nccl_reinit"]
+    if (nr["backend_before"], nr["backend_after"]) != ("nccl", "nccl") \
+            or not nr["new_world_group"] or nr["shutdown_clean"] != [True]:
+        raise AssertionError(f"NCCL re-create: {nr}")
+    print(f"NCCL abort + re-create ({smi}): " + json.dumps(nr), flush=True)
+    secs["nccl_reinit"] = time.perf_counter() - t0
+
+    # (d) degraded mode: a silent coordinator, the host plane still serves
+    t0 = time.perf_counter()
+    rs = run_workers(3, "kill-a-host", timeout_s=240.0, platform="auto",
+                     device_heal_fail=True, **CHAOS_KILL)
+    secs["degraded"] = time.perf_counter() - t0
+    for r in rs:
+        if r.process_id == 1:
+            continue
+        if r.returncode != 4 or "HOST-PLANE-OK" not in r.stdout \
+                or "device-plane heal failed" not in _line(r, "DEVICEHEAL-FAILED"):
+            raise AssertionError(f"degraded survivor {r.process_id}: exit {r.returncode}\n"
+                                 f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    if secs["degraded"] >= 90.0:
+        raise AssertionError(f"degraded mode took {secs['degraded']:.1f} s")
+    print(f"kill-a-host --device-heal-fail: survivors exit 4 named, HOST-PLANE-OK, "
+          f"{secs['degraded']:.1f} s", flush=True)
+
+    # (e) the host-plane chaos tasks on this machine's host
+    t0 = time.perf_counter()
+    rs = run_workers(4, "kill-and-heal", timeout_s=150.0, seed=11, rounds=6,
+                     kill_ranks="2", kill_ops="49")
+    for r in rs:
+        want = 7 if r.process_id == 2 else 0
+        if r.returncode != want or (want == 0 and _line(r, "MEMBERS") != "[0, 1, 3]"):
+            raise AssertionError(f"kill-and-heal rank {r.process_id}: exit {r.returncode}\n"
+                                 f"{r.stdout[-3000:]}\n{r.stderr[-2000:]}")
+    secs["kill_and_heal"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rs = run_workers(4, "die-mid-collective", timeout_s=120.0, seed=7, rounds=6,
+                     fault_rank=2)
+    for r in rs:
+        want = 7 if r.process_id == 2 else 4
+        if r.returncode != want or (want == 4 and "ring wire stalled" not in r.stdout):
+            raise AssertionError(f"die-mid-collective rank {r.process_id}: exit "
+                                 f"{r.returncode}\n{r.stdout[-3000:]}")
+    secs["die_mid_collective"] = time.perf_counter() - t0
+    print("kill-and-heal: survivors exit 0 on [0, 1, 3]; die-mid-collective: "
+          "survivors exit 4 naming the stalled hop", flush=True)
+    res["launches"] = launches
+    res["seconds"] = {k: round(v, 1) for k, v in secs.items()}
+    return res
+
+
 def main() -> int:
     if len(sys.argv) == 5 and sys.argv[1] == "--front-door-worker":
         return front_door_worker(*map(int, sys.argv[2:]))
@@ -1405,6 +1633,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if sys.argv[1:] == ["--nccl-reinit-worker"]:
+        return nccl_reinit_worker()
     from rocnrdma_tpu_torch import ops
     from rocnrdma_tpu_torch.bench import bench_local, runner
     from rocnrdma_tpu_torch.collectives import (fused_allgather, fused_allreduce,
@@ -1426,6 +1656,11 @@ def main() -> int:
         with phase("host_plane"):
             host = host_plane_phase(smi)
         print(f"host plane ({smi}): " + json.dumps(host))
+        return 0
+    if sys.argv[1:] == ["--chaos"]:  # phase 12 alone, no kernels line
+        with phase("chaos_heal"):
+            chaos = chaos_phase(smi)
+        print(f"chaos_heal ({smi}): " + json.dumps(chaos))
         return 0
 
     with phase("build"):
@@ -1543,6 +1778,8 @@ def main() -> int:
         tools = tooling_phase(ops, kind, smi, n)
     with phase("host_plane"):
         host = host_plane_phase(smi)
+    with phase("chaos_heal"):
+        chaos = chaos_phase(smi)
     workload_launches = {}
     for counts_ in list(work["launches"].values()) + [
             v for k, v in head.items() if k.startswith("launches")]:
@@ -1685,8 +1922,10 @@ def main() -> int:
         | {k: {f: v[f] for f in ("digits", "steps", "predicted_us", "measured_us")}
            for k, v in tools.items() if k in ("ring", "dtree", "khd")}))
     print(f"host plane ({smi}): " + json.dumps(host))
+    print(f"chaos_heal ({smi}): " + json.dumps(chaos))
     for kern in kernels:
         kern["workload_launches"] = workload_launches[kern["name"]]
+        kern["chaos_launches"] = chaos["launches"].get(kern["name"], 0)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -724,10 +724,10 @@ class ChannelHandle:
 
 class _PostedRecv:
     """One irecv's posted requests (``(offset, nbytes, Request)``), which
-    the posting thread's blocking sends test (``_p2p_progress``) until a
-    ``wait()`` claims them. ``lock`` makes each round of those tests and
-    the claim exclusive, so no request is tested by two threads at once,
-    whichever thread waits on the handle."""
+    the group's blocking sends and waits, on any thread, test
+    (``_p2p_progress``) until a ``wait()`` claims them. ``lock`` makes each
+    round of those tests and the claim exclusive, so no request is tested
+    by two threads at once, whichever thread waits on the handle."""
 
     __slots__ = ("reqs", "lock", "claimed")
 
@@ -752,18 +752,19 @@ class _PostedRecv:
             self.claimed = True
 
 
-# group -> {posting thread's ident: [_PostedRecv, ...]}, weakly keyed by
-# the group object: the entries go with their group, and a later group
-# never sees them
+# group -> [_PostedRecv, ...], weakly keyed by the group object: the
+# entries go with their group, and a later group never sees them
 _P2P_POSTED = weakref.WeakKeyDictionary()
 _P2P_POSTED_LOCK = _lockwitness.make_lock("distributed.py::_P2P_POSTED_LOCK")
 
 
 def _posted_p2p_recvs(pg) -> list:
-    """The calling thread's posted, unclaimed p2p receives on ``pg``."""
+    """The posted, unclaimed p2p receives on ``pg``, whichever thread
+    posted them: a wait on one thread must return the credit of receives
+    another thread posted, or a peer whose sends outlast this rank's waits
+    for credit only this rank's finished sends would have returned."""
     with _P2P_POSTED_LOCK:
-        by_thread = _P2P_POSTED.setdefault(pg, {})
-    return by_thread.setdefault(threading.get_ident(), [])
+        return _P2P_POSTED.setdefault(pg, [])
 
 
 class ProcessGroup:
@@ -2223,7 +2224,7 @@ class ProcessGroup:
         for (peer, d), wire in list(self._p2p.items()):
             comm = wire.recv_comm if d == "rx" else wire.send_comm
             comm._pump()
-        # consume this thread's landed receives: a pump only stashes a
+        # consume the landed posted receives: a pump only stashes a
         # put-path descriptor, and its arena credit returns to the sender
         # when the receive is tested. A batch of sends that waits for
         # credit on every rank at once (a ring shift bigger than the

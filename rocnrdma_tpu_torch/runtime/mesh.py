@@ -47,6 +47,8 @@ class Topology:
     n_devices: int       # ranks the backend can host (fake devices count)
     device_name: str
     device: torch.device
+    n_processes: int = 1     # the process group's world size (1 without one)
+    process_index: int = 0   # this process's rank in it (0 without one)
 
     @property
     def is_oracle(self) -> bool:
@@ -65,8 +67,35 @@ def detect_topology(platform: str = "auto",
         plat = "gpu"
     else:
         name, real, plat = "cpu", 1, "cpu"
+    dist = torch.distributed
+    up = dist.is_available() and dist.is_initialized()
     return Topology(platform=plat, n_devices=fake_devices or real,
-                    device_name=name, device=device)
+                    device_name=name, device=device,
+                    n_processes=dist.get_world_size() if up else 1,
+                    process_index=dist.get_rank() if up else 0)
+
+
+def reprobe_topology(expected_processes: int | None = None,
+                     expected_devices: int | None = None,
+                     platform: str = "auto") -> Topology:
+    """Re-probe the topology after a device-plane restart
+    (``runtime.init.reinit_runtime``) and check it against the membership
+    the host plane agreed on: a process group that came up on the wrong
+    world would desync every consumer of the mesh, so it raises here,
+    named, before any of them is rebuilt."""
+    topo = detect_topology(platform)
+    if (expected_processes is not None
+            and topo.n_processes != expected_processes):
+        raise RuntimeError(
+            f"device plane re-probed {topo.n_processes} process(es) but "
+            f"the healed membership has {expected_processes} — the "
+            f"coordination service and the host plane disagree on the "
+            f"world")
+    if expected_devices is not None and topo.n_devices != expected_devices:
+        raise RuntimeError(
+            f"device plane re-probed {topo.n_devices} device(s), "
+            f"expected {expected_devices} on the healed membership")
+    return topo
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,7 +127,10 @@ class RankMesh:
 
 
 def rank_mesh(n: int, device: torch.device | str | None = None) -> RankMesh:
-    """``n`` ranks on ``device`` (default: the GPU; raises without one)."""
+    """``n`` ranks on ``device`` (default: the GPU; raises without one).
+    Over this process's device it is also the counterpart of the
+    reference's ``local_mesh``: the mesh a process rebuilds and runs on
+    its own after a device-plane heal."""
     if n < 1:
         raise ValueError(f"need n >= 1 ranks, got {n}")
     return RankMesh(devices=(_mesh_device(device),) * n)

@@ -1,12 +1,14 @@
-"""Multi-process harness: N local worker processes in one process group.
+"""Multi-process harness: N local worker processes of one job.
 
 Counterpart of ``rocnrdma_tpu/runtime/multiprocess.py``. Spawns N python
-processes that each run ``init_runtime`` against a local ``tcp://``
-rendezvous: the real process-boundary code path of a multi-GPU job,
-exercised on one machine. Under ``platform="cpu"`` the group is gloo; on
-the card it is NCCL with one process per GPU, and a task that builds an
-NCCL communicator refuses, before anything is spawned, to run more
-processes than there are GPUs (NCCL refuses two ranks on one GPU).
+processes running one ``mp_worker`` task: the real process-boundary code
+path of a multi-GPU job, exercised on one machine. The device tasks join a
+torch process group through ``init_runtime``: gloo under
+``platform="cpu"``, NCCL on the card with one process per GPU, and a task
+that builds an NCCL communicator refuses, before anything is spawned, to
+run more processes than there are GPUs (NCCL refuses two ranks on one GPU).
+The chaos tasks drive the host plane (``kill-a-host`` both planes) with
+the reference's seeded, replayable faults.
 
 Also the fault-injection hook: ``task="fault"`` makes one rank die before
 the rendezvous, and the survivors must abort with a named error inside the
@@ -64,6 +66,10 @@ def _bind_collision(results: list) -> bool:
     r0 = next((r for r in results if r.process_id == 0), None)
     if r0 is None or r0.returncode in (0, None):
         return False
+    if "DEVICEHEAL-FAILED" in (r0.stdout or ""):
+        # a device heal that found its elected address taken ran long
+        # past the rendezvous: degraded mode, not the reservation race
+        return False
     text = ((r0.stderr or "") + (r0.stdout or "")).lower()
     return "address already in use" in text or "eaddrinuse" in text
 
@@ -81,12 +87,15 @@ def _reap(proc: subprocess.Popen) -> tuple[str, str]:
 
 
 def _check_devices(n: int, task: str, platform: str) -> None:
-    """Refuse, before spawning, a card run NCCL would refuse."""
-    from rocnrdma_tpu_torch.runtime.mesh import resolve_device
-    from rocnrdma_tpu_torch.runtime.mp_worker import NCCL_TASKS
+    """Refuse, before spawning, a card run NCCL would refuse. The
+    host-plane chaos tasks touch no device; ``kill-a-host`` may run more
+    processes than GPUs, because its NCCL group then issues no collective
+    (``DEVICE-GLOBAL`` is printed as unsupported)."""
+    from rocnrdma_tpu_torch.runtime.mp_worker import CHAOS_TASKS, NCCL_TASKS
 
-    if platform == "cpu":
+    if platform == "cpu" or task in CHAOS_TASKS:
         return
+    from rocnrdma_tpu_torch.runtime.mesh import resolve_device
     resolve_device(platform)  # raises without a GPU
     import torch
     gpus = torch.cuda.device_count()
@@ -100,33 +109,76 @@ def _check_devices(n: int, task: str, platform: str) -> None:
 def run_workers(n: int, task: str, timeout_s: float = 120.0,
                 fault_rank: int | None = None, seed: int | None = None,
                 size: int | None = None, platform: str = "auto",
+                rounds: int | None = None,
+                kill_ranks: str | None = None,
+                kill_ops: str | None = None,
+                spares: int | None = None,
+                join: int | None = None,
+                grow_round: int | None = None,
+                die_at_promotion: int | None = None,
+                device_heal_fail: bool = False,
+                lanes: bool = False,
+                coalesce: bool = False,
+                codec: str | None = None,
+                hier: bool = False,
+                store_death: str | None = None,
+                kill_store_op: int | None = None,
                 _retry_left: int = 1) -> list[WorkerResult]:
     """Spawn ``n`` worker processes running ``task``; wait for all.
 
     ``timeout_s`` is ONE overall deadline for the whole fleet. A worker
     that outlives it has its entire process group killed (children
     included) and is reported with returncode -9 and its partial
-    stdout/stderr. ``fault_rank``: the victim of ``fault``; ``seed`` and
-    ``size``: the ``allreduce``/``alltoall`` buffers (see ``mp_worker``).
-    ``platform``: ``auto`` (the default: NCCL on the card, one process per
-    GPU; raises without one) or ``cpu`` (gloo). The rendezvous port is held reserved until the instant
-    before the spawn, and a run that still loses the bind race is retried
-    once with a fresh port."""
-    from rocnrdma_tpu_torch.runtime.mp_worker import TASKS
+    stdout/stderr — the outcome the chaos tests assert NEVER happens.
+    ``fault_rank``: the victim of ``fault``, ``die-mid-collective``,
+    ``trace-delay``, ``evade-straggler`` and ``conformance-drift``;
+    ``seed`` and ``size``: the buffers (see ``mp_worker``). ``platform``:
+    ``auto`` (the default: NCCL on the card, one process per GPU; raises
+    without one) or ``cpu`` (gloo); the host-plane chaos tasks ignore it.
+    ``rounds``, ``kill_ranks``/``kill_ops`` (comma lists: the op-space
+    kills), ``spares``/``join``/``grow_round``/``die_at_promotion`` (the
+    elastic fleet), ``device_heal_fail`` (``kill-a-host``'s degraded
+    mode), ``lanes``/``coalesce``/``codec``/``hier`` (the
+    ``kill-and-heal`` variants) and ``store_death``/``kill_store_op``
+    (``kill-the-store``) are the reference's. The rendezvous ports are
+    held reserved until the instant before the spawn, and a run that still
+    loses the bind race is retried once with fresh ports."""
+    from rocnrdma_tpu_torch.runtime.mp_worker import DEVICE_TASKS, TASKS
 
     if task not in TASKS:
         raise ValueError(f"unknown task {task!r}; know {sorted(TASKS)}")
     _check_devices(n, task, platform)
     port, res = reserve_port()
     coordinator = f"127.0.0.1:{port}"
+    dev_res = None
     env = dict(os.environ)
     env["PYTHONPATH"] = _ROOT + os.pathsep + env.get("PYTHONPATH", "")
     extra = ["--platform", platform]
     for flag, val in (("--fault-rank", fault_rank), ("--seed", seed),
-                      ("--size", size)):
+                      ("--size", size), ("--rounds", rounds),
+                      ("--kill-ranks", kill_ranks), ("--kill-ops", kill_ops),
+                      ("--spares", spares), ("--join", join),
+                      ("--grow-round", grow_round),
+                      ("--die-at-promotion", die_at_promotion),
+                      ("--codec", codec), ("--store-death", store_death),
+                      ("--kill-store-op", kill_store_op)):
         if val is not None:
             extra += [flag, str(val)]
-    res.close()  # the spawned rank 0 binds this port next
+    for flag, on in (("--device-heal-fail", device_heal_fail),
+                     ("--lanes", lanes), ("--coalesce", coalesce),
+                     ("--hier", hier)):
+        if on:
+            extra.append(flag)
+    if task in DEVICE_TASKS:
+        # the device tasks run TWO rendezvous planes: the bootstrap store
+        # (host plane) and the process group's store (device plane)
+        dev_port, dev_res = reserve_port()
+        extra += ["--device-coordinator", f"127.0.0.1:{dev_port}"]
+    # release the reservations at the last instant: the spawned rank 0
+    # binds these ports next
+    res.close()
+    if dev_res is not None:
+        dev_res.close()
     deadline = time.monotonic() + timeout_s
     procs = []
     for i in range(n):
@@ -148,5 +200,9 @@ def run_workers(n: int, task: str, timeout_s: float = 120.0,
                                         (err or "") + "\n[HARNESS] timeout"))
     if _retry_left > 0 and _bind_collision(results):
         return run_workers(n, task, timeout_s, fault_rank, seed, size,
-                           platform, _retry_left=_retry_left - 1)
+                           platform, rounds, kill_ranks, kill_ops, spares,
+                           join, grow_round, die_at_promotion,
+                           device_heal_fail, lanes, coalesce, codec, hier,
+                           store_death, kill_store_op,
+                           _retry_left=_retry_left - 1)
     return results

@@ -502,3 +502,79 @@ def test_device_mesh_net_on_the_card(cuda_device):
                 assert out.is_cuda and torch.equal(out, want)
     with pytest.raises(ValueError, match="reg_mr"):
         net.reg_mr((0, 1), x.cpu())
+
+
+def _chaos_line(result, key):
+    import re
+    m = re.search(rf"^{key} (.+)$", result.stdout, re.M)
+    assert m, f"rank {result.process_id} printed no {key} line:\n" \
+              f"{result.stdout}\n{result.stderr}"
+    return m.group(1)
+
+
+def test_kill_a_host_heals_with_the_ring_kernel_on_the_card(cuda_device):
+    """The kill-a-host fleet on the card: the device plane is an NCCL
+    group (three processes on one GPU, so DEVICE-GLOBAL is named
+    unsupported), and every survivor's DEVICE-LOCAL after the heal
+    launches the ring kernel on the card, bitwise to the integer oracle."""
+    import json
+    import re
+
+    from rocnrdma_tpu_torch.ops import _build
+    from rocnrdma_tpu_torch.runtime.multiprocess import run_workers
+
+    _build.build()
+    rs = run_workers(3, "kill-a-host", timeout_s=240.0, platform="auto",
+                     seed=11, rounds=4, kill_ranks="1", kill_ops="25",
+                     size=2048)
+    assert rs[1].returncode == 7, rs[1].stdout + rs[1].stderr
+    gpus = torch.cuda.device_count()
+    for r in (rs[0], rs[2]):
+        assert r.returncode == 0, r.stdout + r.stderr
+        assert _chaos_line(r, "MEMBERS") == "[0, 2]"
+        assert "DEVICE-LOCAL ok epoch=1" in r.stdout
+        m = re.search(r"^DEVICE-LAUNCHES epoch=1 on=cuda:\d+ (\{.*\})$",
+                      r.stdout, re.M)
+        assert m and sum(json.loads(m.group(1)).values()) >= 1, r.stdout
+        if gpus < 2:
+            assert f"DEVICE-GLOBAL unsupported-one-gpu epoch=1 gpus={gpus}" \
+                in r.stdout
+        heal = json.loads(_chaos_line(r, "DEVICEHEAL_MS"))
+        assert len(heal) == 1 and heal[0] > 0.0
+
+
+_NCCL_REINIT = """
+import torch, torch.distributed as dist
+from rocnrdma_tpu_torch.runtime import init as I
+from rocnrdma_tpu_torch.runtime.multiprocess import free_port
+I.init_runtime(coordinator="127.0.0.1:%d" % free_port(), num_processes=1,
+               process_id=0, timeout_s=60, platform="auto")
+x = torch.ones(1 << 16, device="cuda")
+dist.all_reduce(x)
+old = dist.group.WORLD
+store = {}
+agree = lambda k, v=None, t=30.0: store.setdefault(k, v) if v is not None else store[k]
+info = I.reinit_runtime([0], 1, 0, agree=agree, timeout_s=60.0, platform="auto")
+y = torch.full((1 << 16,), 2.0, device="cuda")
+dist.all_reduce(y)
+torch.cuda.synchronize()
+assert dist.get_backend() == "nccl" and dist.group.WORLD is not old
+assert torch.equal(x, torch.ones_like(x)) and torch.equal(y, torch.full_like(y, 2.0))
+assert I.device_fence([0], 0, 1) == {0: "m0e1"}
+I.shutdown_runtime()
+print("REINIT-OK", info.reinit_s)
+"""
+
+
+def test_nccl_communicator_aborts_and_recreates_in_one_process(cuda_device):
+    """A world of one on NCCL: an all_reduce, then ``reinit_runtime``
+    aborts the communicator and joins a new group, and an all_reduce runs
+    on it (a process of its own, so no NCCL state leaks into the suite)."""
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    r = subprocess.run([sys.executable, "-c", _NCCL_REINIT], cwd=repo, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and "REINIT-OK" in r.stdout, r.stdout + r.stderr

@@ -392,13 +392,12 @@ def test_numpy_in_numpy_out_is_untouched():
         assert types == [np.ndarray] * 3
 
 
-def test_an_irecv_waited_on_another_thread_is_never_tested_twice_at_once(
-        monkeypatch):
-    """Each rank posts 24 1 MiB irecvs, hands them to a second thread
-    that waits on them, and sends 24 1 MiB messages from the posting
-    thread, whose blocking sends test its posted receives until a wait()
-    claims them. No request is ever tested by two threads at once, every
-    message arrives intact, and no claimed receive stays posted."""
+def _irecvs_waited_on_another_thread(monkeypatch, group, late_rank=None):
+    """Each rank posts 24 1 MiB irecvs, hands them to a second thread that
+    waits on them, and sends 24 1 MiB messages from the posting thread;
+    ``late_rank`` starts its sends 3 s after its peer. Returns each rank's
+    messages and posted receives left, and the requests tested by two
+    threads at once."""
     from rocnrdma_tpu_torch.transport import plugin as PP
 
     real, lock, active, overlaps = PP.Request.test, threading.Lock(), {}, []
@@ -419,7 +418,7 @@ def test_an_irecv_waited_on_another_thread_is_never_tested_twice_at_once(
 
     monkeypatch.setattr(PP.Request, "test", test)
     # 24 MiB a direction outruns the 16 MiB put arena, so the sends wait
-    # for credit, testing their thread's posted receives meanwhile
+    # for credit, testing the posted receives meanwhile
     k, elems = 24, 1 << 18
 
     def drive(pg, r):
@@ -431,32 +430,68 @@ def test_an_irecv_waited_on_another_thread_is_never_tested_twice_at_once(
             h.wait()
         handles = [pg.irecv(np.empty(elems, np.float32), peer, tag=7)
                    for _ in range(k)]
-        got = [None] * k
+        got, errors = [None] * k, []
 
         def waiter():
-            # the last first: until it lands, only the posting thread's
-            # sends test (and return the put credit of) the others
-            for i in reversed(range(k)):
-                got[i] = handles[i].wait()
+            # the last first: until it lands, the others are tested only
+            # by the sends and by this wait's progress
+            try:
+                for i in reversed(range(k)):
+                    got[i] = handles[i].wait()
+            except BaseException as e:  # surfaced below, not lost in the thread
+                errors.append(e)
 
         t = threading.Thread(target=waiter)
         t.start()
+        if r == late_rank:
+            time.sleep(3.0)
         for i in range(k):
             pg.send(_x(np.float32, r, (elems,), salt=i), peer, tag=7)
-        t.join(timeout=60)
-        left = sum(len(v) for v in PD._P2P_POSTED.get(pg, {}).values())
+        t.join(timeout=150)
+        assert not t.is_alive() and not errors, errors
+        left = len(PD._P2P_POSTED.get(pg, []))
         return got, left
 
-    for r, (got, left) in enumerate(run_group([PD] * 2, drive, plane="shm",
-                                              group="p2p2t")):
+    return (run_group([PD] * 2, drive, plane="shm", group=group), k, elems,
+            overlaps)
+
+
+def _check_irecvs(outs, k, elems):
+    for r, (got, left) in enumerate(outs):
         assert left == 0
+        assert len(got) == k
         for i, a in enumerate(got):
             assert _same(a, _x(np.float32, 1 - r, (elems,), salt=i))
+
+
+def test_an_irecv_waited_on_another_thread_is_never_tested_twice_at_once(
+        monkeypatch):
+    """Each rank posts 24 1 MiB irecvs, hands them to a second thread
+    that waits on them, and sends 24 1 MiB messages from the posting
+    thread, whose blocking sends test its posted receives until a wait()
+    claims them. No request is ever tested by two threads at once, every
+    message arrives intact, and no claimed receive stays posted."""
+    outs, k, elems, overlaps = _irecvs_waited_on_another_thread(
+        monkeypatch, "p2p2t")
+    _check_irecvs(outs, k, elems)
+    assert not overlaps
+
+
+def test_a_late_sender_gets_credit_from_a_peer_whose_sends_are_done(
+        monkeypatch):
+    """Rank 1 starts its sends 3 s late, so rank 0's sends are done while
+    rank 1 still has more than the arena to send. Rank 0's waiting thread
+    must keep testing the receives its posting thread left posted, or
+    rank 1 waits for credit that never returns."""
+    outs, k, elems, overlaps = _irecvs_waited_on_another_thread(
+        monkeypatch, "p2plate", late_rank=1)
+    _check_irecvs(outs, k, elems)
     assert not overlaps
 
 
 def test_posted_receives_go_with_their_group_and_a_claim_stops_their_tests():
     import gc
+    import weakref
 
     class Group:  # stands for a ProcessGroup: only its identity matters
         pass
@@ -481,6 +516,10 @@ def test_posted_receives_go_with_their_group_and_a_claim_stops_their_tests():
     entry.claim()
     entry.test()
     assert req.tests == 1
+    gone = weakref.ref(a)
     del a
     gc.collect()
-    assert list(PD._P2P_POSTED.keys()) == [b]
+    # the entries went with their group; other groups of this process
+    # may hold entries of their own
+    assert gone() is None
+    assert b in PD._P2P_POSTED and PD._posted_p2p_recvs(b) == []

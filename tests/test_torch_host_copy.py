@@ -53,10 +53,10 @@ REPLACED = {
     ("distributed.py", "_PostedRecv.*"): "added: one irecv's posted "
         "requests, tested by its poster's sends until a wait() claims them",
     ("distributed.py", "_P2P_POSTED"): "added: the posted receives by group "
-        "(weakly keyed) and thread",
+        "(weakly keyed)",
     ("distributed.py", "_P2P_POSTED_LOCK"): "added with _P2P_POSTED",
-    ("distributed.py", "_posted_p2p_recvs"): "added: the calling thread's "
-        "posted p2p receives",
+    ("distributed.py", "_posted_p2p_recvs"): "added: a group's posted p2p "
+        "receives, which its sends and waits on any thread test",
     ("transport/codec.py", "_F8_PIECE"): "added: torch converts fp8 in pieces "
         "at its parallel grain, on one thread",
     ("transport/codec.py", "Fp8E4M3Codec.*"): "torch.float8_e4m3fn in place "
@@ -80,6 +80,18 @@ REPLACED = {
         "port's format_table is the device benches')",
     **{("bench/bench_host.py", d): "the --smoke gates' floors, from three "
        "runs on the card machine's host" for d in _SMOKE_FLOORS},
+    ("runtime/mp_worker.py", "_verify_device_plane"): "the device plane is "
+        "a torch process group: a cuda_ring allreduce of this process's two "
+        "rows (the ring kernel on the card) and the group's own all_reduce, "
+        "named unsupported on NCCL with fewer GPUs than members, in place of "
+        "jax's shard_map and multiprocess computations",
+    ("runtime/mp_worker.py", "_device_chaos_main"): "the device plane's "
+        "first init and re-init are init_runtime/reinit_runtime on a torch "
+        "process group (--device-coordinator, --platform) in place of the "
+        "jax coordination service, its spans printed, and the group torn "
+        "down bounded at the end",
+    ("runtime/mp_worker.py", "_print_device_spans"): "added: the "
+        "member-device-* spans of each device-plane restart, in ms",
 }
 
 # whole-module copies
@@ -94,7 +106,8 @@ MODULES = ("lockwitness.py", "distributed.py", "bench/bench_host.py",
            "transport/evasion.py")
 # modules copied in part: the reference's statements from FIRST to LAST
 PARTS = {"metrics.py": ("WireCounters", "FaultCounters"),
-         "transport/tuner.py": ("HOST_ALPHA_S", "pick_algorithm")}
+         "transport/tuner.py": ("HOST_ALPHA_S", "pick_algorithm"),
+         "runtime/mp_worker.py": ("CHAOS_TASKS", "_witnessed")}
 
 
 def _strip_docstrings(tree):
@@ -272,6 +285,8 @@ def test_host_plane_imports_load_no_torch_and_build_nothing(tmp_path):
     code = (
         "import sys\n"
         "import rocnrdma_tpu_torch.distributed\n"
+        "import rocnrdma_tpu_torch.runtime.mp_worker\n"
+        "import rocnrdma_tpu_torch.runtime.multiprocess\n"
         "import rocnrdma_tpu_torch.transport\n"
         "import rocnrdma_tpu_torch.transport.tuner\n"
         "import rocnrdma_tpu_torch.bench.bench_host\n"
@@ -295,6 +310,38 @@ def test_host_plane_imports_load_no_torch_and_build_nothing(tmp_path):
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     assert os.listdir(tmp_path) == []
+
+
+def _modules_after(code: str, env: dict) -> list:
+    probe = code + ("\nimport sys\nprint(sorted(m for m in sys.modules if "
+                    "m.split('.')[0] in ('torch', 'jax', 'jaxlib', "
+                    "'rocnrdma_tpu')))\n")
+    r = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    return eval(r.stdout.strip().splitlines()[-1])
+
+
+def test_runtime_loads_no_jax_and_a_host_chaos_task_no_torch(tmp_path):
+    """``runtime.init`` and ``runtime.mp_worker`` import no jax and nothing
+    of the reference; a host-plane chaos task (a whole ``chaos-allreduce``
+    rank of a one-rank fleet, run through ``mp_worker.main``) runs without
+    importing torch, as the reference's run without jax."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["RQP_LIB_DIR"] = str(tmp_path)
+    loaded = _modules_after("import rocnrdma_tpu_torch.runtime.init\n"
+                            "import rocnrdma_tpu_torch.runtime.mp_worker\n"
+                            "import rocnrdma_tpu_torch.runtime as rt\n"
+                            "rt.reinit_runtime, rt.reprobe_topology", env)
+    assert "torch" in loaded
+    assert not [m for m in loaded if m.split(".")[0] != "torch"]
+    from rocnrdma_tpu_torch.runtime.multiprocess import free_port
+    task = ("from rocnrdma_tpu_torch.runtime import mp_worker\n"
+            "rc = mp_worker.main(['--coordinator', '127.0.0.1:%d', "
+            "'--num-processes', '1', '--process-id', '0', '--task', "
+            "'chaos-allreduce', '--rounds', '2', '--size', '64'])\n"
+            "assert rc == 0, rc\n" % free_port())
+    assert _modules_after(task, env) == []
 
 
 def test_transport_device_exports_resolve_lazily():

@@ -109,10 +109,15 @@ def test_more_nccl_processes_than_gpus_raise_before_spawning(monkeypatch):
     assert spawned == []
     M._check_devices(1, "allreduce", "auto")  # one process per GPU is fine
     M._check_devices(2, "fault", "auto")      # fault builds no communicator
+    # kill-a-host's NCCL group issues no collective with fewer GPUs than
+    # members (DEVICE-GLOBAL is named unsupported); the host-plane chaos
+    # tasks touch no device at all
+    M._check_devices(3, "kill-a-host", "auto")
+    M._check_devices(4, "kill-and-heal", "auto")
     assert I.backend_for(torch.device("cuda", 0)) == "nccl"
     assert I.backend_for(torch.device("cpu")) == "gloo"
     with pytest.raises(ValueError, match="unknown task"):
-        M.run_workers(2, "kill-and-heal")
+        M.run_workers(2, "kill-everything")
 
 
 def test_launcher_environment_and_shutdown(monkeypatch):
@@ -148,4 +153,8 @@ def test_port_reservation_and_bind_collision_match_reference():
     assert M._bind_collision([dead]) and RM._bind_collision([ref_dead])
     assert not M._bind_collision([M.WorkerResult(0, 0, "", "address already in use")])
     assert not M._bind_collision([M.WorkerResult(1, 1, "", "address already in use")])
+    # a degraded device heal whose elected address was taken is no collision
+    assert not M._bind_collision([M.WorkerResult(
+        0, 4, "DEVICEHEAL-FAILED RuntimeError: ... [Errno 98] Address already "
+              "in use", "")])
     assert os.path.isdir(M._ROOT) and os.path.exists(os.path.join(M._ROOT, "rocnrdma_tpu_torch"))
