@@ -157,7 +157,21 @@ Phases, each timed, any failure exits non-zero:
    (``device_heal_fail``): every survivor exits 4 with
    ``DEVICEHEAL-FAILED`` and ``HOST-PLANE-OK`` in under 90 s; (e) one
    ``kill-and-heal`` and one ``die-mid-collective`` fleet;
-13. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
+13. the Transport across processes, after the chaos phase (no kernel runs
+   on it): ``run_workers(2, "hierarchical")`` on the one card, a 2-D
+   ``('slice', 'intra')`` mesh whose slice axis is the process boundary,
+   each process holding its rows on the card and passing only those;
+   once at the reference's shape (2 x 2 ranks, 4 x 8 fp32 a rank) and
+   once at full width (the ``multislice`` preset cut to 2 x 4: 64 MiB fp32
+   a rank, 512 MiB of rows on the card). Every rank holds every result
+   to the one-process port on the card (bitwise for the ring and khd
+   intra phases with the ring cross phase, bf16 ``cross_dtype``, avg, max,
+   the fused and rotation alltoalls; rtol 1e-5, atol 1e-6 for the fused
+   cross phase and the fused verb) and to the reference's checks against
+   numpy; any failing rank fails the phase. Printed: each call's ms, the
+   cross leg's backend (gloo, staged through pinned host memory, while
+   the processes share one GPU) and its bytes and GB/s each way;
+14. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
    main path, its time, its plain version's and the library call's time at
    the main path's shapes, and its bound: the larger of its bytes (each
    input read once, each output written once) at the datasheet HBM rate
@@ -172,7 +186,8 @@ Phases, each timed, any failure exits non-zero:
    healed fleets' ``DEVICE-LOCAL`` (phase 12).
 
 ``python3 chip_smoke.py --host-plane`` runs the probe and phase 11 alone,
-``--chaos`` the probe and phase 12 alone.
+``--chaos`` the probe and phase 12 alone, ``--hierarchical`` the probe and
+phase 13 alone.
 The last line is ``{"ok": true, "device": {...}}``. With ranks sharing one
 GPU, every bus bandwidth printed here is an HBM number, not NVLink.
 This script imports nothing of JAX or of the JAX package.
@@ -1626,6 +1641,46 @@ def chaos_phase(smi: str) -> dict:
     return res
 
 
+# phase 13: (label, ranks a process, elements of a rank's (8, size) rows)
+HIER_CASES = (("reference", 2, 8), ("full_width", 4, 64 * MiB // 4 // 8))
+
+
+def hierarchical_phase(smi: str) -> dict:
+    """The Transport across processes (module docstring, phase 13)."""
+    from rocnrdma_tpu_torch.runtime.multiprocess import run_workers
+
+    res = {"smi": smi, "gpus": torch.cuda.device_count()}
+    for label, per_slice, size in HIER_CASES:
+        t0 = time.perf_counter()
+        rs = run_workers(2, "hierarchical", timeout_s=240.0, platform="auto",
+                         per_slice=per_slice, size=size)
+        secs = time.perf_counter() - t0
+        for r in rs:
+            if r.returncode != 0 or f"OK rank={r.process_id}/2 hierarchical" \
+                    not in r.stdout:
+                raise AssertionError(f"hierarchical {label} rank {r.process_id}: exit "
+                                     f"{r.returncode}\n{r.stdout[-3000:]}\n"
+                                     f"{r.stderr[-4000:]}")
+        ranks = [{"ms": json.loads(_line(r, "HIERTIMES")),
+                  "max_abs_err": json.loads(_line(r, "HIERERRS")),
+                  "cross": json.loads(_line(r, "HIERCROSS"))} for r in rs]
+        for rank in ranks:
+            cross = rank["cross"]
+            if not cross["device"].startswith("cuda"):
+                raise AssertionError(f"hierarchical {label}: rows on {cross['device']}")
+            want = ("gloo", True) if res["gpus"] < 2 else ("nccl", False)
+            if (cross["backend"], cross["staged"]) != want:
+                raise AssertionError(f"hierarchical {label}: cross leg {cross}, "
+                                     f"want {want} with {res['gpus']} GPU(s)")
+        res[label] = {"per_slice": per_slice, "rank_bytes": 2 * per_slice * size * 4,
+                      "seconds": round(secs, 1), "ranks": ranks}
+        print(f"hierarchical {label}, 2 processes x {per_slice} ranks x "
+              f"{2 * per_slice * size * 4} bytes a rank ({smi}): cross leg "
+              f"{ranks[0]['cross']['backend']} (staged {ranks[0]['cross']['staged']}), "
+              f"{secs:.1f} s; per rank: " + json.dumps(ranks), flush=True)
+    return res
+
+
 def main() -> int:
     if len(sys.argv) == 5 and sys.argv[1] == "--front-door-worker":
         return front_door_worker(*map(int, sys.argv[2:]))
@@ -1661,6 +1716,11 @@ def main() -> int:
         with phase("chaos_heal"):
             chaos = chaos_phase(smi)
         print(f"chaos_heal ({smi}): " + json.dumps(chaos))
+        return 0
+    if sys.argv[1:] == ["--hierarchical"]:  # phase 13 alone, no kernels line
+        with phase("hierarchical"):
+            hier = hierarchical_phase(smi)
+        print(f"hierarchical ({smi}): " + json.dumps(hier))
         return 0
 
     with phase("build"):
@@ -1780,6 +1840,8 @@ def main() -> int:
         host = host_plane_phase(smi)
     with phase("chaos_heal"):
         chaos = chaos_phase(smi)
+    with phase("hierarchical"):
+        hier = hierarchical_phase(smi)
     workload_launches = {}
     for counts_ in list(work["launches"].values()) + [
             v for k, v in head.items() if k.startswith("launches")]:
@@ -1923,6 +1985,7 @@ def main() -> int:
            for k, v in tools.items() if k in ("ring", "dtree", "khd")}))
     print(f"host plane ({smi}): " + json.dumps(host))
     print(f"chaos_heal ({smi}): " + json.dumps(chaos))
+    print(f"hierarchical ({smi}): " + json.dumps(hier))
     for kern in kernels:
         kern["workload_launches"] = workload_launches[kern["name"]]
         kern["chaos_launches"] = chaos["launches"].get(kern["name"], 0)

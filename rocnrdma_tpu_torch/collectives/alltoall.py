@@ -5,8 +5,9 @@ Counterpart of ``rocnrdma_tpu/collectives/alltoall.py``. Input ``x`` has
 shape ``(n, n, c...)``: ``x[r, d]`` is rank r's chunk destined for rank d.
 The output has the same shape, ``out[r, j]`` = what rank j sent rank r
 (the global transpose). Where the reference rotates chunks with
-``lax.ppermute``, a shift-by-s step here is ``torch.roll`` over the rank
-axis: rank r receives the row rank r-s sent. These arms only copy, so they
+``lax.ppermute``, a shift-by-s step here is ``_exchange.shift_rows`` over
+the rank axis (``torch.roll``, or across processes a send and a receive):
+rank r receives the row rank r-s sent. These arms only copy, so they
 equal the reference bit for bit in every dtype.
 
 - ``rotation_alltoall``: n-1 steps (the ``ring`` arm of alltoall);
@@ -22,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from rocnrdma_tpu_torch.collectives._exchange import ring_positions, shift_rows
 from rocnrdma_tpu_torch.collectives._steps import step_span
 from rocnrdma_tpu_torch.collectives.fused import alltoall_ranks, fused_alltoall
 from rocnrdma_tpu_torch.collectives.schedule import bruck_mask, bruck_phases
@@ -34,21 +36,23 @@ def rotation_alltoall(x: torch.Tensor) -> torch.Tensor:
     return rotation_rows(x[None])[0]
 
 
-def rotation_rows(xb: torch.Tensor, tag: str = "rotation") -> torch.Tensor:
+def rotation_rows(xb: torch.Tensor, tag: str = "rotation",
+                  span=None) -> torch.Tensor:
     """The rotation alltoall of B meshes at once: (B, n, n, c...), one step
-    span a step."""
-    n = xb.shape[1]
+    span a step. With ``span`` the rank axis is the slice axis across
+    processes: (B, 1, n, c...), this process's rank."""
+    n = xb.shape[2]
     if n == 1:
         return xb.clone()
-    r = torch.arange(n, device=xb.device)
+    rows, r = ring_positions(n, span, xb.device)
     out = xb.clone()
     # the rank and chunk axes lead, so a step indexes them first
     src, dst = xb.movedim(0, 2), out.movedim(0, 2)
     for s in range(1, n):
         with step_span(f"{tag} a2a step {s - 1}"):
-            chunk = src[r, (r + s) % n]                  # a2a_send_chunk
-            recvd = torch.roll(chunk, shifts=s, dims=0)  # rank r gets r-s's
-            dst[r, (r - s) % n] = recvd                  # a2a_recv_slot
+            chunk = src[rows, (r + s) % n]               # a2a_send_chunk
+            recvd = shift_rows(chunk, s, 0, span)        # rank r gets r-s's
+            dst[rows, (r - s) % n] = recvd               # a2a_recv_slot
     return out
 
 

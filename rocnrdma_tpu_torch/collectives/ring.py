@@ -15,25 +15,31 @@ two agree bit for bit. This arm is plain tensor code, not a kernel.
 Each step runs in one step span (``_steps.step_span``). The ``*_rows``
 forms run B rings of the same size in lockstep, one span a step: the
 hierarchical schedules run a phase's rings that way, as the reference runs
-them concurrently.
+them concurrently. ``allreduce_rows`` also takes a ``span`` (the slice
+axis of a mesh across processes): then each ring's axis holds this
+process's one row, and the rotate is ``_exchange.shift_rows`` across
+processes, with the same chunks and fold order.
 """
 
 from __future__ import annotations
 
 import torch
 
+from rocnrdma_tpu_torch.collectives._exchange import ring_positions, shift_rows
 from rocnrdma_tpu_torch.collectives._steps import step_span
 from rocnrdma_tpu_torch.collectives.reduce_op import combine_fn, finalize
 
 
-def _chunk_rows(g: torch.Tensor) -> torch.Tensor:
-    """(B, n, size) -> a fresh zero-padded (B, n ranks, n chunks, chunk)
-    buffer: B independent rings of n ranks."""
-    b, n, size = g.shape
+def _chunk_rows(g: torch.Tensor, n: int | None = None) -> torch.Tensor:
+    """(B, rows, size) -> a fresh zero-padded (B, rows, n chunks, chunk)
+    buffer: B independent rings of n ranks (default: n = rows, every rank
+    held here)."""
+    b, rows, size = g.shape
+    n = rows if n is None else n
     chunk = -(-size // n)  # ceil
-    buf = g.new_zeros((b, n, n * chunk))
+    buf = g.new_zeros((b, rows, n * chunk))
     buf[..., :size] = g
-    return buf.reshape(b, n, n, chunk)
+    return buf.reshape(b, rows, n, chunk)
 
 
 def _chunked(x: torch.Tensor, n: int) -> tuple[torch.Tensor, int, tuple]:
@@ -54,53 +60,57 @@ def _rank_major(lanes):
 
 
 def _rs_phase(lanes, n: int, offset: int = 0, combine=torch.add,
-              tag: str = "ring rs") -> None:
+              tag: str = "ring rs", span=None) -> None:
     """Reduce-scatter phase, in place: n-1 rotate-and-accumulate steps.
     ``lanes``: (buf, shift) pairs, each buf (B, n, n, chunk) holding B
-    rings; step s of every lane runs in one step span. Afterwards rank r
+    rings (across processes, ``span``: (B, 1, n, chunk), this process's
+    rank); step s of every lane runs in one step span. Afterwards rank r
     owns the fully reduced chunk ``(r + d + offset) mod n`` (d = ring
     direction)."""
-    r = torch.arange(n, device=lanes[0][0].device)
+    rows, r = ring_positions(n, span, lanes[0][0].device)
     lanes = _rank_major(lanes)
     for s in range(n - 1):
         with step_span(f"{tag} step {s}"):
             for buf, shift in lanes:
                 d = 1 if shift == 1 else -1
                 send_idx = (r - d * s + offset) % n
-                recvd = torch.roll(buf[r, send_idx], shifts=shift, dims=0)
+                recvd = shift_rows(buf[rows, send_idx], shift, 0, span)
                 recv_idx = (r - d * (s + 1) + offset) % n
-                mine = buf[r, recv_idx]
-                buf[r, recv_idx] = combine(mine, recvd)
+                mine = buf[rows, recv_idx]
+                buf[rows, recv_idx] = combine(mine, recvd)
 
 
-def _ag_phase(lanes, n: int, owned_offset: int, tag: str = "ring ag") -> None:
+def _ag_phase(lanes, n: int, owned_offset: int, tag: str = "ring ag",
+              span=None) -> None:
     """Allgather phase, in place: rotate completed chunks. ``owned_offset``
     is the offset of the chunk each rank starts with (+1 after a
     reduce-scatter in the same direction)."""
-    r = torch.arange(n, device=lanes[0][0].device)
+    rows, r = ring_positions(n, span, lanes[0][0].device)
     lanes = _rank_major(lanes)
     for s in range(n - 1):
         with step_span(f"{tag} step {s}"):
             for buf, shift in lanes:
                 d = 1 if shift == 1 else -1
                 send_idx = (r + d * (owned_offset - s)) % n
-                recvd = torch.roll(buf[r, send_idx], shifts=shift, dims=0)
+                recvd = shift_rows(buf[rows, send_idx], shift, 0, span)
                 recv_idx = (r + d * (owned_offset - s - 1)) % n
-                buf[r, recv_idx] = recvd
+                buf[rows, recv_idx] = recvd
 
 
 def allreduce_rows(g: torch.Tensor, op: str = "sum",
-                   tag: str = "ring") -> torch.Tensor:
+                   tag: str = "ring", span=None) -> torch.Tensor:
     """Ring allreduce of B independent rings at once: (B, n, size) ->
     (B, n, size), row (b, r) the ``op``-reduction of ring b's rows. Every
-    step of the B rings runs in one step span."""
-    b, n, size = g.shape
+    step of the B rings runs in one step span. With ``span`` each ring is
+    the slice axis across processes: (B, 1, size), this process's rows."""
+    b, rows, size = g.shape
+    n = rows if span is None else span.size
     if n == 1:
         return finalize(g.clone(), op, 1)
-    buf = _chunk_rows(g)
-    _rs_phase([(buf, 1)], n, combine=combine_fn(op), tag=f"{tag} rs")
-    _ag_phase([(buf, 1)], n, owned_offset=1, tag=f"{tag} ag")
-    return finalize(buf.reshape(b, n, -1)[..., :size], op, n)
+    buf = _chunk_rows(g, n)
+    _rs_phase([(buf, 1)], n, combine=combine_fn(op), tag=f"{tag} rs", span=span)
+    _ag_phase([(buf, 1)], n, owned_offset=1, tag=f"{tag} ag", span=span)
+    return finalize(buf.reshape(b, rows, -1)[..., :size], op, n)
 
 
 def reduce_scatter_rows(g: torch.Tensor, op: str = "sum",

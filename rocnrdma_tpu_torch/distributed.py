@@ -5261,10 +5261,14 @@ def staging_stats() -> dict:
     return dict(_STAGING.stats)
 
 
-def _numpy_dtype(torch, dtype):
+def _numpy_dtype(torch, dtype, verb=None, device=None):
     try:
         return torch.empty(0, dtype=dtype).numpy().dtype
     except TypeError as e:
+        # the refusal is this call's abort: one flight event, here (the
+        # verb's own abort path does not record it again)
+        _FLIGHT.record("front-door-abort", verb=verb, dtype=str(dtype),
+                       device=str(device), error="HostPlaneDtypeError")
         raise HostPlaneDtypeError(
             f"{dtype} has no numpy dtype, and the host plane folds numpy "
             f"arrays: a {dtype} tensor is refused, not cast (cast it "
@@ -5276,13 +5280,16 @@ class _Door:
     results -> tensors on the inputs' one device. Leases on pinned
     buffers live until the verb (or every handle it returned) is done."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, verb=None):
         self.torch = torch
+        self.verb = verb
         self.device = None
+        self.dtype = None  # the last tensor's, for the abort event
         self.leases: list = []
         self.pending = 0
 
     def _claim(self, t) -> None:
+        self.dtype = t.dtype
         if self.device is None:
             self.device = t.device
         elif t.device != self.device:
@@ -5290,16 +5297,26 @@ class _Door:
                              f"one call; the result would have to change "
                              f"device")
 
+    def record(self, e: BaseException) -> None:
+        """The call's abort on the flight timeline (``front-door-abort``:
+        verb, dtype, device, error), except a dtype refusal, which
+        ``_numpy_dtype`` recorded."""
+        if not isinstance(e, HostPlaneDtypeError):
+            _FLIGHT.record("front-door-abort", verb=self.verb,
+                           dtype=str(self.dtype), device=str(self.device),
+                           error=type(e).__name__)
+
     def template(self, t):
         """A receive's shape/dtype template: no copy of its contents."""
         self._claim(t)
-        return np.empty(tuple(t.shape), _numpy_dtype(self.torch, t.dtype))
+        return np.empty(tuple(t.shape),
+                        _numpy_dtype(self.torch, t.dtype, self.verb, t.device))
 
     def stage(self, obj):
         torch = self.torch
         if isinstance(obj, torch.Tensor):
             self._claim(obj)
-            dtype = _numpy_dtype(torch, obj.dtype)
+            dtype = _numpy_dtype(torch, obj.dtype, self.verb, obj.device)
             t = obj.detach().contiguous()
             if t.device.type != "cuda":
                 return t.numpy()
@@ -5392,7 +5409,8 @@ class _TensorHandle:
         if not self._done:
             try:
                 res = self._inner.wait(*args, **kwargs)
-            except BaseException:
+            except BaseException as e:
+                self._door.record(e)
                 self._done = True
                 self._door.handle_done()
                 raise
@@ -5423,7 +5441,7 @@ def _front_door(fn, template: bool = False):
         if torch is None or not _holds_tensor(
                 torch, (args, tuple(kwargs.values()))):
             return fn(self, *args, **kwargs)
-        door = _Door(torch)
+        door = _Door(torch, fn.__name__)
         try:
             if template and args and isinstance(args[0], torch.Tensor):
                 args = (door.template(args[0]),) + door.stage(args[1:])
@@ -5434,7 +5452,8 @@ def _front_door(fn, template: bool = False):
                 args = door.stage(args)
             kwargs = {k: door.stage(v) for k, v in kwargs.items()}
             out = fn(self, *args, **kwargs)
-        except BaseException:
+        except BaseException as e:
+            door.record(e)
             door.done()
             raise
         return door.finish(out)
@@ -5453,7 +5472,7 @@ def _front_door_batch(fn):
         torch = sys.modules.get("torch")
         if torch is None or not _holds_tensor(torch, list(ops)):
             return fn(self, ops, *args, **kwargs)
-        door = _Door(torch)
+        door = _Door(torch, fn.__name__)
         staged, devices = [], []
         try:
             for op in ops:
@@ -5466,7 +5485,8 @@ def _front_door_batch(fn):
                     devices.append(None)
                 staged.append((op[0], arr) + tuple(op[2:]))
             handles = fn(self, staged, *args, **kwargs)
-        except BaseException:
+        except BaseException as e:
+            door.record(e)
             door.done()
             raise
         out = [h if dev is None else door.result(h, dev)

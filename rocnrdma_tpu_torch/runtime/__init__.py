@@ -12,7 +12,7 @@ _LAZY = {
     **{name: "rocnrdma_tpu_torch.runtime.mesh" for name in (
         "INTRA_AXIS", "PLATFORMS", "RANK_AXIS", "SLICE_AXIS", "RankMesh",
         "Topology", "detect_topology", "rank_mesh", "reprobe_topology",
-        "resolve_device", "slice_mesh")},
+        "resolve_device", "slice_mesh", "ProcessSpan")},
     **{name: "rocnrdma_tpu_torch.runtime.init" for name in (
         "RuntimeInfo", "device_fence", "elect_coordinator", "init_runtime",
         "reinit_runtime", "shutdown_runtime")},

@@ -9,6 +9,12 @@ rank-major tensor whose row r is rank r's buffer. A 2-D
 ...)`` rank-major: row ``(s, i)`` is the buffer of rank (slice s, intra i),
 flat rank ``s * per_slice + i``.
 
+A 2-D mesh may also span processes (``slice_mesh(..., group=g)``): each
+process of the group is one slice and holds its ``per_slice`` ranks as
+rows on its own device, so a tensor on that mesh is this process's rows,
+``(1, per_slice, ...)``, and so is a result. The mesh's ``span`` says
+which slice is local and how the slice axis's exchanges cross processes.
+
 Device rule: ``platform="auto"`` means the GPU; if there is none, the call
 raises. Only ``platform="cpu"`` selects the CPU.
 """
@@ -16,6 +22,7 @@ raises. Only ``platform="cpu"`` selects the CPU.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -98,15 +105,59 @@ def reprobe_topology(expected_processes: int | None = None,
     return topo
 
 
+def _span_stats() -> dict:
+    return {"exchanges": 0, "bytes": 0, "wire_s": 0.0, "d2h_bytes": 0,
+            "d2h_s": 0.0, "h2d_bytes": 0, "h2d_s": 0.0}
+
+
+@dataclasses.dataclass(eq=False)
+class ProcessSpan:
+    """How the slice axis of a 2-D mesh crosses processes: this process is
+    slice ``index`` of ``size``, one slice per process of the mesh's group.
+
+    The slice axis's exchanges run on ``cross_group``, whose backend is
+    ``backend``: the mesh's own group when it can carry this process's
+    tensors, else a gloo group made beside it (once per group). ``staged``: the tensors
+    are on a GPU and the cross group is gloo (the group's processes share
+    a GPU, and NCCL refuses two ranks on one), so each exchange copies to
+    pinned host buffers, exchanges them and copies back. ``peers[t]`` is
+    slice t's global rank. ``stats``: exchanges, the bytes sent and the
+    host seconds they took (``wire_s``; on an unstaged NCCL leg, the
+    seconds to enqueue them), and the bytes and host seconds staged each
+    way, each copy timed after the device's queued work."""
+
+    cross_group: object
+    backend: str
+    staged: bool
+    index: int
+    size: int
+    peers: tuple
+    stats: dict = dataclasses.field(default_factory=_span_stats)
+
+    def count(self, what: str, nbytes: int, seconds: float) -> None:
+        """Add an exchange (``what="exchange"``: bytes sent, host seconds
+        until it completed) or a staging copy (``"d2h"`` / ``"h2d"``)."""
+        if what == "exchange":
+            self.stats["exchanges"] += 1
+            self.stats["bytes"] += nbytes
+            self.stats["wire_s"] += seconds
+        else:
+            self.stats[f"{what}_bytes"] += nbytes
+            self.stats[f"{what}_s"] += seconds
+
+
 @dataclasses.dataclass(frozen=True)
 class RankMesh:
     """Ranks on a 1-D ring (``axis_names == ("rank",)``) or a 2-D
     ``("slice", "intra")`` grid, each with its torch device; ``shape`` is
-    the mesh shape, the leading dims of a rank-major tensor on it."""
+    the mesh shape, the leading dims of a rank-major tensor on it. With a
+    ``span`` the slice axis spans processes: ``devices`` are this
+    process's ranks only, and ``local_shape`` leads a tensor on it."""
 
     devices: tuple
     axis_names: tuple = (RANK_AXIS,)
     shape: tuple = ()
+    span: ProcessSpan | None = None
 
     def __post_init__(self):
         if not self.shape:
@@ -114,7 +165,13 @@ class RankMesh:
 
     @property
     def n_ranks(self) -> int:
-        return len(self.devices)
+        return math.prod(self.shape)
+
+    @property
+    def local_shape(self) -> tuple:
+        """The leading dims of a tensor on the mesh in this process: the
+        mesh shape, or ``(1, per_slice)`` where the mesh spans processes."""
+        return self.shape if self.span is None else (1,) + tuple(self.shape[1:])
 
     @property
     def device(self) -> torch.device:
@@ -137,17 +194,72 @@ def rank_mesh(n: int, device: torch.device | str | None = None) -> RankMesh:
 
 
 def slice_mesh(n_slices: int, per_slice: int,
-               device: torch.device | str | None = None) -> RankMesh:
+               device: torch.device | str | None = None, *,
+               group=None) -> RankMesh:
     """A 2-D ``('slice', 'intra')`` mesh of ``n_slices`` slices of
-    ``per_slice`` ranks, every rank on ``device`` (default: the GPU; raises
-    without one): the hierarchical schedules' layout, simulated on one
-    device as the reference simulates it on fake CPU devices."""
+    ``per_slice`` ranks on ``device`` (default: the GPU; raises without
+    one): the hierarchical schedules' layout.
+
+    Without ``group`` every rank is on this process's device, simulated
+    there as the reference simulates it on fake CPU devices. With a
+    process group (``torch.distributed.group.WORLD`` or a subgroup) the
+    slice axis is the process boundary: process g of the group is slice g
+    and holds its ``per_slice`` ranks on ``device``; the group must have
+    ``n_slices`` processes. The first such mesh over a group whose
+    processes share a GPU makes the gloo group its cross leg runs on, so
+    every process of the world calls that one together."""
     if n_slices < 1 or per_slice < 1:
         raise ValueError(f"need a mesh of >= 1 x >= 1 ranks, got "
                          f"{n_slices} x {per_slice}")
-    return RankMesh(devices=(_mesh_device(device),) * (n_slices * per_slice),
+    dev = _mesh_device(device)
+    if group is None:
+        return RankMesh(devices=(dev,) * (n_slices * per_slice),
+                        axis_names=(SLICE_AXIS, INTRA_AXIS),
+                        shape=(n_slices, per_slice))
+    return RankMesh(devices=(dev,) * per_slice,
                     axis_names=(SLICE_AXIS, INTRA_AXIS),
-                    shape=(n_slices, per_slice))
+                    shape=(n_slices, per_slice),
+                    span=_process_span(n_slices, group, dev))
+
+
+# the gloo group made beside each non-gloo group a mesh spans, made by the
+# first such mesh and shared by the ones after it
+_GLOO_BESIDE: dict = {}
+
+
+def _process_span(n_slices: int, group, device: torch.device) -> ProcessSpan:
+    """The slice axis of a mesh over ``group``'s processes. The cross
+    leg's backend is decided here, once, from what this process can see:
+    NCCL where the group is NCCL and every process has a GPU of its own,
+    else gloo (the group itself when it is gloo, else a gloo group made
+    beside it on the same store), staged through the host when the
+    tensors are on a GPU."""
+    dist = torch.distributed
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("a mesh that spans processes needs a process "
+                           "group: join one first (runtime.init_runtime)")
+    size = dist.get_world_size(group)
+    if size != n_slices:
+        raise ValueError(
+            f"the slice axis spans the group's processes, one slice each: "
+            f"the group has {size} process(es), the mesh asks for "
+            f"{n_slices} slices")
+    backend = dist.get_backend(group)
+    ranks = tuple(dist.get_process_group_ranks(group))
+    if device.type == "cuda" and backend == "nccl" \
+            and torch.cuda.device_count() >= size:
+        cross, cross_backend = group, "nccl"
+    elif backend == "gloo":
+        cross, cross_backend = group, "gloo"
+    else:
+        # the processes share a GPU (NCCL refuses two ranks on one), or
+        # the tensors are on the CPU: the host carries the cross leg
+        if group not in _GLOO_BESIDE:
+            _GLOO_BESIDE[group] = dist.new_group(list(ranks), backend="gloo")
+        cross, cross_backend = _GLOO_BESIDE[group], "gloo"
+    return ProcessSpan(cross_group=cross, backend=cross_backend,
+                       staged=device.type == "cuda" and cross_backend == "gloo",
+                       index=dist.get_rank(group), size=size, peers=ranks)
 
 
 def _mesh_device(device) -> torch.device:

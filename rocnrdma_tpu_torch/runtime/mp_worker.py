@@ -41,9 +41,31 @@ kernel on the card), ``DEVICE-GLOBAL`` the new group's own ``all_reduce``
 (a silent coordinator): survivors print ``DEVICEHEAL-FAILED`` and
 ``HOST-PLANE-OK`` and exit 4.
 
+``hierarchical`` (the reference's task): a 2-D ``('slice', 'intra')``
+mesh whose slice axis is the process boundary, process i slice i with
+``--per-slice`` ranks as rows on its own device (default 2, the
+reference's two CPU devices a process). Each process passes only its own
+rows, ``full[rank:rank + 1]``, to the ``Transport``. ``full`` is
+``(slices, per_slice, slices * per_slice, --size)`` fp32: at the
+reference's size (8) it is the reference's ``default_rng(7)`` draw; at any
+other size each (slice, intra) row comes from its own seed, so a process
+draws its own rows for its input and every row only for its checks. The
+reference's checks: the hierarchical allreduce against ``full.sum((0,
+1))`` (summed in float64) and the alltoall against the transpose (rtol
+1e-5, atol 1e-6), the bf16 ``cross_dtype`` allreduce at rtol 2e-2, atol
+1e-1. Then each result
+is held to the one-process port's (``Transport(slice_mesh(m, per_slice,
+device))`` on all of ``full``): bitwise for the ring and khd intra phases
+with the ring cross phase, bf16 ``cross_dtype``, ``avg`` and ``max``, a
+``--size``-element buffer a rank (padded where per_slice does not divide
+it), and the fused and rotation alltoalls; within rtol 1e-5, atol 1e-6
+for the ``fused`` cross phase and the ``fused`` verb. It prints each
+call's ms (``HIERTIMES``), the cross leg's backend, its bytes and GB/s
+through the cross group and staged each way (``HIERCROSS``), on the CPU each result's sha256
+(``HIERDIGEST``), and ``OK rank=i/m hierarchical``.
+
 ``hang`` forks a grandchild and blocks far past any deadline; the harness
-must reap the WHOLE process group. The reference's ``hierarchical`` task
-needs a mesh that spans processes (the multi-GPU slice).
+must reap the WHOLE process group.
 """
 
 from __future__ import annotations
@@ -1435,7 +1457,8 @@ def _witnessed(code: int) -> int:
 
 # tasks that build an NCCL communicator on the card (one process per GPU)
 NCCL_TASKS = ("allreduce", "alltoall")
-TASKS = NCCL_TASKS + ("fault",) + CHAOS_TASKS + DEVICE_TASKS + AUX_TASKS
+TASKS = (NCCL_TASKS + ("fault", "hierarchical") + CHAOS_TASKS + DEVICE_TASKS
+         + AUX_TASKS)
 
 INIT_TIMEOUT_S = 15  # the rendezvous deadline, as the reference's workers
 
@@ -1468,6 +1491,150 @@ def _collective(task: str, rank: int, n: int, size: int | None, seed, device) ->
         got = out.cpu().numpy().reshape(n, -1)
         # chunk j of the result is rank j's chunk for this rank
         np.testing.assert_array_equal(got, rows.reshape(n, n, -1)[:, rank])
+
+
+HIER_SEED = 7  # the reference's default_rng(7)
+HIER_REF_SIZE = 8  # the reference's last dim
+
+
+def hier_rows(m: int, n: int, size: int, rows) -> "np.ndarray":
+    """The ``hierarchical`` task's rank buffers ``(N, size)`` fp32, N = m *
+    n, for the (slice, intra) pairs in ``rows``, stacked: at the
+    reference's size the rows of its ``default_rng(7)`` draw of ``(m, n,
+    N, 8)``, else each row from its own seed ``(7, s, i)``."""
+    import numpy as np
+    if size == HIER_REF_SIZE:
+        full = np.random.default_rng(HIER_SEED).standard_normal(
+            (m, n, m * n, size)).astype(np.float32)
+        return np.stack([full[s, i] for s, i in rows])
+    return np.stack([np.random.default_rng((HIER_SEED, s, i)).standard_normal(
+        (m * n, size), dtype=np.float32) for s, i in rows])
+
+
+def _hier_calls(t, one, mesh, mine, full):
+    """The ``hierarchical`` task's calls: name -> (the call on this
+    process's rows, the one-process port's call on ``full``, tolerance or
+    None for bitwise)."""
+    from rocnrdma_tpu_torch import collectives as C
+
+    m, n = mesh.shape
+    flat = lambda v: v.reshape((-1,) + tuple(v.shape[2:]))  # noqa: E731
+    tol = (1e-5, 1e-6)
+    return {
+        "allreduce/ring": (lambda: t.allreduce(mine, "hierarchical"),
+                           lambda: one.allreduce(full, "hierarchical"), None),
+        "allreduce/khd": (lambda: t.allreduce(mine, "hierarchical", intra_algo="khd"),
+                          lambda: one.allreduce(full, "hierarchical", intra_algo="khd"),
+                          None),
+        "allreduce/bf16": (
+            lambda: t.allreduce(mine, "hierarchical", cross_dtype="bfloat16"),
+            lambda: one.allreduce(full, "hierarchical", cross_dtype="bfloat16"), None),
+        "allreduce/avg": (lambda: t.allreduce(mine, "hierarchical", op="avg"),
+                          lambda: one.allreduce(full, "hierarchical", op="avg"), None),
+        "allreduce/max": (lambda: t.allreduce(mine, "hierarchical", op="max"),
+                          lambda: one.allreduce(full, "hierarchical", op="max"), None),
+        # one buffer of --size elements a rank: padded where n does not divide it
+        "allreduce/ragged": (lambda: t.allreduce(mine[:, :, 0], "hierarchical"),
+                             lambda: one.allreduce(full[:, :, 0], "hierarchical"), None),
+        "allreduce/fused_cross": (
+            lambda: C.hierarchical_allreduce(flat(mine), (m, n), cross_algo="fused",
+                                             span=mesh.span).reshape(mine.shape),
+            lambda: C.hierarchical_allreduce(flat(full), (m, n), cross_algo="fused")
+            .reshape(full.shape), tol),
+        "allreduce/fused": (lambda: t.allreduce(mine, "fused"),
+                            lambda: one.allreduce(full, "fused"), tol),
+        "alltoall/fused": (lambda: t.alltoall(mine, "hierarchical"),
+                           lambda: one.alltoall(full, "hierarchical"), None),
+        "alltoall/rotation": (
+            lambda: C.hierarchical_alltoall(flat(mine), (m, n), intra_algo="rotation",
+                                            cross_algo="rotation", span=mesh.span)
+            .reshape(mine.shape),
+            lambda: C.hierarchical_alltoall(flat(full), (m, n), intra_algo="rotation",
+                                            cross_algo="rotation").reshape(full.shape),
+            None),
+        "alltoall/flat_fused": (lambda: t.alltoall(mine, "fused"),
+                                lambda: one.alltoall(full, "fused"), None),
+    }
+
+
+def _hierarchical_main(args, rank: int, m: int, device) -> int:
+    """The ``hierarchical`` task (module docstring)."""
+    import hashlib
+    import json
+
+    import numpy as np
+    import torch
+
+    from rocnrdma_tpu_torch.runtime.mesh import slice_mesh
+    from rocnrdma_tpu_torch.transport import Transport
+
+    n, size = args.per_slice, args.size or HIER_REF_SIZE
+    mesh = slice_mesh(m, n, device, group=torch.distributed.group.WORLD)
+    t = Transport(mesh)
+    mine = torch.from_numpy(hier_rows(m, n, size, [(rank, i) for i in range(n)]))
+    mine = mine.to(device)[None]
+    full_np = hier_rows(m, n, size, [(s, i) for s in range(m) for i in range(n)])
+    full_np = full_np.reshape(m, n, m * n, size)
+    full = torch.from_numpy(full_np).to(device)
+    one = Transport(slice_mesh(m, n, device))
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    times, digests, errs, got = {}, {}, {}, {}
+    for name, (spanning, whole, tol) in _hier_calls(t, one, mesh, mine, full).items():
+        ms = []
+        for _ in range(3):  # the first result is the one checked
+            sync()
+            t0 = time.perf_counter()
+            out = spanning()
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            got.setdefault(name, out)
+        times[name] = [round(v, 3) for v in ms]
+        out, want = got[name], whole()[rank:rank + 1]
+        if out.shape != want.shape or out.dtype != want.dtype:
+            raise AssertionError(f"{name}: {tuple(out.shape)} {out.dtype} vs the "
+                                 f"one-process port's {tuple(want.shape)} {want.dtype}")
+        errs[name] = float((out.float() - want.float()).abs().max())
+        if tol is None and not torch.equal(out, want):
+            raise AssertionError(f"{name}: not bitwise the one-process port's "
+                                 f"(max abs err {errs[name]})")
+        if tol is not None:
+            np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                                       rtol=tol[0], atol=tol[1], err_msg=name)
+        if device.type == "cpu":
+            digests[name] = hashlib.sha256(out.numpy().tobytes()).hexdigest()
+        del want
+    # the reference's own checks, against numpy; the sum in float64, whose
+    # own rounding stays out of the tolerance at 16M elements a row
+    mine_np = full_np[rank:rank + 1]
+    total = np.broadcast_to(full_np.sum((0, 1), dtype=np.float64), mine_np.shape)
+    np.testing.assert_allclose(got["allreduce/ring"].cpu().numpy(), total,
+                               rtol=1e-5, atol=1e-6)
+    transpose = full_np.reshape(m * n, m * n, size).transpose(1, 0, 2) \
+        .reshape(full_np.shape)[rank:rank + 1]
+    np.testing.assert_allclose(got["alltoall/fused"].cpu().numpy(), transpose,
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got["allreduce/bf16"].cpu().numpy(), total,
+                               rtol=2e-2, atol=1e-1)
+    cross = t.stats()[f"cross/{mesh.span.backend}"]
+    for way, nbytes, secs in (("wire", "bytes", "wire_s"),
+                              ("d2h", "d2h_bytes", "d2h_s"),
+                              ("h2d", "h2d_bytes", "h2d_s")):
+        # an NCCL leg's host seconds are its enqueue, not its transfer
+        s = cross[secs] if way != "wire" or mesh.span.backend == "gloo" else 0
+        cross[f"{way}_GBps"] = round(cross[nbytes] / s / 1e9, 3) if s else None
+    cross.update(backend=mesh.span.backend, device=str(device),
+                 rows_bytes=mine.numel() * mine.element_size())
+    print("HIERTIMES " + json.dumps(times), flush=True)
+    print("HIERERRS " + json.dumps(errs), flush=True)
+    print("HIERCROSS " + json.dumps(cross), flush=True)
+    if digests:
+        print("HIERDIGEST " + json.dumps(digests), flush=True)
+    print(f"OK rank={rank}/{m} hierarchical", flush=True)
+    return 0
 
 
 def main(argv=None) -> int:
@@ -1548,6 +1715,9 @@ def main(argv=None) -> int:
                         "coalesce x heal case: a kill lands mid-bucket "
                         "and the whole bucket retries exactly-once, "
                         "bitwise; prints COALESCED + TRACELOG)")
+    p.add_argument("--per-slice", type=int, default=2,
+                   help="hierarchical: the ranks each process holds as rows "
+                        "(its slice of the 2-D mesh)")
     p.add_argument("--platform", choices=("auto", "cpu"), default="auto",
                    help="the device plane: auto (NCCL on the card, "
                         "raising without one) or cpu (gloo)")
@@ -1603,6 +1773,10 @@ def main(argv=None) -> int:
     device = (torch.device("cuda", torch.cuda.current_device())
               if info.backend == "nccl" else torch.device("cpu"))
     n, rank = info.world_size, info.rank
+    if args.task == "hierarchical":
+        status = _hierarchical_main(args, rank, n, device)
+        shutdown_runtime()
+        return status
     _collective(args.task, rank, n, args.size, args.seed, device)
     print(f"OK rank={rank}/{n} backend={info.backend}", flush=True)
     shutdown_runtime()

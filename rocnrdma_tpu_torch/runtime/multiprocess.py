@@ -90,7 +90,9 @@ def _check_devices(n: int, task: str, platform: str) -> None:
     """Refuse, before spawning, a card run NCCL would refuse. The
     host-plane chaos tasks touch no device; ``kill-a-host`` may run more
     processes than GPUs, because its NCCL group then issues no collective
-    (``DEVICE-GLOBAL`` is printed as unsupported)."""
+    (``DEVICE-GLOBAL`` is printed as unsupported), and so may
+    ``hierarchical``, whose cross leg then runs on a gloo group through
+    the host."""
     from rocnrdma_tpu_torch.runtime.mp_worker import CHAOS_TASKS, NCCL_TASKS
 
     if platform == "cpu" or task in CHAOS_TASKS:
@@ -123,6 +125,7 @@ def run_workers(n: int, task: str, timeout_s: float = 120.0,
                 hier: bool = False,
                 store_death: str | None = None,
                 kill_store_op: int | None = None,
+                per_slice: int | None = None,
                 _retry_left: int = 1) -> list[WorkerResult]:
     """Spawn ``n`` worker processes running ``task``; wait for all.
 
@@ -140,7 +143,8 @@ def run_workers(n: int, task: str, timeout_s: float = 120.0,
     elastic fleet), ``device_heal_fail`` (``kill-a-host``'s degraded
     mode), ``lanes``/``coalesce``/``codec``/``hier`` (the
     ``kill-and-heal`` variants) and ``store_death``/``kill_store_op``
-    (``kill-the-store``) are the reference's. The rendezvous ports are
+    (``kill-the-store``) are the reference's; ``per_slice``: the ranks each
+    process holds in ``hierarchical`` (default 2). The rendezvous ports are
     held reserved until the instant before the spawn, and a run that still
     loses the bind race is retried once with fresh ports."""
     from rocnrdma_tpu_torch.runtime.mp_worker import DEVICE_TASKS, TASKS
@@ -161,7 +165,8 @@ def run_workers(n: int, task: str, timeout_s: float = 120.0,
                       ("--grow-round", grow_round),
                       ("--die-at-promotion", die_at_promotion),
                       ("--codec", codec), ("--store-death", store_death),
-                      ("--kill-store-op", kill_store_op)):
+                      ("--kill-store-op", kill_store_op),
+                      ("--per-slice", per_slice)):
         if val is not None:
             extra += [flag, str(val)]
     for flag, on in (("--device-heal-fail", device_heal_fail),
@@ -203,6 +208,6 @@ def run_workers(n: int, task: str, timeout_s: float = 120.0,
                            platform, rounds, kill_ranks, kill_ops, spares,
                            join, grow_round, die_at_promotion,
                            device_heal_fail, lanes, coalesce, codec, hier,
-                           store_death, kill_store_op,
+                           store_death, kill_store_op, per_slice,
                            _retry_left=_retry_left - 1)
     return results

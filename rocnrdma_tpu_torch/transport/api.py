@@ -14,7 +14,17 @@ rank r (alltoall, ``(n, n, c)``), every row root's (broadcast), root's row
 the reduction and the others zero (reduce), root's row the concatenation
 and the others zero (gather, ``(n, n*c)``), row r root's chunk r
 (scatter, ``(n, c)``), row r what rank r - shift sent (sendrecv). Every
-rank lives on the mesh's one device.
+rank of a process lives on the mesh's one device.
+
+A 2-D mesh may span processes (``slice_mesh(..., group=g)``; each process
+one slice). A tensor on it is this process's rows, ``x[0, i]`` the buffer
+of rank (``span.index``, i), leading dims ``(1, per_slice)``, and so is the
+result. There allreduce and alltoall run, ``hierarchical`` (``auto``) or
+``fused`` (``SPANNING``); every other verb and algorithm raises
+``ProcessSpanError``. The slice axis's exchanges cross processes on the
+span's cross group (``collectives._exchange``), and ``stats()`` counts
+them under ``cross/<backend>`` with the bytes and host seconds staged each
+way.
 
 Algorithms (``SCHEDULES``; the reference's names, except that its
 ``pallas_ring`` is ``cuda_ring`` here):
@@ -68,6 +78,10 @@ import numpy as np
 import torch
 
 from rocnrdma_tpu_torch import collectives as C
+from rocnrdma_tpu_torch.collectives._exchange import (
+    spanning_fused_allreduce,
+    spanning_fused_alltoall,
+)
 from rocnrdma_tpu_torch.collectives.reduce_op import REDUCE_OPS
 from rocnrdma_tpu_torch.collectives.schedule import khd_digits
 from rocnrdma_tpu_torch.metrics import MiB
@@ -140,7 +154,10 @@ def _khd(digits) -> dict:
 # ``shift`` (sendrecv) and the schedule-specific ones.
 SCHEDULES = {
     "allreduce": {
-        "fused": lambda x, shape, op="sum", root=0: C.fused_allreduce(x, op=op),
+        # ``span``: the mesh's ProcessSpan where it spans processes (SPANNING)
+        "fused": lambda x, shape, op="sum", root=0, span=None:
+            C.fused_allreduce(x, op=op) if span is None
+            else spanning_fused_allreduce(x, shape, span, op=op),
         "ring": lambda x, shape, op="sum", root=0: C.ring_allreduce(x, op=op),
         "ring_bidir": lambda x, shape, op="sum", root=0:
             C.ring_allreduce(x, bidir=True, op=op),
@@ -159,9 +176,9 @@ SCHEDULES = {
         "ktree": lambda x, shape, op="sum", root=0: C.kary_tree_allreduce(x, op=op),
         # ``intra_algo``: ring|khd for the two intra-slice phases
         "hierarchical": lambda x, shape, op="sum", root=0, cross_dtype=None,
-                               intra_algo=None:
+                               intra_algo=None, span=None:
             C.hierarchical_allreduce(x, shape, op=op, cross_dtype=cross_dtype,
-                                     intra_algo=intra_algo or "ring"),
+                                     intra_algo=intra_algo or "ring", span=span),
         "cuda_ring": _sum_only("allreduce", _cuda_ring_allreduce),
     },
     "reduce_scatter": {
@@ -185,12 +202,14 @@ SCHEDULES = {
     },
     "alltoall": {
         # "ring" selects the rotation schedule; "bruck" the log-step one
-        "fused": lambda x, shape, op="sum", root=0: C.fused_alltoall(x),
+        "fused": lambda x, shape, op="sum", root=0, span=None:
+            C.fused_alltoall(x) if span is None
+            else spanning_fused_alltoall(x, shape, span),
         "ring": lambda x, shape, op="sum", root=0: C.rotation_alltoall(x),
         "bruck": lambda x, shape, op="sum", root=0: C.bruck_alltoall(x),
         # 2-D mesh only: within slices, then one crossing per chunk
-        "hierarchical": lambda x, shape, op="sum", root=0:
-            C.hierarchical_alltoall(x, shape),
+        "hierarchical": lambda x, shape, op="sum", root=0, span=None:
+            C.hierarchical_alltoall(x, shape, span=span),
         # direct writes, one per chunk, no relay
         "cuda_ring": lambda x, shape, op="sum", root=0: alltoall_cuda.alltoall(x),
     },
@@ -224,17 +243,39 @@ SCHEDULES = {
     },
 }
 
+# The verbs and algorithms that run on a mesh whose slice axis spans
+# processes; their SCHEDULES entries take the mesh's ProcessSpan as ``span``.
+SPANNING = {"allreduce": ("hierarchical", "fused"),
+            "alltoall": ("hierarchical", "fused")}
+
+
+class ProcessSpanError(ValueError):
+    """A verb or algorithm that does not run on a mesh spanning processes."""
+
+    def __init__(self, verb: str, algo: str | None = None):
+        what = f"{verb!r}" + ("" if algo is None else f" with algo {algo!r}")
+        runs = ", ".join(f"{v} ({'|'.join(a)})" for v, a in SPANNING.items())
+        super().__init__(
+            f"{what} does not run on a mesh whose slice axis spans processes; "
+            f"there run only {runs}. The flat verbs, khd2d and Bruck across "
+            f"processes are queued: ROADMAP.md, Queue 1")
+
+
 # alltoallv's algorithms (it has no schedule of its own: the dense
 # alltoall's fused or cuda_ring wire, masked at the receiver)
 ALLTOALLV_ALGOS = ("fused", "cuda_ring")
 
 
-def supports(op: str, algo: str, is_2d: bool = False) -> bool:
-    """Does ``(op, algo)`` resolve on a mesh of this dimensionality?"""
+def supports(op: str, algo: str, is_2d: bool = False,
+             spans: bool = False) -> bool:
+    """Does ``(op, algo)`` resolve on a mesh of this dimensionality (and,
+    with ``spans``, whose slice axis spans processes)?"""
     if algo == "auto":
         return True
     if algo not in SCHEDULES.get(op, {}):
         return False
+    if spans:
+        return algo in SPANNING.get(op, ())
     if algo in ("hierarchical", "khd2d"):
         return is_2d
     if op == "sendrecv":
@@ -278,7 +319,12 @@ class Transport:
                              f"runtime.rank_mesh() or runtime.slice_mesh()")
         self.n_ranks = self.mesh.n_ranks
         self.is_2d = len(self.axes) == 2
-        self._lead = tuple(self.mesh.shape)  # the leading dims of a tensor on it
+        self._lead = tuple(self.mesh.shape)  # the mesh shape
+        # the leading dims of a tensor on it in this process
+        self._local = tuple(self.mesh.local_shape)
+        self._rows = math.prod(self._local)
+        self.span = self.mesh.span  # the slice axis across processes, or None
+        self._spans = self.span is not None
         self.device = self.mesh.device
         on_card = self.device.type == "cuda"
         # the tuning-table platform (detect_topology's) and the cost
@@ -286,11 +332,12 @@ class Transport:
         self.platform = "gpu" if on_card else "cpu"
         self.device_kind = torch.cuda.get_device_name(self.device) if on_card else "cpu"
         cards = len(set(self.mesh.devices))
-        self.ranks_per_card = self.n_ranks // cards
+        self.ranks_per_card = len(self.mesh.devices) // cards
         # ``dcn``: does the slice axis cross the network? None = only when
-        # the ranks span more than one device; explicit True/False
-        # overrides. It sets the cost model's constants only.
-        self.dcn = bool(cards > 1 if dcn is None else dcn) and self.is_2d
+        # the ranks span more than one device or process; explicit
+        # True/False overrides. It sets the cost model's constants only.
+        spans = cards > 1 or self.span is not None
+        self.dcn = bool(spans if dcn is None else dcn) and self.is_2d
         if tuning is None:
             # RNR_TUNING (the NCCL_TUNER_PLUGIN habit): a saved table for
             # every Transport of the process; an explicit ``tuning=`` wins
@@ -342,7 +389,7 @@ class Transport:
             # version, which the model does not price)
             from rocnrdma_tpu_torch.transport.tuner import dcn_constants_for, model_pick
             cands = [a for a in SCHEDULES[op]
-                     if supports(op, a, self.is_2d)
+                     if supports(op, a, self.is_2d, self._spans)
                      and (self.platform == "gpu" or a != "cuda_ring")]
             alpha, beta, hbm_beta = self._constants(op)
             picked = (model_pick(op, self.n_ranks, nbytes, candidates=cands,
@@ -359,12 +406,12 @@ class Transport:
             # RNR_ALGO replaces only the policy default, and only where the
             # op supports it, so one env var doesn't break unrelated verbs
             forced = self._forced_algo()
-            if forced and supports(op, forced, self.is_2d):
+            if forced and supports(op, forced, self.is_2d, self._spans):
                 algo = forced
         if algo == "auto" and self.tuning is not None and nbytes is not None:
             tuned = self.tuning.lookup(op, nbytes, self.n_ranks, len(self.axes),
                                        self.platform)
-            if tuned is not None and supports(op, tuned, self.is_2d):
+            if tuned is not None and supports(op, tuned, self.is_2d, self._spans):
                 algo = tuned
         if algo == "auto":
             # 2-D mesh: the two-level schedules are the default for the
@@ -372,6 +419,8 @@ class Transport:
             algo = ("hierarchical"
                     if self.is_2d and op in ("allreduce", "alltoall")
                     else "fused")
+        if self._spans and not supports(op, algo, self.is_2d, True):
+            raise ProcessSpanError(op, algo)
         if not supports(op, algo, self.is_2d):
             raise ValueError(
                 f"op {op!r} has no {algo!r} schedule on a "
@@ -387,7 +436,7 @@ class Transport:
         nbytes = x.numel() * x.element_size()
         if verb in ("allgather", "gather"):
             return max(1, nbytes)
-        return max(1, nbytes // self.n_ranks)
+        return max(1, nbytes // self._rows)
 
     def _count(self, verb: str, algo: str, x: torch.Tensor) -> None:
         s = self._stats.setdefault((verb, algo), {"calls": 0, "bytes": 0})
@@ -402,8 +451,20 @@ class Transport:
     def stats(self) -> dict:
         """Per-(verb, algo) dispatch counts and cumulative input bytes of the
         verb methods and grouped launches (bare ``jit_fn`` callables are not
-        counted)."""
-        return {f"{v}/{a}": dict(s) for (v, a), s in sorted(self._stats.items())}
+        counted). On a mesh that spans processes, also ``cross/<backend>``:
+        the slice axis's exchanges (``calls``), the bytes this process sent
+        in them and their host seconds (``wire_s``), whether they are
+        staged through the host, and the bytes and host seconds staged
+        each way (``d2h_*``, ``h2d_*``)."""
+        out = {f"{v}/{a}": dict(s) for (v, a), s in sorted(self._stats.items())}
+        if self.span is not None:
+            st = self.span.stats
+            out[f"cross/{self.span.backend}"] = {
+                "calls": st["exchanges"], "bytes": st["bytes"],
+                "staged": self.span.staged,
+                **{k: st[k] for k in ("wire_s", "d2h_bytes", "d2h_s",
+                                      "h2d_bytes", "h2d_s")}}
+        return out
 
     def format_stats(self) -> str:
         rows = [f"{'verb/algo':<28} {'calls':>8} {'MiB':>12}"]
@@ -414,9 +475,16 @@ class Transport:
     def shard(self, x, dtype: torch.dtype | None = None) -> torch.Tensor:
         """Place a global buffer (numpy or tensor, leading dims the mesh
         shape) on the mesh as one rank-major tensor, optionally cast to
-        ``dtype`` on the device."""
+        ``dtype`` on the device. On a mesh that spans processes the result
+        is this process's rows, ``(1, per_slice, ...)``: from a global
+        buffer its slice's rows are taken, and a buffer of this process's
+        rows alone is taken whole."""
         t = torch.from_numpy(np.ascontiguousarray(x)) if isinstance(x, np.ndarray) else x
         lead = self._lead
+        if self.span is not None:
+            if t.shape[:2] == lead:
+                t = t[self.span.index:self.span.index + 1]
+            lead = self._local
         if t.shape[:len(lead)] != lead:
             what = (f"the {self.n_ranks} ranks" if not self.is_2d
                     else f"the mesh shape {lead}")
@@ -523,6 +591,8 @@ class Transport:
         ``cuda_ring`` (the direct alltoall kernel); ``auto`` and ``model``
         are ``fused`` unless ``RNR_ALGO`` names one of the two. 1-D meshes
         only."""
+        if self.span is not None:
+            raise ProcessSpanError("alltoallv", algo)
         if self.is_2d:
             raise ValueError("alltoallv rings a 1-D rank mesh (use the "
                              "dense alltoall on 2-D meshes)")
@@ -587,6 +657,8 @@ class Transport:
         """A callable running a custom :class:`collectives.Program` (the
         MSCCL-analogue schedule IR) over this mesh's ranks. 1-D meshes only:
         a Program's perm speaks flat rank ids."""
+        if self.span is not None:
+            raise ProcessSpanError("program_fn")
         if self.is_2d:
             raise ValueError("custom programs run on a 1-D rank mesh")
         if prog.n_ranks != self.n_ranks:
@@ -722,6 +794,8 @@ class Transport:
         acc = knobs.pop("acc", None)
         premul = knobs.pop("premul", None)
         shape = self._lead
+        if self._spans:
+            knobs["span"] = self.span
         fn = lambda v: schedule(v, shape, **knobs)
         if premul is not None:
             # scale each rank's contribution before the sum: a
@@ -739,9 +813,11 @@ class Transport:
             acc_dtype = _dtype(acc)
             fn = (lambda base: lambda v: base(v.to(acc_dtype)).to(v.dtype))(fn)
         if self.is_2d:
-            # the schedules take the ranks flattened: (n, ...) in and out
+            # the schedules take the ranks held here flattened: (n, ...) in
+            # and out
+            local = self._local
             fn = (lambda base: lambda v: _unflatten(
-                base(v.reshape((self.n_ranks,) + v.shape[2:])), shape))(fn)
+                base(v.reshape((self._rows,) + v.shape[2:])), local))(fn)
 
         def run(x: torch.Tensor) -> torch.Tensor:
             self._check_rank_major(x)
@@ -750,10 +826,13 @@ class Transport:
         return run
 
     def _check_rank_major(self, x: torch.Tensor) -> None:
-        lead = self._lead
+        lead = self._local
         if x.shape[:len(lead)] != lead:
             what = (f"{self.n_ranks} rows" if not self.is_2d
                     else f"leading dims {lead}")
+            if self.span is not None:
+                what += (f" (this process's rows, slice {self.span.index} "
+                         f"of a mesh {self._lead} that spans processes)")
             raise ValueError(f"expected a rank-major tensor with {what}, "
                              f"got shape {tuple(x.shape)}")
         if x.device != self.device:

@@ -578,3 +578,27 @@ def test_nccl_communicator_aborts_and_recreates_in_one_process(cuda_device):
     r = subprocess.run([sys.executable, "-c", _NCCL_REINIT], cwd=repo, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0 and "REINIT-OK" in r.stdout, r.stdout + r.stderr
+
+
+def test_hierarchical_across_two_processes_on_one_card(cuda_device):
+    """The reference's ``hierarchical`` task on the card: two processes,
+    each holding its 2 x 1000-element-column rows on the card, every
+    result bitwise the one-process port's (in the worker); with fewer GPUs
+    than processes the cross leg runs on gloo, staged through pinned host
+    memory each way."""
+    import json
+    import re
+
+    from rocnrdma_tpu_torch.runtime.multiprocess import run_workers
+
+    rs = run_workers(2, "hierarchical", timeout_s=240.0, platform="auto",
+                     per_slice=2, size=1000)
+    gpus = torch.cuda.device_count()
+    for r in rs:
+        assert r.returncode == 0, r.stdout + r.stderr
+        assert f"OK rank={r.process_id}/2 hierarchical" in r.stdout
+        cross = json.loads(re.search(r"^HIERCROSS (.*)$", r.stdout, re.M).group(1))
+        assert cross["device"].startswith("cuda") and cross["calls"] > 0
+        if gpus < 2:
+            assert (cross["backend"], cross["staged"]) == ("gloo", True)
+            assert cross["d2h_bytes"] > 0 and cross["h2d_bytes"] > 0

@@ -342,6 +342,7 @@ def test_port_imports_no_jax_and_no_reference_package():
         "'bench.headline', 'bench.mfu_profile', 'graft_entry', 'trace', "
         "'first_contact', 'runtime.topology', 'runtime.topo_cli', 'runtime.init', "
         "'runtime.multiprocess', 'runtime.mp_worker', 'collectives._steps', "
+        "'collectives._exchange', 'collectives.hierarchical', 'runtime.mesh', "
         "'distributed', 'lockwitness', 'native', 'obs', 'obs.recorder', "
         "'obs.trace', 'obs.chrome', 'obs.conformance', 'obs.fleet', "
         "'transport.bootstrap', 'transport.plugin', 'transport.codec', "
