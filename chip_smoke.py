@@ -163,14 +163,20 @@ Phases, each timed, any failure exits non-zero:
    each process holding its rows on the card and passing only those;
    once at the reference's shape (2 x 2 ranks, 4 x 8 fp32 a rank) and
    once at full width (the ``multislice`` preset cut to 2 x 4: 64 MiB fp32
-   a rank, 512 MiB of rows on the card). Every rank holds every result
-   to the one-process port on the card (bitwise for the ring and khd
-   intra phases with the ring cross phase, bf16 ``cross_dtype``, avg, max,
-   the fused and rotation alltoalls; rtol 1e-5, atol 1e-6 for the fused
-   cross phase and the fused verb) and to the reference's checks against
-   numpy; any failing rank fails the phase. Printed: each call's ms, the
-   cross leg's backend (gloo, staged through pinned host memory, while
-   the processes share one GPU) and its bytes and GB/s each way;
+   a rank, 512 MiB of rows on the card). The calls are every (verb, algo)
+   pair of a 2-D mesh: the hierarchical allreduce (ring and khd intra
+   phases, ring and fused cross phases, bf16 ``cross_dtype``, avg, max, a
+   ragged buffer), the hierarchical alltoall with fused, rotation and
+   Bruck cross phases, khd2d's allreduce, reduce_scatter and allgather,
+   the fused allreduce, reduce_scatter, allgather, alltoall, broadcast,
+   reduce, gather and scatter (the gathering verbs on one 64 MiB-gathered
+   buffer a rank, the rooted ones at roots off process 0) and a
+   ``group()``. Every rank holds every result to the one-process port on
+   the card (bitwise, the fused reductions within rtol 1e-5, atol 1e-6)
+   and to the reference's checks against numpy; a failing rank or a
+   missing call fails the phase. Printed: each call's ms, the cross
+   leg's backend (gloo, staged through pinned host memory, while the
+   processes share one GPU) and its bytes and GB/s each way;
 14. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
    main path, its time, its plain version's and the library call's time at
    the main path's shapes, and its bound: the larger of its bytes (each
@@ -1647,9 +1653,11 @@ HIER_CASES = (("reference", 2, 8), ("full_width", 4, 64 * MiB // 4 // 8))
 
 def hierarchical_phase(smi: str) -> dict:
     """The Transport across processes (module docstring, phase 13)."""
+    from rocnrdma_tpu_torch.runtime.mp_worker import HIER_CALLS
     from rocnrdma_tpu_torch.runtime.multiprocess import run_workers
 
     res = {"smi": smi, "gpus": torch.cuda.device_count()}
+    names = set(HIER_CALLS)
     for label, per_slice, size in HIER_CASES:
         t0 = time.perf_counter()
         rs = run_workers(2, "hierarchical", timeout_s=240.0, platform="auto",
@@ -1665,6 +1673,9 @@ def hierarchical_phase(smi: str) -> dict:
                   "max_abs_err": json.loads(_line(r, "HIERERRS")),
                   "cross": json.loads(_line(r, "HIERCROSS"))} for r in rs]
         for rank in ranks:
+            if set(rank["ms"]) != names or set(rank["max_abs_err"]) != names:
+                raise AssertionError(f"hierarchical {label}: calls "
+                                     f"{sorted(rank['ms'])}, want {sorted(names)}")
             cross = rank["cross"]
             if not cross["device"].startswith("cuda"):
                 raise AssertionError(f"hierarchical {label}: rows on {cross['device']}")
@@ -1674,10 +1685,16 @@ def hierarchical_phase(smi: str) -> dict:
                                      f"want {want} with {res['gpus']} GPU(s)")
         res[label] = {"per_slice": per_slice, "rank_bytes": 2 * per_slice * size * 4,
                       "seconds": round(secs, 1), "ranks": ranks}
+        for name in sorted(names):  # ms of the steady calls, per rank
+            print(f"  {label} {name:<24} ms " + " | ".join(
+                ", ".join(f"{v:.1f}" for v in r["ms"][name][1:]) for r in ranks)
+                + f"  max_abs_err {max(r['max_abs_err'][name] for r in ranks):.3g}",
+                flush=True)
         print(f"hierarchical {label}, 2 processes x {per_slice} ranks x "
               f"{2 * per_slice * size * 4} bytes a rank ({smi}): cross leg "
               f"{ranks[0]['cross']['backend']} (staged {ranks[0]['cross']['staged']}), "
-              f"{secs:.1f} s; per rank: " + json.dumps(ranks), flush=True)
+              f"{secs:.1f} s; HIERCROSS per rank: "
+              + json.dumps([r["cross"] for r in ranks]), flush=True)
     return res
 
 

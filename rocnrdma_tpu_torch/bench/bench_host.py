@@ -136,10 +136,11 @@ def _smoke_args(path: str) -> list:
         # group plane is tcp (the slow inter-node leg) with shm
         # sub-rings inside each "node" — flat tcp ring vs the
         # hierarchical schedule vs hierarchical + per-leg codec, 1 MiB
-        # allreduces, arms seconds apart on one fleet
+        # allreduces, arms seconds apart on one fleet; seven trials, so
+        # that the best trial of each arm rides out a busy host
         return ["--ranks", "4", "--plane", "tcp", "--transport", "msg",
                 "--sizes", "1M", "--collectives", "hier",
-                "--node-map", "0,0,1,1", "--repeats", "3", "--iters", "4"]
+                "--node-map", "0,0,1,1", "--repeats", "7", "--iters", "4"]
     if path == "codec":
         # 2-rank tcp ring, 1 MiB allreduces: the fp32 wire vs the int8
         # and fp8 codec lanes (error feedback ON) — the gate is the

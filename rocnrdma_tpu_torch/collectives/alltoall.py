@@ -14,7 +14,8 @@ equal the reference bit for bit in every dtype.
 - ``bruck_alltoall``: ceil(log2 n) steps, each chunk relayed up to log2 n
   times (the ``bruck`` arm);
 - ``rotation_rows`` / ``bruck_rows``: the same for B meshes in lockstep
-  (the hierarchical alltoall's phases), one step span a step;
+  (the hierarchical alltoall's phases), one step span a step, each also
+  over a slice axis that spans processes;
 - ``ragged_mask`` and ``fused_alltoallv``: the ragged alltoallv on a static
   capacity, masked at the receiver.
 """
@@ -63,24 +64,26 @@ def bruck_alltoall(x: torch.Tensor) -> torch.Tensor:
     return bruck_rows(x[None])[0]
 
 
-def bruck_rows(xb: torch.Tensor) -> torch.Tensor:
+def bruck_rows(xb: torch.Tensor, span=None) -> torch.Tensor:
     """Bruck's alltoall of B meshes at once: (B, n, n, c...), one step span
-    a phase."""
-    n = xb.shape[1]
+    a phase. With ``span`` the rank axis is the slice axis across
+    processes: (B, 1, n, c...), this process's rank; each phase's masked
+    block goes k ranks forward through ``_exchange.shift_rows``."""
+    n = xb.shape[2]
     if n == 1:
         return xb.clone()
-    r = torch.arange(n, device=xb.device)
+    rows, r = ring_positions(n, span, xb.device)
     i = torch.arange(n, device=xb.device)
     # phase 0: local rotation so the chunk destined to self sits at index 0;
     # the rank and chunk axes lead, so each step indexes them first
-    buf = xb.movedim(0, 2)[r[:, None], (i[None, :] + r[:, None]) % n]
+    buf = xb.movedim(0, 2)[rows[:, None], (i[None, :] + r[:, None]) % n]
     # log-phases: positions with bit k set travel k ranks forward
     for k in bruck_phases(n):
         with step_span(f"bruck phase {k}"):
             idx = torch.tensor(bruck_mask(n, k), device=xb.device)
-            buf[:, idx] = torch.roll(buf[:, idx], shifts=k, dims=0)
+            buf[:, idx] = shift_rows(buf[:, idx], k, 0, span)
     # final: chunk i on rank r arrived from rank (r - i) mod n
-    return buf[r[:, None], (r[:, None] - i[None, :]) % n].movedim(2, 0)
+    return buf[rows[:, None], (r[:, None] - i[None, :]) % n].movedim(2, 0)
 
 
 def ragged_mask(out: torch.Tensor, counts) -> tuple[torch.Tensor, torch.Tensor]:

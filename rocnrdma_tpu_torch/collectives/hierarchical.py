@@ -16,13 +16,12 @@ a step, as ``trace.hierarchical_events`` lays them out.
 
 Across processes (``span``, the ``ProcessSpan`` of a mesh whose slice axis
 is the process boundary), ``x`` is this process's rows, slice
-``span.index``: the intra phases run on them unchanged, the ``ring`` and
-``rotation`` cross phases exchange rows through ``_exchange.shift_rows``
-(so fp32 results are the one-process schedule's, bit for bit), and a
-``fused`` cross phase is one library call on the span's cross group
-(``all_reduce``, torch's order of summation; ``all_to_all_single``, exact).
-Bruck's cross phase indexes rows rather than rotating them, and is refused
-there.
+``span.index``: the intra phases run on them unchanged, the ``ring``,
+``rotation`` and ``bruck`` cross phases exchange rows through
+``_exchange.shift_rows`` (so fp32 results are the one-process schedule's,
+bit for bit), and a ``fused`` cross phase is one library call on the
+span's cross group (``all_reduce``, torch's order of summation;
+``all_to_all_single``, exact).
 """
 
 from __future__ import annotations
@@ -136,13 +135,7 @@ def _alltoall_1d(xb: torch.Tensor, algo: str, tag: str,
         return torch.stack([fused_alltoall(v) for v in xb])
     if algo == "rotation":
         return rotation_rows(xb, tag=tag, span=span)
-    if span is not None:
-        raise ValueError(
-            "bruck's phases index the rows of the whole axis, so its cross "
-            "phase does not run on a slice axis that spans processes; use "
-            "rotation or fused there (ROADMAP.md Queue 1: the flat verbs, "
-            "khd2d and Bruck across processes)")
-    return bruck_rows(xb)
+    return bruck_rows(xb, span=span)
 
 
 def hierarchical_alltoall(x: torch.Tensor, mesh_shape, *,
@@ -155,7 +148,7 @@ def hierarchical_alltoall(x: torch.Tensor, mesh_shape, *,
     destination intra index, then a cross-slice alltoall of bundles by
     destination slice between ranks of the same intra index. Every chunk
     crosses slices once. ``intra_algo`` / ``cross_algo``: ``fused``
-    (default), ``rotation`` or ``bruck`` (not across processes). With
+    (default), ``rotation`` or ``bruck``. With
     ``span``, ``x`` and the result are this process's rows."""
     m, n = mesh_shape
     if x.dim() < 2 or x.shape[1] != m * n:

@@ -28,6 +28,18 @@ of the reference's permutes is one step span here too.
 round t rotates within mesh axis t only. With ranks flattened as
 ``s * per_slice + i`` that is exactly the flat schedule with those digits.
 
+Across processes (``span``, the ``ProcessSpan`` of a mesh whose slice axis
+is the process boundary; ``khd2d`` only), ``x`` is this process's
+per_slice rows, slice ``span.index``. Round 0 (the slice axis, stride
+per_slice) is the only round whose group crosses processes. In each of
+its permutes every rank of a slice reads the same range of its member's
+row (a reduce-scatter reads at the reader's kept part, an allgather the
+member's own part), so the sender ships that range of all its rows to the
+slice that reads it, one ``_exchange.shift_rows`` a permute, and the
+receiver folds or copies it exactly where the one-process schedule reads
+the member's row. Round 1 stays in the process. The folds are the
+one-process schedule's, in its substep order, so results are its bits.
+
 A call without ``digits`` runs ``khd_digits(n)`` (largest radix first, at
 most 8); the Transport's verbs pass the radix ladder's pick
 (``Transport.khd_model_digits``), as the reference's do.
@@ -39,6 +51,7 @@ import math
 
 import torch
 
+from rocnrdma_tpu_torch.collectives._exchange import shift_rows
 from rocnrdma_tpu_torch.collectives._steps import step_span
 from rocnrdma_tpu_torch.collectives.reduce_op import finalize, fold_
 from rocnrdma_tpu_torch.collectives.schedule import khd_digits, khd_strides
@@ -86,22 +99,47 @@ class _Digits:
         return r + (j % self.digits[t] - self.of[r][t]) * self.strides[t]
 
 
-def _rs_phase(x: torch.Tensor, op: str, digits: tuple, bidir: bool):
-    """The reduce-scatter rounds on a fresh zero-padded (n, n*chunk) copy of
-    ``x``. Returns (buf, seg, chunk): rank r's fully reduced chunk starts at
-    element ``seg[r]`` of its row (which is r*chunk). Loops run
+def _held_ranks(rows: int, digits: tuple, span) -> range:
+    """The flat ranks whose rows this process holds: all of them, or,
+    across processes, slice ``span.index``'s (``digits[0]`` must be the
+    span's slices, the other digits its rows)."""
+    if span is None:
+        return range(rows)
+    if digits[0] != span.size or math.prod(digits[1:]) != rows:
+        raise ValueError(f"across processes round 0 is the {span.size} slices "
+                         f"and the other rounds the {rows} rows held here; "
+                         f"got digits {digits}")
+    return range(span.index * rows, (span.index + 1) * rows)
+
+
+def _crossing(buf: torch.Tensor, at: int, lo: int, hi: int, rot: int, span):
+    """Round 0 across processes: every held row's range ``at + lo .. at +
+    hi`` goes to the slice ``rot`` below (which reads it from its member
+    ``rot`` above), and the same range sent by the slice ``rot`` above
+    comes back, (rows, hi - lo)."""
+    return shift_rows(buf[None, :, at + lo:at + hi], -rot, 0, span)[0]
+
+
+def _rs_phase(x: torch.Tensor, op: str, digits: tuple, bidir: bool, span=None):
+    """The reduce-scatter rounds on a fresh zero-padded (rows, n*chunk)
+    copy of ``x``. Returns (buf, seg, chunk): rank r's fully reduced chunk
+    starts at element ``seg[r]`` of its row (which is r*chunk). Loops run
     step-outer, rank-inner, one step span per permute of the reference (a
     split offset is two: +o, then -o); each rank still folds its offsets
     in the reference's order, and a round reads only ranges no rank writes
-    in it, so the result does not depend on the loop order."""
-    n = x.shape[0]
-    flat = x.reshape(n, -1)
+    in it, so the result does not depend on the loop order. With ``span``
+    the rows are this process's (module docstring)."""
+    rows = x.shape[0]
+    held = _held_ranks(rows, digits, span)
+    n = math.prod(digits)
+    flat = x.reshape(rows, -1)
     size = flat.shape[1]
     chunk = -(-size // n)
-    buf = flat.new_zeros((n, n * chunk))
+    buf = flat.new_zeros((rows, n * chunk))
     buf[:, :size] = flat
     dg = _Digits(n, digits)
     row = buf.unbind(0)  # one view per rank, sliced per step
+    r0 = held[0]  # the first held rank: row r - r0 is rank r's
     seg = [0] * n
     P = 1
     for t, d in enumerate(digits):
@@ -111,15 +149,23 @@ def _rs_phase(x: torch.Tensor, op: str, digits: tuple, bidir: bool):
         for o in range(1, d):
             for lo, hi, rot, name in _substeps(bidir, d, part, t, o):
                 with step_span(f"khd rs {name}"):
-                    for r in range(n):
+                    if span is not None and t == 0:
+                        # the reader rot below reads at its own kept part
+                        at = seg[dg.member(r0, 0, dg.of[r0][0] - rot)]
+                        k = seg[r0]
+                        fold_(buf[:, k + lo:k + hi],
+                              _crossing(buf, at, lo, hi, rot, span), op)
+                        continue
+                    for r in held:
                         k = seg[r]
                         src = dg.member(r, t, dg.of[r][t] + rot)
-                        fold_(row[r][k + lo:k + hi], row[src][k + lo:k + hi], op)
+                        fold_(row[r - r0][k + lo:k + hi],
+                              row[src - r0][k + lo:k + hi], op)
     return buf, seg, chunk
 
 
 def _ag_phase(buf: torch.Tensor, seg: list, chunk: int, digits: tuple,
-              bidir: bool) -> torch.Tensor:
+              bidir: bool, span=None) -> torch.Tensor:
     """The allgather rounds, reversed: each rank copies in its group
     members' parts from their rows, one step span per permute of the
     reference. In substep o a part's first half comes from the member o
@@ -128,10 +174,13 @@ def _ag_phase(buf: torch.Tensor, seg: list, chunk: int, digits: tuple,
     whole. The rounds only copy, and a rank's own part is never written in
     its round, so the loop order changes no bit. A substep's n copies are
     one ``_foreach_copy_``: copied by halves one at a time, a radix-8 round
-    would launch 13 n copies where a whole-part round launches 7 n."""
-    n = buf.shape[0]
+    would launch 13 n copies where a whole-part round launches 7 n. With
+    ``span`` the rows are this process's (module docstring)."""
+    held = _held_ranks(buf.shape[0], digits, span)
+    n = math.prod(digits)
     dg = _Digits(n, digits)
     row = buf.unbind(0)
+    r0 = held[0]
     P = n
     for t in range(len(digits) - 1, -1, -1):
         d = digits[t]
@@ -139,13 +188,22 @@ def _ag_phase(buf: torch.Tensor, seg: list, chunk: int, digits: tuple,
         base = [seg[r] - dg.of[r][t] * part for r in range(n)]
         for o in range(1, d):
             for lo, hi, rot, name in _substeps(bidir, d, part, t, o):
+                if span is not None and t == 0:
+                    # every held rank ships its own part; the member rot
+                    # above's own part lands
+                    own = base[r0] + dg.of[r0][0] * part
+                    st = base[r0] + ((dg.of[r0][0] + rot) % d) * part
+                    with step_span(f"khd ag {name}"):
+                        buf[:, st + lo:st + hi] = _crossing(buf, own, lo, hi,
+                                                            rot, span)
+                    continue
                 dst, src = [], []
-                for r in range(n):
+                for r in held:
                     j = dg.of[r][t] + rot
                     q = dg.member(r, t, j)
                     st = base[r] + (j % d) * part  # q's own part
-                    dst.append(row[r][st + lo:st + hi])
-                    src.append(row[q][st + lo:st + hi])
+                    dst.append(row[r - r0][st + lo:st + hi])
+                    src.append(row[q - r0][st + lo:st + hi])
                 with step_span(f"khd ag {name}"):
                     torch._foreach_copy_(dst, src)
         seg = base
@@ -153,71 +211,88 @@ def _ag_phase(buf: torch.Tensor, seg: list, chunk: int, digits: tuple,
     return buf
 
 
+def _axis_ranks(x: torch.Tensor, span) -> int:
+    """The ranks of the axis: the rows of ``x``, or, across processes,
+    every slice's (module docstring)."""
+    return x.shape[0] * (1 if span is None else span.size)
+
+
 def khd_allreduce(x: torch.Tensor, op: str = "sum", digits=None,
-                  max_radix: int = 8, bidir: bool = False) -> torch.Tensor:
+                  max_radix: int = 8, bidir: bool = False, *,
+                  span=None) -> torch.Tensor:
     """Allreduce of rank-major ``x`` by mixed-radix halving-doubling
     (``op``: sum/prod/max/min/avg). ``digits``: explicit round radices
-    (they must multiply to n); default ``khd_digits(n, max_radix)``."""
-    n = x.shape[0]
+    (they must multiply to n); default ``khd_digits(n, max_radix)``.
+    ``span``: khd2d's slice axis across processes (module docstring)."""
+    n = _axis_ranks(x, span)
     if n == 1:
         return finalize(x.clone(), op, 1)
     digits = _resolve_digits(n, digits, max_radix)
     size = x[0].numel()
-    buf, seg, chunk = _rs_phase(x, op, digits, bidir)
-    buf = _ag_phase(buf, seg, chunk, digits, bidir)
+    buf, seg, chunk = _rs_phase(x, op, digits, bidir, span)
+    buf = _ag_phase(buf, seg, chunk, digits, bidir, span)
     return finalize(buf[:, :size].reshape(x.shape), op, n)
 
 
 def khd_reduce_scatter(x: torch.Tensor, op: str = "sum", digits=None,
-                       max_radix: int = 8, bidir: bool = True) -> torch.Tensor:
+                       max_radix: int = 8, bidir: bool = True, *,
+                       span=None) -> torch.Tensor:
     """The reduce-scatter rounds standalone: (n, S) -> (n, S/n), row r the
-    fully reduced chunk r (the mixed-radix segment start of rank r is r)."""
-    n = x.shape[0]
-    flat = x.reshape(n, -1)
+    fully reduced chunk r (the mixed-radix segment start of rank r is r).
+    ``span``: as in ``khd_allreduce``; the result is the held rows'."""
+    n = _axis_ranks(x, span)
+    flat = x.reshape(x.shape[0], -1)
     if flat.shape[1] % n:
         raise ValueError(f"reduce_scatter needs size divisible by {n} ranks, "
                          f"got {flat.shape[1]}")
     if n == 1:
         return finalize(flat.clone(), op, 1)
     digits = _resolve_digits(n, digits, max_radix)
-    buf, seg, chunk = _rs_phase(x, op, digits, bidir)
-    out = torch.stack([buf[r, seg[r]:seg[r] + chunk] for r in range(n)])
+    buf, seg, chunk = _rs_phase(x, op, digits, bidir, span)
+    held = _held_ranks(x.shape[0], digits, span)
+    out = torch.stack([buf[r - held[0], seg[r]:seg[r] + chunk] for r in held])
     return finalize(out, op, n)
 
 
 def khd_allgather(x: torch.Tensor, digits=None, max_radix: int = 8,
-                  bidir: bool = True) -> torch.Tensor:
+                  bidir: bool = True, *, span=None) -> torch.Tensor:
     """The allgather rounds standalone (recursive multiplying): (n, c) ->
     (n, n, c), every row the rank-ordered concatenation. ``bidir`` changes
-    only which rotation carries a part, not what lands."""
-    n = x.shape[0]
-    flat = x.reshape(n, -1)
+    only which rotation carries a part, not what lands. ``span``: as in
+    ``khd_allreduce``; the result is the held rows'."""
+    rows = x.shape[0]
+    n = _axis_ranks(x, span)
+    flat = x.reshape(rows, -1)
     if n == 1:
         return flat.unsqueeze(1).clone()
     digits = _resolve_digits(n, digits, max_radix)
     chunk = flat.shape[1]
     # seed: my chunk at my mixed-radix position, my flat rank x chunk
-    buf = flat.new_zeros((n, n, chunk))
-    r = torch.arange(n, device=x.device)
-    buf[r, r] = flat
-    buf = _ag_phase(buf.reshape(n, n * chunk), [q * chunk for q in range(n)],
-                    chunk, digits, bidir)
-    return buf.reshape(n, n, chunk)
+    buf = flat.new_zeros((rows, n, chunk))
+    held = torch.tensor(_held_ranks(rows, digits, span), device=x.device)
+    buf[torch.arange(rows, device=x.device), held] = flat
+    buf = _ag_phase(buf.reshape(rows, n * chunk), [q * chunk for q in range(n)],
+                    chunk, digits, bidir, span)
+    return buf.reshape(rows, n, chunk)
 
 
 def khd2d_allreduce(x: torch.Tensor, mesh_shape, op: str = "sum",
-                    bidir: bool = True) -> torch.Tensor:
+                    bidir: bool = True, span=None) -> torch.Tensor:
     """khd over a 2-D mesh: digits = the mesh shape, round t within mesh
-    axis t. ``x``: rank-major over the flattened mesh (s * per_slice + i)."""
-    return khd_allreduce(x, op=op, digits=tuple(mesh_shape), bidir=bidir)
+    axis t. ``x``: rank-major over the flattened mesh (s * per_slice + i);
+    with ``span``, this process's per_slice rows."""
+    return khd_allreduce(x, op=op, digits=tuple(mesh_shape), bidir=bidir,
+                         span=span)
 
 
 def khd2d_reduce_scatter(x: torch.Tensor, mesh_shape, op: str = "sum",
-                         bidir: bool = True) -> torch.Tensor:
+                         bidir: bool = True, span=None) -> torch.Tensor:
     """The khd2d reduce-scatter rounds standalone: (n, S) -> (n, S/n)."""
-    return khd_reduce_scatter(x, op=op, digits=tuple(mesh_shape), bidir=bidir)
+    return khd_reduce_scatter(x, op=op, digits=tuple(mesh_shape), bidir=bidir,
+                              span=span)
 
 
-def khd2d_allgather(x: torch.Tensor, mesh_shape, bidir: bool = True) -> torch.Tensor:
+def khd2d_allgather(x: torch.Tensor, mesh_shape, bidir: bool = True,
+                    span=None) -> torch.Tensor:
     """The khd2d allgather rounds standalone: (n, c) -> (n, n, c)."""
-    return khd_allgather(x, digits=tuple(mesh_shape), bidir=bidir)
+    return khd_allgather(x, digits=tuple(mesh_shape), bidir=bidir, span=span)

@@ -24,16 +24,22 @@ same first-writer-wins proposal ``heal()`` uses), and joins a new process
 group on the agreed members, so the device plane follows the host plane out
 of a host death. ``device_fence`` proves the new generation's store serves
 every member.
+
+``leave`` ends a process after its teardown without the interpreter's
+finalization, where gloo's threads can abort a process after a clean
+destroy of its group.
 """
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import datetime
 import logging
 import os
 import socket
 import struct
+import sys
 import threading
 import time
 
@@ -283,6 +289,19 @@ def shutdown_runtime(timeout_s: float = 5.0, abort: bool = False) -> bool:
     clean = not t.is_alive()
     _FLIGHT.record("device-plane-shutdown", clean=clean)
     return clean
+
+
+def leave(code: int):
+    """End this process with ``code`` once its process group is torn down
+    (``shutdown_runtime`` or ``destroy_process_group``): run the atexit
+    hooks, flush stdout and stderr, and exit without the interpreter's
+    finalization. There, after a clean destroy, gloo's threads can abort
+    the process ("terminate called without an active exception", SIGABRT),
+    a few times in a hundred two-process groups on a busy host."""
+    atexit._run_exitfuncs()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
 
 
 def elect_coordinator(agree, members: list, my_orig: int, epoch: int,

@@ -58,8 +58,12 @@ is held to the one-process port's (``Transport(slice_mesh(m, per_slice,
 device))`` on all of ``full``): bitwise for the ring and khd intra phases
 with the ring cross phase, bf16 ``cross_dtype``, ``avg`` and ``max``, a
 ``--size``-element buffer a rank (padded where per_slice does not divide
-it), and the fused and rotation alltoalls; within rtol 1e-5, atol 1e-6
-for the ``fused`` cross phase and the ``fused`` verb. It prints each
+it), the fused, rotation and Bruck-cross alltoalls, khd2d's allreduce,
+reduce_scatter and allgather, the fused allgather, broadcast, gather and
+scatter (the gathering verbs on one ``--size`` buffer a rank, the rooted
+ones at roots off process 0) and a ``group()`` of a khd2d allreduce and
+a fused alltoall; within rtol 1e-5, atol 1e-6 for the ``fused`` cross
+phase and the ``fused`` allreduce, reduce_scatter and reduce. It prints each
 call's ms (``HIERTIMES``), the cross leg's backend, its bytes and GB/s
 through the cross group and staged each way (``HIERCROSS``), on the CPU each result's sha256
 (``HIERDIGEST``), and ``OK rank=i/m hierarchical``.
@@ -1511,6 +1515,18 @@ def hier_rows(m: int, n: int, size: int, rows) -> "np.ndarray":
         (m * n, size), dtype=np.float32) for s, i in rows])
 
 
+# the calls the reference's own numpy checks read
+_HIER_NUMPY_CHECKED = ("allreduce/ring", "alltoall/fused", "allreduce/bf16")
+# the task's calls, in the order it runs them (``_hier_calls``' names)
+HIER_CALLS = (
+    "allreduce/ring", "allreduce/khd", "allreduce/bf16", "allreduce/avg",
+    "allreduce/max", "allreduce/ragged", "allreduce/fused_cross", "allreduce/fused",
+    "alltoall/fused", "alltoall/rotation", "alltoall/flat_fused", "alltoall/bruck_cross",
+    "allreduce/khd2d", "reduce_scatter/fused", "reduce_scatter/khd2d",
+    "allgather/fused", "allgather/khd2d", "broadcast/fused", "reduce/fused",
+    "gather/fused", "scatter/fused", "group/khd2d_alltoall")
+
+
 def _hier_calls(t, one, mesh, mine, full):
     """The ``hierarchical`` task's calls: name -> (the call on this
     process's rows, the one-process port's call on ``full``, tolerance or
@@ -1518,6 +1534,7 @@ def _hier_calls(t, one, mesh, mine, full):
     from rocnrdma_tpu_torch import collectives as C
 
     m, n = mesh.shape
+    last = m * n - 1
     flat = lambda v: v.reshape((-1,) + tuple(v.shape[2:]))  # noqa: E731
     tol = (1e-5, 1e-6)
     return {
@@ -1554,7 +1571,50 @@ def _hier_calls(t, one, mesh, mine, full):
             None),
         "alltoall/flat_fused": (lambda: t.alltoall(mine, "fused"),
                                 lambda: one.alltoall(full, "fused"), None),
+        "alltoall/bruck_cross": (
+            lambda: C.hierarchical_alltoall(flat(mine), (m, n), cross_algo="bruck",
+                                            span=mesh.span).reshape(mine.shape),
+            lambda: C.hierarchical_alltoall(flat(full), (m, n), cross_algo="bruck")
+            .reshape(full.shape), None),
+        "allreduce/khd2d": (lambda: t.allreduce(mine, "khd2d"),
+                            lambda: one.allreduce(full, "khd2d"), None),
+        "reduce_scatter/fused": (lambda: t.reduce_scatter(mine, "fused"),
+                                 lambda: one.reduce_scatter(full, "fused"), tol),
+        "reduce_scatter/khd2d": (lambda: t.reduce_scatter(mine, "khd2d"),
+                                 lambda: one.reduce_scatter(full, "khd2d"), None),
+        # the gathering verbs on one buffer of --size elements a rank, so a
+        # rank's gathered row is the N rows' --size elements
+        "allgather/fused": (lambda: t.allgather(mine[:, :, 0], "fused"),
+                            lambda: one.allgather(full[:, :, 0], "fused"), None),
+        "allgather/khd2d": (lambda: t.allgather(mine[:, :, 0], "khd2d"),
+                            lambda: one.allgather(full[:, :, 0], "khd2d"), None),
+        # roots off process 0: the last rank, and the first of slice 1
+        "broadcast/fused": (lambda: t.broadcast(mine, "fused", root=last),
+                            lambda: one.broadcast(full, "fused", root=last), None),
+        "reduce/fused": (lambda: t.reduce(mine, "fused", root=n),
+                         lambda: one.reduce(full, "fused", root=n), tol),
+        "gather/fused": (lambda: t.gather(mine[:, :, 0], "fused", root=last),
+                         lambda: one.gather(full[:, :, 0], "fused", root=last), None),
+        "scatter/fused": (lambda: t.scatter(mine, "fused", root=n),
+                          lambda: one.scatter(full, "fused", root=n), None),
+        # a group() scope: khd2d allreduce and fused alltoall, run at its
+        # exit, their rows side by side
+        "group/khd2d_alltoall": (lambda: _grouped(t, mine), lambda: _grouped(one, full),
+                                 None),
     }
+
+
+def _grouped(t, x):
+    """The ``hierarchical`` task's ``group()`` call: a khd2d allreduce and a
+    fused alltoall of ``x`` queued in one scope, their results' rows
+    concatenated."""
+    import torch
+
+    with t.group() as g:
+        ar, a2a = g.allreduce(x, "khd2d"), g.alltoall(x, "fused")
+    lead = tuple(x.shape[:2])
+    return torch.cat([ar.result().reshape(lead + (-1,)),
+                      a2a.result().reshape(lead + (-1,))], dim=2)
 
 
 def _hierarchical_main(args, rank: int, m: int, device) -> int:
@@ -1582,18 +1642,23 @@ def _hierarchical_main(args, rank: int, m: int, device) -> int:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
+    calls = _hier_calls(t, one, mesh, mine, full)
+    if tuple(calls) != HIER_CALLS:
+        raise AssertionError(f"the task's calls {tuple(calls)} != {HIER_CALLS}")
     times, digests, errs, got = {}, {}, {}, {}
-    for name, (spanning, whole, tol) in _hier_calls(t, one, mesh, mine, full).items():
-        ms = []
+    for name, (spanning, whole, tol) in calls.items():
+        ms, first = [], None
         for _ in range(3):  # the first result is the one checked
             sync()
             t0 = time.perf_counter()
             out = spanning()
             sync()
             ms.append((time.perf_counter() - t0) * 1e3)
-            got.setdefault(name, out)
+            first = out if first is None else first
         times[name] = [round(v, 3) for v in ms]
-        out, want = got[name], whole()[rank:rank + 1]
+        out, want = first, whole()[rank:rank + 1]
+        if name in _HIER_NUMPY_CHECKED:
+            got[name] = out
         if out.shape != want.shape or out.dtype != want.dtype:
             raise AssertionError(f"{name}: {tuple(out.shape)} {out.dtype} vs the "
                                  f"one-process port's {tuple(want.shape)} {want.dtype}")
@@ -1784,4 +1849,8 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    code = main()
+    init = sys.modules.get("rocnrdma_tpu_torch.runtime.init")
+    if init is not None:  # a device task, its process group torn down
+        init.leave(code)
+    sys.exit(code)

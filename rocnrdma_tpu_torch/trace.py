@@ -700,10 +700,14 @@ def main(argv=None) -> int:
         if args.align_steps:
             aligned, diff = align_steps(events, lanes, args.alpha, args.beta)
             if not diff:
+                counts = {label: sum(any(h in ev[0].lower() for h in _PERMUTE_HINTS)
+                                     for ev in evs) for label, evs in lanes}
                 raise SystemExit(
                     "--align-steps: no lane's step-span count matches the "
                     "schedule's step count (the capture caught extra calls, "
-                    "or the schedule opens no spans) — cannot align")
+                    "or the schedule opens no spans) — cannot align; "
+                    f"the schedule has {max(e.step for e in events) + 1} "
+                    f"steps, the lanes' step spans: {counts}")
             doc["traceEvents"] += aligned
             doc["otherData"]["step_diff"] = diff
             tot_meas = sum(r["measured_max_us"] for r in diff)

