@@ -177,7 +177,28 @@ Phases, each timed, any failure exits non-zero:
    missing call fails the phase. Printed: each call's ms, the cross
    leg's backend (gloo, staged through pinned host memory, while the
    processes share one GPU) and its bytes and GB/s each way;
-14. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
+14. the 1-D rank mesh across processes, after phase 13 (no kernel runs on
+   it): ``run_workers(8, "rank-mesh")``, the ``ring8`` preset's world of
+   8 ranks, one process each (with several GPUs, one process a GPU, up
+   to 8), a ``rank_mesh(8, group=WORLD)`` whose rank axis is the process
+   boundary, each process holding its row on the card and passing only
+   it; once at the reference's shape (8 fp32 a rank, rank r's row r + 1)
+   and once at full width (64 MiB fp32 a rank, seeded rows). The calls
+   are every 1-D (verb, algo) pair but ``cuda_ring``
+   (``mp_worker.RANK_CALLS``: the allreduce fused, ring, ring_bidir,
+   tree, khd at the radix ladder's digits and at 2,2,2, dtree, ptree,
+   ktree, avg, max and a ragged buffer; reduce_scatter and allgather
+   fused, ring and khd; alltoall fused, rotation and Bruck; the fused
+   alltoallv; the rooted verbs fused and binomial at roots off process
+   0; sendrecv at shift 3; a ``prog_ring_allreduce`` program; a
+   ``group()``). Every rank holds every result to the one-process port on
+   the card (bitwise, the fused reductions within rtol 1e-5, atol 1e-6)
+   and to the reference's checks; a failing rank, a missing call, rows
+   off the card, or a cross leg other than gloo staged with one GPU
+   (NCCL unstaged with a GPU a process) fails the phase. Printed: each
+   call's ms, the cross leg's backend and its GB/s each way; all of it
+   to ``smoke_out/rank_mesh.json``;
+15. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
    main path, its time, its plain version's and the library call's time at
    the main path's shapes, and its bound: the larger of its bytes (each
    input read once, each output written once) at the datasheet HBM rate
@@ -193,7 +214,7 @@ Phases, each timed, any failure exits non-zero:
 
 ``python3 chip_smoke.py --host-plane`` runs the probe and phase 11 alone,
 ``--chaos`` the probe and phase 12 alone, ``--hierarchical`` the probe and
-phase 13 alone.
+phase 13 alone, ``--rank-mesh`` the probe and phase 14 alone.
 The last line is ``{"ok": true, "device": {...}}``. With ranks sharing one
 GPU, every bus bandwidth printed here is an HBM number, not NVLink.
 This script imports nothing of JAX or of the JAX package.
@@ -1698,6 +1719,80 @@ def hierarchical_phase(smi: str) -> dict:
     return res
 
 
+# phase 14: (label, elements of a rank's row, seed: None = the reference's rows)
+RANK_CASES = (("reference", 8, None), ("full_width", 64 * MiB // 4, 7))
+
+
+def _median(vals: list) -> float:
+    vals = sorted(vals)
+    return vals[len(vals) // 2]
+
+
+def rank_mesh_phase(smi: str) -> dict:
+    """The 1-D rank mesh across processes (module docstring, phase 14)."""
+    from rocnrdma_tpu_torch.runtime.mp_worker import RANK_CALLS
+    from rocnrdma_tpu_torch.runtime.multiprocess import run_workers
+
+    gpus = torch.cuda.device_count()
+    n = 8 if gpus < 2 else min(gpus, 8)
+    want = ("gloo", True) if gpus < n else ("nccl", False)
+    res = {"smi": smi, "gpus": gpus, "processes": n}
+    full = {}
+    for label, size, seed in RANK_CASES:
+        t0 = time.perf_counter()
+        rs = run_workers(n, "rank-mesh", timeout_s=300.0, platform="auto",
+                         size=size, seed=seed)
+        secs = time.perf_counter() - t0
+        for r in rs:
+            if r.returncode != 0 or f"OK rank={r.process_id}/{n} rank-mesh" \
+                    not in r.stdout:
+                raise AssertionError(f"rank-mesh {label} rank {r.process_id}: exit "
+                                     f"{r.returncode}\n{r.stdout[-3000:]}\n"
+                                     f"{r.stderr[-4000:]}")
+        refused = set() if n & (n - 1) == 0 else {"allreduce/tree"}
+        names = set(RANK_CALLS) - refused
+        ranks = [{"ms": json.loads(_line(r, "RANKTIMES")),
+                  "max_abs_err": json.loads(_line(r, "RANKERRS")),
+                  "cross": json.loads(_line(r, "RANKCROSS"))} for r in rs]
+        for rank in ranks:
+            if set(rank["ms"]) != names or set(rank["max_abs_err"]) != names:
+                raise AssertionError(f"rank-mesh {label}: calls {sorted(rank['ms'])}, "
+                                     f"want {sorted(names)}")
+            cross = rank["cross"]
+            if not cross["device"].startswith("cuda"):
+                raise AssertionError(f"rank-mesh {label}: rows on {cross['device']}")
+            if (cross["backend"], cross["staged"]) != want:
+                raise AssertionError(f"rank-mesh {label}: cross leg {cross}, want "
+                                     f"{want} with {gpus} GPU(s) and {n} processes")
+        full[label] = ranks
+        # per call, the median over the ranks of each steady call's ms
+        calls = {name: [round(_median([r["ms"][name][i] for r in ranks]), 3)
+                        for i in (1, 2)] for name in RANK_CALLS if name in names}
+        for name, ms in calls.items():
+            print(f"  {label} {name:<24} ms (median of {n} ranks) "
+                  + ", ".join(f"{v:.1f}" for v in ms)
+                  + f"  max_abs_err {max(r['max_abs_err'][name] for r in ranks):.3g}",
+                  flush=True)
+        gbps = {way: [r["cross"][f"{way}_GBps"] for r in ranks]
+                for way in ("wire", "d2h", "h2d")}
+        cross = {"backend": ranks[0]["cross"]["backend"],
+                 "staged": ranks[0]["cross"]["staged"],
+                 "calls": ranks[0]["cross"]["calls"],
+                 "bytes_per_rank": [r["cross"]["bytes"] for r in ranks],
+                 **{f"{way}_GBps": [min(v), max(v)] if None not in v else None
+                    for way, v in gbps.items()}}
+        res[label] = {"rank_bytes": size * 4, "seed": seed, "seconds": round(secs, 1),
+                      "cross": cross, "ms": calls}
+        print(f"rank-mesh {label}, {n} processes x {size * 4} bytes a rank ({smi}): "
+              f"cross leg {cross['backend']} (staged {cross['staged']}), {secs:.1f} s, "
+              f"GB/s [min, max] over ranks: wire {cross['wire_GBps']}, "
+              f"d2h {cross['d2h_GBps']}, h2d {cross['h2d_GBps']}", flush=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "rank_mesh.json"), "w") as f:
+        json.dump({"summary": res, "ranks": full}, f)
+    return res
+
+
 def main() -> int:
     if len(sys.argv) == 5 and sys.argv[1] == "--front-door-worker":
         return front_door_worker(*map(int, sys.argv[2:]))
@@ -1738,6 +1833,11 @@ def main() -> int:
         with phase("hierarchical"):
             hier = hierarchical_phase(smi)
         print(f"hierarchical ({smi}): " + json.dumps(hier))
+        return 0
+    if sys.argv[1:] == ["--rank-mesh"]:  # phase 14 alone, no kernels line
+        with phase("rank_mesh"):
+            ranks = rank_mesh_phase(smi)
+        print(f"rank_mesh ({smi}): " + json.dumps(ranks))
         return 0
 
     with phase("build"):
@@ -1859,6 +1959,8 @@ def main() -> int:
         chaos = chaos_phase(smi)
     with phase("hierarchical"):
         hier = hierarchical_phase(smi)
+    with phase("rank_mesh"):
+        ranks = rank_mesh_phase(smi)
     workload_launches = {}
     for counts_ in list(work["launches"].values()) + [
             v for k, v in head.items() if k.startswith("launches")]:
@@ -2003,6 +2105,7 @@ def main() -> int:
     print(f"host plane ({smi}): " + json.dumps(host))
     print(f"chaos_heal ({smi}): " + json.dumps(chaos))
     print(f"hierarchical ({smi}): " + json.dumps(hier))
+    print(f"rank_mesh ({smi}): " + json.dumps(ranks))
     for kern in kernels:
         kern["workload_launches"] = workload_launches[kern["name"]]
         kern["chaos_launches"] = chaos["launches"].get(kern["name"], 0)

@@ -1,32 +1,38 @@
 """The row exchanges of a rank axis, within a process or across processes.
 
-Every step of an explicit schedule moves one row per rank by a ring shift:
-rank r receives the row rank r - shift sent. Where every rank of the axis
-is a row of one tensor in this process, that is ``torch.roll`` over the
-rank axis. Where the axis is the slice axis of a mesh that spans
-processes (``runtime.mesh.ProcessSpan``), this process holds one row of
-it: the row goes to slice ``index + shift`` and the row of slice
-``index - shift`` comes back, one ``batch_isend_irecv`` pair on the
-span's cross group. The schedules call ``shift_rows`` for both, so the
-chunk they send, the row they fold it into and the fold
-``combine(mine, recvd)`` are the same in both layouts, and so are the
-bits of a result.
+Every step of an explicit schedule moves one piece per rank along a
+permutation of the ranks, ``lax.ppermute(perm=pairs)`` in the reference:
+rank d receives what rank s sent for each ``(s, d)`` pair, and a rank that
+is no destination receives nothing. Where every rank of the axis is a row
+of one tensor in this process, that is a gather of rows (``torch.roll``
+for a ring shift). Where the axis spans processes (the rank axis of a 1-D
+mesh or the slice axis of a 2-D one, ``runtime.mesh.ProcessSpan``), this
+process holds one index of it: its piece goes to its destination and its
+source's piece comes back, one ``batch_isend_irecv`` on the span's cross
+group. ``shift_rows`` is the ring shift (rank r receives what r - shift
+sent), ``permute_rows`` any permutation. Across processes the sender
+ships exactly the piece its destination reads, and the schedules fold or
+copy it where the one-process schedule reads that rank's row, so the
+chunks sent, the rows folded into and the fold ``combine(mine, recvd)``
+are the same in both layouts, and so are the bits of a result.
 
-Also here, the library calls of the slice axis across processes (the
-``fused`` cross phase and the ``fused`` verbs of such a mesh), one
-``torch.distributed`` call each on the span's cross group:
+Also here, the library calls of that axis across processes (the
+``fused`` verbs of such a mesh and the hierarchical ``fused`` cross
+phase), one ``torch.distributed`` call each on the span's cross group:
 ``cross_allreduce``, ``cross_alltoall``, ``cross_reduce_scatter``,
 ``cross_allgather`` and the rooted ``cross_broadcast``, ``cross_reduce``,
 ``cross_gather`` and ``cross_scatter``; and the ``spanning_fused_*`` verbs
 built on them, each this process's rows of the one-process
-``collectives.fused`` verb. Where ``span.staged``, each exchange copies
+``collectives.fused`` verb (a 1-D mesh is their ``(n, 1)`` case: n slices
+of one rank). Where ``span.staged``, each exchange copies
 its send rows into pinned host memory, exchanges them on the gloo cross
 group and copies what arrived back to the device. Each exchange counts
 the bytes this process put into it and its host seconds in
-``span.stats``, and so does each staging copy, each way. A slice that
-sends nothing (a broadcast's or a scatter's other slices) stages nothing
-out, and one that receives nothing (a reduce's or a gather's other
-slices) allocates and stages no landing buffer.
+``span.stats``, and so does each staging copy, each way. A process that
+sends nothing (a broadcast's or a scatter's other slices, a permutation's
+non-sources) stages nothing out, and one that receives nothing (a
+reduce's or a gather's other slices, a permutation's non-destinations)
+allocates and stages no landing buffer.
 """
 
 from __future__ import annotations
@@ -109,33 +115,73 @@ def _unwire(t: torch.Tensor, device: torch.device, span) -> torch.Tensor:
     return out
 
 
+def _p2p(t: torch.Tensor, to, frm, span) -> torch.Tensor | None:
+    """Send ``t`` to index ``to`` of the span and receive a piece shaped
+    like it from index ``frm`` (either None: no send, no receive), one
+    ``batch_isend_irecv`` on the cross group; returns what arrived, on
+    ``t``'s device, or None."""
+    dist = torch.distributed
+    group = span.cross_group
+    ops, send, recv = [], None, None
+    if to is not None:
+        send = _wire(t, span)
+        ops.append(dist.P2POp(dist.isend, send, span.peers[to], group))
+    if frm is not None:
+        recv = _landing(t, span)
+        ops.append(dist.P2POp(dist.irecv, recv, span.peers[frm], group))
+    if not ops:
+        return None
+    t0 = time.perf_counter()
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    span.count("exchange", _nbytes(send) if send is not None else 0,
+               time.perf_counter() - t0)
+    return None if recv is None else _unwire(recv, t.device, span)
+
+
+def _one_row(t: torch.Tensor, dim: int) -> None:
+    if t.shape[dim] != 1:
+        raise ValueError(f"across processes a rank axis holds this "
+                         f"process's one row, got {t.shape[dim]} on dim {dim}")
+
+
 def shift_rows(t: torch.Tensor, shift: int, dim: int = 0,
                span=None) -> torch.Tensor:
     """Rotate the ranks of ``dim`` by ``shift``: row r of the result is
     row r - shift. Without ``span``, ``torch.roll``. With one, ``dim``
-    holds this process's one row of the span's slice axis; it is sent to
-    slice ``index + shift`` and the row of ``index - shift`` is
-    returned."""
+    holds this process's one row of the span's axis; it is sent to index
+    ``index + shift`` and the row of ``index - shift`` is returned."""
     if span is None:
         return torch.roll(t, shifts=shift, dims=dim)
-    if t.shape[dim] != 1:
-        raise ValueError(f"across processes a rank axis holds this "
-                         f"process's one row, got {t.shape[dim]} on dim {dim}")
+    _one_row(t, dim)
     m = span.size
     if shift % m == 0:
         return t.clone()
-    dist = torch.distributed
-    send = _wire(t, span)
-    recv = _landing(send, span)
-    group = span.cross_group
-    t0 = time.perf_counter()
-    reqs = dist.batch_isend_irecv([
-        dist.P2POp(dist.isend, send, span.peers[(span.index + shift) % m], group),
-        dist.P2POp(dist.irecv, recv, span.peers[(span.index - shift) % m], group)])
-    for req in reqs:
-        req.wait()
-    span.count("exchange", _nbytes(send), time.perf_counter() - t0)
-    return _unwire(recv, t.device, span)
+    return _p2p(t, (span.index + shift) % m, (span.index - shift) % m, span)
+
+
+def permute_rows(t: torch.Tensor, pairs, span=None) -> torch.Tensor | None:
+    """``lax.ppermute(t, perm=pairs)`` over the rank axis, dim 0: row d of
+    the result is row s of ``t`` for each ``(s, d)`` pair (each rank at
+    most once a source and once a destination). Without ``span`` every
+    rank is a row here, and a row no pair lands in is zero, as in the
+    reference. With one, ``t`` is this process's one row: it goes to its
+    destination, and the row its source sent comes back, ``(1, ...)``, or
+    None where no pair lands here (the caller folds the op's identity, or
+    keeps its row, where the one-process schedule does)."""
+    if span is None:
+        out = torch.zeros_like(t)
+        if pairs:
+            src, dst = zip(*pairs)
+            out[list(dst)] = t[list(src)]
+        return out
+    _one_row(t, 0)
+    me = span.index
+    to = next((d for s, d in pairs if s == me), None)
+    frm = next((s for s, d in pairs if d == me), None)
+    if to == me and frm == me:  # a rank that keeps its own row
+        return t.clone()
+    return _p2p(t, to, frm, span)
 
 
 def cross_allreduce(t: torch.Tensor, op: str, span) -> torch.Tensor:

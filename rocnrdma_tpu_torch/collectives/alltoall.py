@@ -14,27 +14,44 @@ equal the reference bit for bit in every dtype.
 - ``bruck_alltoall``: ceil(log2 n) steps, each chunk relayed up to log2 n
   times (the ``bruck`` arm);
 - ``rotation_rows`` / ``bruck_rows``: the same for B meshes in lockstep
-  (the hierarchical alltoall's phases), one step span a step, each also
-  over a slice axis that spans processes;
+  (the hierarchical alltoall's phases), one step span a step;
 - ``ragged_mask`` and ``fused_alltoallv``: the ragged alltoallv on a static
   capacity, masked at the receiver.
+
+Each also runs over a rank axis that spans processes (``span``: the rank
+axis of a 1-D mesh or the slice axis of a 2-D one), ``x`` then this
+process's row ``(1, n, c...)``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from rocnrdma_tpu_torch.collectives._exchange import ring_positions, shift_rows
+from rocnrdma_tpu_torch.collectives._exchange import (
+    ring_positions,
+    shift_rows,
+    spanning_fused_alltoall,
+)
 from rocnrdma_tpu_torch.collectives._steps import step_span
 from rocnrdma_tpu_torch.collectives.fused import alltoall_ranks, fused_alltoall
 from rocnrdma_tpu_torch.collectives.schedule import bruck_mask, bruck_phases
 
 
-def rotation_alltoall(x: torch.Tensor) -> torch.Tensor:
+def _axis(x: torch.Tensor, span) -> None:
+    """Check an alltoall input: (n, n, c...), or across processes this
+    process's row (1, n, c...)."""
+    if span is None:
+        alltoall_ranks(x)
+    elif x.dim() < 2 or x.shape[0] != 1 or x.shape[1] != span.size:
+        raise ValueError(f"expected this process's row (1, {span.size}, ...), "
+                         f"got {tuple(x.shape)}")
+
+
+def rotation_alltoall(x: torch.Tensor, span=None) -> torch.Tensor:
     """Alltoall in n-1 rotation steps: at step s rank r ships chunk
     ``(r+s) mod n`` to rank r+s, which stores it in slot ``(r+s) - s = r``."""
-    alltoall_ranks(x)
-    return rotation_rows(x[None])[0]
+    _axis(x, span)
+    return rotation_rows(x[None], span=span)[0]
 
 
 def rotation_rows(xb: torch.Tensor, tag: str = "rotation",
@@ -57,11 +74,11 @@ def rotation_rows(xb: torch.Tensor, tag: str = "rotation",
     return out
 
 
-def bruck_alltoall(x: torch.Tensor) -> torch.Tensor:
+def bruck_alltoall(x: torch.Tensor, span=None) -> torch.Tensor:
     """Alltoall in ceil(log2 n) exchange steps (Bruck's algorithm), with
     the reference's phase order and index masks."""
-    alltoall_ranks(x)
-    return bruck_rows(x[None])[0]
+    _axis(x, span)
+    return bruck_rows(x[None], span=span)[0]
 
 
 def bruck_rows(xb: torch.Tensor, span=None) -> torch.Tensor:
@@ -86,17 +103,22 @@ def bruck_rows(xb: torch.Tensor, span=None) -> torch.Tensor:
     return buf[rows[:, None], (r[:, None] - i[None, :]) % n].movedim(2, 0)
 
 
-def ragged_mask(out: torch.Tensor, counts) -> tuple[torch.Tensor, torch.Tensor]:
+def ragged_mask(out: torch.Tensor, counts,
+                span=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Receiver-side masking of a ragged alltoall: zero the rows of
     ``out[me, src]`` at positions >= ``counts[src, me]``; return
     ``(masked, recv_counts)`` with ``recv_counts[me] = counts[:, me]``.
-    ``out``: (n, n, max_count, ...); ``counts``: the (n, n) element-count
-    matrix every rank knows (the MPI alltoallv contract)."""
-    n = out.shape[0]
+    ``out``: (n, n, max_count, ...), or across processes (``span``) this
+    process's row (1, n, max_count, ...) and its row of ``recv_counts``;
+    ``counts``: the (n, n) element-count matrix every rank knows (the MPI
+    alltoallv contract)."""
+    n = out.shape[1]
     counts = torch.as_tensor(counts, device=out.device)
     if tuple(counts.shape) != (n, n):
         raise ValueError(f"counts must be ({n}, {n}), got {tuple(counts.shape)}")
     recv_counts = counts.transpose(0, 1).contiguous()
+    if span is not None:
+        recv_counts = recv_counts[span.index:span.index + 1]
     row = torch.arange(out.shape[2], device=out.device)
     mask = row[None, None, :] < recv_counts[:, :, None]   # (n, n, max_count)
     mask = mask.reshape(mask.shape + (1,) * (out.dim() - 3))
@@ -104,9 +126,14 @@ def ragged_mask(out: torch.Tensor, counts) -> tuple[torch.Tensor, torch.Tensor]:
                                               device=out.device)), recv_counts
 
 
-def fused_alltoallv(x: torch.Tensor, counts) -> tuple[torch.Tensor, torch.Tensor]:
+def fused_alltoallv(x: torch.Tensor, counts,
+                    span=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Ragged alltoall on the library path: the full static capacity moves
-    every time (one transpose), then the receiver masks to the counts.
-    ``x``: (n, n, max_count, ...), chunk ``x[r, d]`` carries
-    ``counts[r, d]`` valid rows for rank d. Returns ``(out, recv_counts)``."""
-    return ragged_mask(fused_alltoall(x), counts)
+    every time (one transpose, or across processes one
+    ``all_to_all_single``), then the receiver masks to the counts. ``x``:
+    (n, n, max_count, ...), chunk ``x[r, d]`` carries ``counts[r, d]``
+    valid rows for rank d. Returns ``(out, recv_counts)``."""
+    if span is None:
+        return ragged_mask(fused_alltoall(x), counts)
+    _axis(x, span)
+    return ragged_mask(spanning_fused_alltoall(x, (span.size, 1), span), counts, span)

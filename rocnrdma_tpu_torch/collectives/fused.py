@@ -5,7 +5,8 @@ over the rank axis: a reduction written back to every rank row
 (allreduce), a reduction cut into rank shards (reduce-scatter), a
 concatenation broadcast to every row (allgather), a transpose of the rank
 and chunk axes (alltoall), a row copied to every row (broadcast), a roll
-of the rank axis (sendrecv). The rooted verbs zero the off-root rows of
+of the rank axis (sendrecv; across processes one send and one receive,
+``_exchange.shift_rows``). The rooted verbs zero the off-root rows of
 reduce and gather, as the reference does. The reference's fused arm is
 XLA's own lowering, so a library call is its counterpart here. A
 reduction's order of summation is torch's, not the ring's: compare it with
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from rocnrdma_tpu_torch.collectives._exchange import shift_rows
 from rocnrdma_tpu_torch.collectives.reduce_op import fused_reduce
 
 
@@ -60,10 +62,11 @@ def fused_alltoall(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(0, 1).contiguous()
 
 
-def fused_sendrecv(x: torch.Tensor, shift: int = 1) -> torch.Tensor:
+def fused_sendrecv(x: torch.Tensor, shift: int = 1, span=None) -> torch.Tensor:
     """Pairwise shift exchange: every rank sends its row to rank
-    ``r + shift`` (mod n), so row r of the result is row ``r - shift``."""
-    return torch.roll(x, shift % x.shape[0], dims=0)
+    ``r + shift`` (mod n), so row r of the result is row ``r - shift``.
+    ``span``: the rank axis across processes, ``x`` this process's row."""
+    return shift_rows(x, shift, 0, span)
 
 
 def fused_broadcast(x: torch.Tensor, root: int = 0) -> torch.Tensor:

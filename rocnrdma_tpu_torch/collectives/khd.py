@@ -28,17 +28,20 @@ of the reference's permutes is one step span here too.
 round t rotates within mesh axis t only. With ranks flattened as
 ``s * per_slice + i`` that is exactly the flat schedule with those digits.
 
-Across processes (``span``, the ``ProcessSpan`` of a mesh whose slice axis
-is the process boundary; ``khd2d`` only), ``x`` is this process's
-per_slice rows, slice ``span.index``. Round 0 (the slice axis, stride
-per_slice) is the only round whose group crosses processes. In each of
-its permutes every rank of a slice reads the same range of its member's
-row (a reduce-scatter reads at the reader's kept part, an allgather the
-member's own part), so the sender ships that range of all its rows to the
-slice that reads it, one ``_exchange.shift_rows`` a permute, and the
-receiver folds or copies it exactly where the one-process schedule reads
-the member's row. Round 1 stays in the process. The folds are the
-one-process schedule's, in its substep order, so results are its bits.
+Across processes (``span``, the ``ProcessSpan`` of a mesh whose leading
+axis is the process boundary), ``x`` is this process's rows: on a 1-D
+mesh (one rank a process) its one row, and every round's groups cross
+processes; on khd2d's 2-D mesh slice ``span.index``'s per_slice rows, and
+round 0 (the slice axis, stride per_slice) is the only round that
+crosses. The crossing rounds lead, so in each of their permutes every
+rank of a process reads the same range of its member's row (a
+reduce-scatter reads at the reader's kept part, an allgather the member's
+own part), which every rank can compute: the sender ships that range of
+all its rows to the process that reads it, one
+``_exchange.permute_rows`` a permute, and the receiver folds or copies it
+exactly where the one-process schedule reads the member's row. The other
+rounds stay in the process. The folds are the one-process schedule's, in
+its substep order, so results are its bits.
 
 A call without ``digits`` runs ``khd_digits(n)`` (largest radix first, at
 most 8); the Transport's verbs pass the radix ladder's pick
@@ -51,7 +54,7 @@ import math
 
 import torch
 
-from rocnrdma_tpu_torch.collectives._exchange import shift_rows
+from rocnrdma_tpu_torch.collectives._exchange import permute_rows
 from rocnrdma_tpu_torch.collectives._steps import step_span
 from rocnrdma_tpu_torch.collectives.reduce_op import finalize, fold_
 from rocnrdma_tpu_torch.collectives.schedule import khd_digits, khd_strides
@@ -99,25 +102,37 @@ class _Digits:
         return r + (j % self.digits[t] - self.of[r][t]) * self.strides[t]
 
 
-def _held_ranks(rows: int, digits: tuple, span) -> range:
-    """The flat ranks whose rows this process holds: all of them, or,
-    across processes, slice ``span.index``'s (``digits[0]`` must be the
-    span's slices, the other digits its rows)."""
+def _layout(rows: int, digits: tuple, span) -> tuple[range, int]:
+    """``(held, cross)``: the flat ranks whose rows this process holds and
+    how many leading rounds cross processes. In one process every rank
+    and none. Across processes with one rank a process, rank
+    ``span.index`` and every round; else slice ``span.index``'s rows and
+    round 0 (``digits[0]`` must be the span's slices, the other digits
+    its rows)."""
     if span is None:
-        return range(rows)
+        return range(rows), 0
+    if rows == 1 and math.prod(digits) == span.size:
+        return range(span.index, span.index + 1), len(digits)
     if digits[0] != span.size or math.prod(digits[1:]) != rows:
         raise ValueError(f"across processes round 0 is the {span.size} slices "
                          f"and the other rounds the {rows} rows held here; "
                          f"got digits {digits}")
-    return range(span.index * rows, (span.index + 1) * rows)
+    return range(span.index * rows, (span.index + 1) * rows), 1
 
 
-def _crossing(buf: torch.Tensor, at: int, lo: int, hi: int, rot: int, span):
-    """Round 0 across processes: every held row's range ``at + lo .. at +
-    hi`` goes to the slice ``rot`` below (which reads it from its member
-    ``rot`` above), and the same range sent by the slice ``rot`` above
+def _proc_pairs(dg: _Digits, t: int, rot: int, rows: int, procs: int) -> list:
+    """The (src, dst) processes of a crossing round's permute: process s's
+    rows read from their members ``rot`` digits above, all in one
+    process."""
+    return [(dg.member(s * rows, t, dg.of[s * rows][t] + rot) // rows, s)
+            for s in range(procs)]
+
+
+def _crossing(buf: torch.Tensor, lo: int, hi: int, pairs, span) -> torch.Tensor:
+    """A crossing permute: every held row's range ``lo .. hi`` goes to this
+    process's destination in ``pairs``, and the range its source sent
     comes back, (rows, hi - lo)."""
-    return shift_rows(buf[None, :, at + lo:at + hi], -rot, 0, span)[0]
+    return permute_rows(buf[None, :, lo:hi], pairs, span)[0]
 
 
 def _rs_phase(x: torch.Tensor, op: str, digits: tuple, bidir: bool, span=None):
@@ -130,7 +145,7 @@ def _rs_phase(x: torch.Tensor, op: str, digits: tuple, bidir: bool, span=None):
     in it, so the result does not depend on the loop order. With ``span``
     the rows are this process's (module docstring)."""
     rows = x.shape[0]
-    held = _held_ranks(rows, digits, span)
+    held, cross = _layout(rows, digits, span)
     n = math.prod(digits)
     flat = x.reshape(rows, -1)
     size = flat.shape[1]
@@ -149,12 +164,13 @@ def _rs_phase(x: torch.Tensor, op: str, digits: tuple, bidir: bool, span=None):
         for o in range(1, d):
             for lo, hi, rot, name in _substeps(bidir, d, part, t, o):
                 with step_span(f"khd rs {name}"):
-                    if span is not None and t == 0:
-                        # the reader rot below reads at its own kept part
-                        at = seg[dg.member(r0, 0, dg.of[r0][0] - rot)]
+                    if t < cross:
+                        # the reader reads at its own kept part
+                        pairs = _proc_pairs(dg, t, rot, rows, span.size)
+                        at = seg[rows * next(q for p, q in pairs if p == span.index)]
                         k = seg[r0]
                         fold_(buf[:, k + lo:k + hi],
-                              _crossing(buf, at, lo, hi, rot, span), op)
+                              _crossing(buf, at + lo, at + hi, pairs, span), op)
                         continue
                     for r in held:
                         k = seg[r]
@@ -176,7 +192,8 @@ def _ag_phase(buf: torch.Tensor, seg: list, chunk: int, digits: tuple,
     one ``_foreach_copy_``: copied by halves one at a time, a radix-8 round
     would launch 13 n copies where a whole-part round launches 7 n. With
     ``span`` the rows are this process's (module docstring)."""
-    held = _held_ranks(buf.shape[0], digits, span)
+    rows = buf.shape[0]
+    held, cross = _layout(rows, digits, span)
     n = math.prod(digits)
     dg = _Digits(n, digits)
     row = buf.unbind(0)
@@ -188,14 +205,15 @@ def _ag_phase(buf: torch.Tensor, seg: list, chunk: int, digits: tuple,
         base = [seg[r] - dg.of[r][t] * part for r in range(n)]
         for o in range(1, d):
             for lo, hi, rot, name in _substeps(bidir, d, part, t, o):
-                if span is not None and t == 0:
+                if t < cross:
                     # every held rank ships its own part; the member rot
                     # above's own part lands
-                    own = base[r0] + dg.of[r0][0] * part
-                    st = base[r0] + ((dg.of[r0][0] + rot) % d) * part
+                    own = base[r0] + dg.of[r0][t] * part
+                    st = base[r0] + ((dg.of[r0][t] + rot) % d) * part
+                    pairs = _proc_pairs(dg, t, rot, rows, span.size)
                     with step_span(f"khd ag {name}"):
-                        buf[:, st + lo:st + hi] = _crossing(buf, own, lo, hi,
-                                                            rot, span)
+                        buf[:, st + lo:st + hi] = _crossing(buf, own + lo, own + hi,
+                                                            pairs, span)
                     continue
                 dst, src = [], []
                 for r in held:
@@ -213,7 +231,7 @@ def _ag_phase(buf: torch.Tensor, seg: list, chunk: int, digits: tuple,
 
 def _axis_ranks(x: torch.Tensor, span) -> int:
     """The ranks of the axis: the rows of ``x``, or, across processes,
-    every slice's (module docstring)."""
+    every process's (module docstring)."""
     return x.shape[0] * (1 if span is None else span.size)
 
 
@@ -223,7 +241,8 @@ def khd_allreduce(x: torch.Tensor, op: str = "sum", digits=None,
     """Allreduce of rank-major ``x`` by mixed-radix halving-doubling
     (``op``: sum/prod/max/min/avg). ``digits``: explicit round radices
     (they must multiply to n); default ``khd_digits(n, max_radix)``.
-    ``span``: khd2d's slice axis across processes (module docstring)."""
+    ``span``: the mesh's leading axis across processes (module
+    docstring)."""
     n = _axis_ranks(x, span)
     if n == 1:
         return finalize(x.clone(), op, 1)
@@ -249,7 +268,7 @@ def khd_reduce_scatter(x: torch.Tensor, op: str = "sum", digits=None,
         return finalize(flat.clone(), op, 1)
     digits = _resolve_digits(n, digits, max_radix)
     buf, seg, chunk = _rs_phase(x, op, digits, bidir, span)
-    held = _held_ranks(x.shape[0], digits, span)
+    held, _ = _layout(x.shape[0], digits, span)
     out = torch.stack([buf[r - held[0], seg[r]:seg[r] + chunk] for r in held])
     return finalize(out, op, n)
 
@@ -269,7 +288,7 @@ def khd_allgather(x: torch.Tensor, digits=None, max_radix: int = 8,
     chunk = flat.shape[1]
     # seed: my chunk at my mixed-radix position, my flat rank x chunk
     buf = flat.new_zeros((rows, n, chunk))
-    held = torch.tensor(_held_ranks(rows, digits, span), device=x.device)
+    held = torch.tensor(_layout(rows, digits, span)[0], device=x.device)
     buf[torch.arange(rows, device=x.device), held] = flat
     buf = _ag_phase(buf.reshape(rows, n * chunk), [q * chunk for q in range(n)],
                     chunk, digits, bidir, span)

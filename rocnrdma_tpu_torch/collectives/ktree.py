@@ -7,6 +7,9 @@ Counterpart of ``rocnrdma_tpu/collectives/ktree.py``, with the same
 substep tables (``kary_levels``). As in ``dtree.py``, ranks that receive
 nothing in a substep fold the op's identity, so fp32 results equal the
 reference's bit for bit; ``sim_kary_allreduce`` is the numpy oracle.
+Across processes (``span``: the rank axis of a 1-D mesh, one rank a
+process) each substep is one ``_exchange.permute_rows``, as in
+``dtree.py``.
 """
 
 from __future__ import annotations
@@ -51,17 +54,19 @@ def kary_levels(n: int, arity: int):
 
 
 def kary_tree_allreduce(x: torch.Tensor, arity: int = KTREE_ARITY,
-                        op: str = "sum") -> torch.Tensor:
+                        op: str = "sum", span=None) -> torch.Tensor:
     """Allreduce of rank-major ``x`` via one arity-ary reduction tree and a
-    broadcast (``op``: sum/prod/max/min/avg)."""
-    n = x.shape[0]
+    broadcast (``op``: sum/prod/max/min/avg). ``span``: the rank axis
+    across processes, ``x`` this process's row."""
+    n = x.shape[0] if span is None else span.size
     if n == 1:
         return finalize(x.clone(), op, 1)
     up, down = kary_levels(n, arity)
     h = x.clone()
     for lv, substeps in enumerate(up):  # toward the root, deepest level first
-        fold_level(h, substeps, op, tag=f"ktree up level {lv}")
-    broadcast_down(h, [p for level in down for p in level], tag="ktree down")
+        fold_level(h, substeps, op, tag=f"ktree up level {lv}", span=span)
+    broadcast_down(h, [p for level in down for p in level], tag="ktree down",
+                   span=span)
     return finalize(h, op, n)
 
 

@@ -10,6 +10,9 @@ Counterpart of ``rocnrdma_tpu/collectives/program.py``:
   gathers every sender's outgoing chunk first (senders may also receive in
   the same step) and then lands them: overwrite, or ``combine(landing,
   incoming)``, the reference's order, so fp32 results equal it bit for bit.
+  Across processes (``span``: the rank axis of a 1-D mesh, one rank a
+  process) a step is one ``_exchange.permute_rows`` of its ``perm``: each
+  sender ships its send chunk, each receiver lands it the same way.
 - :func:`sim_program`: the numpy oracle.
 - Builders expressing stock schedules in the IR (ring allreduce and
   allgather, binomial broadcast) from ``schedule.py``'s index functions.
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from rocnrdma_tpu_torch.collectives import schedule as S
+from rocnrdma_tpu_torch.collectives._exchange import permute_rows
 from rocnrdma_tpu_torch.collectives.reduce_op import combine_fn
 
 WRITE = "write"
@@ -104,35 +108,44 @@ def validate(p: Program) -> None:
 # --------------------------------------------------------------------------
 
 
-def execute(p: Program, x: torch.Tensor) -> torch.Tensor:
+def execute(p: Program, x: torch.Tensor, span=None) -> torch.Tensor:
     """Run ``p`` on rank-major ``x`` (row r = rank r's buffer, any shape,
     flattened to ``n_chunks`` equal chunks, padded as needed). Returns the
-    same shape."""
+    same shape. ``span``: the rank axis across processes, ``x`` this
+    process's row."""
     validate(p)
-    n = x.shape[0]
+    rows = x.shape[0]
+    n = rows if span is None else span.size
     if n != p.n_ranks:
         raise ProgramError(f"{p.name}: program is for {p.n_ranks} ranks, "
                            f"tensor has {n}")
     combine = combine_fn(p.op)
-    flat = x.reshape(n, -1)
+    flat = x.reshape(rows, -1)
     size = flat.shape[1]
     chunk = -(-size // p.n_chunks)
-    buf = flat.new_zeros((n, p.n_chunks, chunk))
-    buf.view(n, -1)[:, :size] = flat
+    buf = flat.new_zeros((rows, p.n_chunks, chunk))
+    buf.view(rows, -1)[:, :size] = flat
 
     for st in p.steps:
         if not st.perm:
             continue
-        srcs = [s for s, _ in st.perm]
-        dsts = [d for _, d in st.perm]
-        outgoing = buf[srcs, [st.send_chunk[s] for s in srcs]]  # a copy
-        landing = (dsts, [st.recv_chunk[d] for d in dsts])
+        if span is None:
+            srcs = [s for s, _ in st.perm]
+            dsts = [d for _, d in st.perm]
+            outgoing = buf[srcs, [st.send_chunk[s] for s in srcs]]  # a copy
+            landing = (dsts, [st.recv_chunk[d] for d in dsts])
+        else:
+            me = span.index
+            outgoing = permute_rows(buf[:, st.send_chunk[me]], st.perm, span)
+            if outgoing is None:
+                continue
+            landing = ([0], [st.recv_chunk[me]])
         if st.combine == REDUCE:
             buf[landing] = combine(buf[landing], outgoing)
         else:
             buf[landing] = outgoing
 
-    return buf.view(n, -1)[:, :size].reshape(x.shape)
+    return buf.view(rows, -1)[:, :size].reshape(x.shape)
 
 
 # --------------------------------------------------------------------------

@@ -15,10 +15,11 @@ two agree bit for bit. This arm is plain tensor code, not a kernel.
 Each step runs in one step span (``_steps.step_span``). The ``*_rows``
 forms run B rings of the same size in lockstep, one span a step: the
 hierarchical schedules run a phase's rings that way, as the reference runs
-them concurrently. ``allreduce_rows`` also takes a ``span`` (the slice
-axis of a mesh across processes): then each ring's axis holds this
-process's one row, and the rotate is ``_exchange.shift_rows`` across
-processes, with the same chunks and fold order.
+them concurrently. Every schedule here also takes a ``span`` (the rank
+axis of a 1-D mesh, or the slice axis of a 2-D one, across processes):
+then each ring's axis holds this process's one row, and the rotate is
+``_exchange.shift_rows`` across processes, with the same chunks and fold
+order.
 """
 
 from __future__ import annotations
@@ -43,14 +44,14 @@ def _chunk_rows(g: torch.Tensor, n: int | None = None) -> torch.Tensor:
 
 
 def _chunked(x: torch.Tensor, n: int) -> tuple[torch.Tensor, int, tuple]:
-    """Rank-major x -> a fresh zero-padded (n ranks, n chunks, chunk) buffer."""
-    flat = x.reshape(1, n, -1)
-    return _chunk_rows(flat)[0], flat.shape[2], x.shape
+    """Rank-major x -> a fresh zero-padded (rows, n chunks, chunk) buffer
+    for an n-rank axis (rows: x's leading dim, the ranks held here)."""
+    flat = x.reshape(1, x.shape[0], -1)
+    return _chunk_rows(flat, n)[0], flat.shape[2], x.shape
 
 
 def _unchunk(buf: torch.Tensor, size: int, shape: tuple) -> torch.Tensor:
-    n = buf.shape[0]
-    return buf.reshape(n, -1)[:, :size].reshape(shape)
+    return buf.reshape(buf.shape[0], -1)[:, :size].reshape(shape)
 
 
 def _rank_major(lanes):
@@ -114,67 +115,73 @@ def allreduce_rows(g: torch.Tensor, op: str = "sum",
 
 
 def reduce_scatter_rows(g: torch.Tensor, op: str = "sum",
-                        tag: str = "ring rs") -> torch.Tensor:
-    """Ring reduce-scatter of B rings: (B, n, S) -> (B, n, S/n)."""
-    b, n, size = g.shape
+                        tag: str = "ring rs", span=None) -> torch.Tensor:
+    """Ring reduce-scatter of B rings: (B, n, S) -> (B, n, S/n); with
+    ``span``, (B, 1, S) -> (B, 1, S/n), this process's rows."""
+    b, rows, size = g.shape
+    n = rows if span is None else span.size
     if n == 1:
         return finalize(g.clone(), op, 1)
     if size % n:
         raise ValueError(f"reduce_scatter buffer ({size} elems) must "
                          f"divide by axis size {n}")
-    buf = g.reshape(b, n, n, -1).clone()
+    buf = g.reshape(b, rows, n, -1).clone()
     # offset=-1: the schedule ends with rank r owning chunk r, the
     # conventional reduce-scatter layout, with no fixup hop
-    _rs_phase([(buf, 1)], n, offset=-1, combine=combine_fn(op), tag=tag)
-    r = torch.arange(n, device=buf.device)
-    return finalize(buf[:, r, r], op, n)
+    _rs_phase([(buf, 1)], n, offset=-1, combine=combine_fn(op), tag=tag, span=span)
+    held, r = ring_positions(n, span, buf.device)
+    return finalize(buf[:, held, r], op, n)
 
 
-def allgather_rows(g: torch.Tensor, tag: str = "ring ag") -> torch.Tensor:
-    """Ring allgather of B rings: (B, n, c) -> (B, n, n*c)."""
-    b, n, c = g.shape
+def allgather_rows(g: torch.Tensor, tag: str = "ring ag", span=None) -> torch.Tensor:
+    """Ring allgather of B rings: (B, n, c) -> (B, n, n*c); with ``span``,
+    (B, 1, c) -> (B, 1, n*c), this process's rows."""
+    b, rows, c = g.shape
+    n = rows if span is None else span.size
     if n == 1:
         return g.clone()
-    buf = g.new_zeros((b, n, n, c))
-    r = torch.arange(n, device=buf.device)
-    buf[:, r, r] = g
-    _ag_phase([(buf, 1)], n, owned_offset=0, tag=tag)
-    return buf.reshape(b, n, -1)
+    buf = g.new_zeros((b, rows, n, c))
+    held, r = ring_positions(n, span, buf.device)
+    buf[:, held, r] = g
+    _ag_phase([(buf, 1)], n, owned_offset=0, tag=tag, span=span)
+    return buf.reshape(b, rows, -1)
 
 
 def ring_allreduce(x: torch.Tensor, *, bidir: bool = False,
-                   op: str = "sum") -> torch.Tensor:
+                   op: str = "sum", span=None) -> torch.Tensor:
     """Allreduce of the rank-major tensor ``x`` (rank r = row ``x[r]``) via
     reduce-scatter + allgather over the ring. Returns a new tensor of the
-    same shape, every row the elementwise ``op``-reduction of all rows."""
-    n = x.shape[0]
+    same shape, every row the elementwise ``op``-reduction of all rows.
+    ``span``: the rank axis across processes, ``x`` this process's row."""
+    rows = x.shape[0]
+    n = rows if span is None else span.size
     if n == 1:
         return finalize(x.clone(), op, 1)
     if not bidir:
-        return allreduce_rows(x.reshape(1, n, -1), op)[0].reshape(x.shape)
+        return allreduce_rows(x.reshape(1, rows, -1), op, span=span)[0].reshape(x.shape)
 
     # bidirectional: per rank, the first half rides the +1 ring and the
     # second half the -1 ring; step s of both rings is one schedule step
-    flat = x.reshape(n, -1)
+    flat = x.reshape(rows, -1)
     half = flat.shape[1] // 2
     lo, hi = _chunked(flat[:, :half], n), _chunked(flat[:, half:], n)
     lanes = [(lo[0][None], 1), (hi[0][None], -1)]
-    _rs_phase(lanes, n, combine=combine_fn(op), tag="ring_bidir rs")
-    _ag_phase(lanes, n, owned_offset=1, tag="ring_bidir ag")
+    _rs_phase(lanes, n, combine=combine_fn(op), tag="ring_bidir rs", span=span)
+    _ag_phase(lanes, n, owned_offset=1, tag="ring_bidir ag", span=span)
     out = torch.cat([_unchunk(*lo), _unchunk(*hi)], dim=1)
     return finalize(out, op, n).reshape(x.shape)
 
 
-def ring_reduce_scatter(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+def ring_reduce_scatter(x: torch.Tensor, op: str = "sum", span=None) -> torch.Tensor:
     """Reduce-scatter of rank-major ``x``: returns ``(n, S/n)``, row r the
     fully ``op``-reduced r-th 1/n of the flattened rank buffers. Each
-    rank's buffer must flatten to a multiple of n."""
-    n = x.shape[0]
-    return reduce_scatter_rows(x.reshape(1, n, -1), op)[0]
+    rank's buffer must flatten to a multiple of n. ``span``: as in
+    ``ring_allreduce``."""
+    return reduce_scatter_rows(x.reshape(1, x.shape[0], -1), op, span=span)[0]
 
 
-def ring_allgather(x: torch.Tensor) -> torch.Tensor:
+def ring_allgather(x: torch.Tensor, span=None) -> torch.Tensor:
     """Allgather of rank-major ``x`` (n, c...): returns ``(n, n*c)``, every
-    row the concatenation of all rank buffers in rank order."""
-    n = x.shape[0]
-    return allgather_rows(x.reshape(1, n, -1))[0]
+    row the concatenation of all rank buffers in rank order. ``span``: as
+    in ``ring_allreduce``."""
+    return allgather_rows(x.reshape(1, x.shape[0], -1), span=span)[0]

@@ -1,19 +1,22 @@
 """Topology discovery and the rank mesh.
 
-In this slice every rank of a mesh lives on ONE device: ``rank_mesh(n)``
-on a GPU maps all n ranks to ``cuda:0`` (the counterpart of the
-reference's ``--fake-devices N`` CPU oracle, which faked N devices on one
-host), and on the CPU to ``cpu``. The collectives then act on one
-rank-major tensor whose row r is rank r's buffer. A 2-D
-``('slice', 'intra')`` mesh (``slice_mesh``) is ``(slices, per_slice,
-...)`` rank-major: row ``(s, i)`` is the buffer of rank (slice s, intra i),
-flat rank ``s * per_slice + i``.
+A mesh's ranks are the rows of one rank-major tensor in each process, on
+that process's one device. Its layouts:
 
-A 2-D mesh may also span processes (``slice_mesh(..., group=g)``): each
-process of the group is one slice and holds its ``per_slice`` ranks as
-rows on its own device, so a tensor on that mesh is this process's rows,
-``(1, per_slice, ...)``, and so is a result. The mesh's ``span`` says
-which slice is local and how the slice axis's exchanges cross processes.
+- ``rank_mesh(n)``: a 1-D ring of n ranks, all in this process, on
+  ``cuda:0`` on a GPU (the counterpart of the reference's ``--fake-devices
+  N`` CPU oracle, which faked N devices on one host) or on ``cpu``; row r
+  is rank r's buffer.
+- ``slice_mesh(m, n)``: a 2-D ``('slice', 'intra')`` mesh, ``(slices,
+  per_slice, ...)`` rank-major: row ``(s, i)`` is the buffer of rank
+  (slice s, intra i), flat rank ``s * per_slice + i``.
+- Either across processes (``group=g``): the leading axis (the rank axis
+  of a 1-D mesh, the slice axis of a 2-D one) is the process boundary.
+  Process g of the group holds rank g, or slice g's ``per_slice`` ranks,
+  as rows on its own device, so a tensor on that mesh is this process's
+  rows, ``(1, ...)`` or ``(1, per_slice, ...)``, and so is a result. The
+  mesh's ``span`` says which index is local and how that axis's
+  exchanges cross processes.
 
 Device rule: ``platform="auto"`` means the GPU; if there is none, the call
 raises. Only ``platform="cpu"`` selects the CPU.
@@ -112,16 +115,18 @@ def _span_stats() -> dict:
 
 @dataclasses.dataclass(eq=False)
 class ProcessSpan:
-    """How the slice axis of a 2-D mesh crosses processes: this process is
-    slice ``index`` of ``size``, one slice per process of the mesh's group.
+    """How a mesh's leading axis crosses processes (the rank axis of a 1-D
+    mesh, the slice axis of a 2-D one): this process is index ``index`` of
+    ``size`` on it, one rank or slice per process of the mesh's group.
 
-    The slice axis's exchanges run on ``cross_group``, whose backend is
+    That axis's exchanges run on ``cross_group``, whose backend is
     ``backend``: the mesh's own group when it can carry this process's
     tensors, else a gloo group made beside it (once per group). ``staged``: the tensors
     are on a GPU and the cross group is gloo (the group's processes share
     a GPU, and NCCL refuses two ranks on one), so each exchange copies to
     pinned host buffers, exchanges them and copies back. ``peers[t]`` is
-    slice t's global rank. ``stats``: exchanges, the bytes sent and the
+    index t's global rank. ``per_card``: the group's processes on this
+    process's card (1 on the CPU or with a GPU a process). ``stats``: exchanges, the bytes sent and the
     host seconds they took (``wire_s``; on an unstaged NCCL leg, the
     seconds to enqueue them), and the bytes and host seconds staged each
     way, each copy timed after the device's queued work."""
@@ -132,6 +137,7 @@ class ProcessSpan:
     index: int
     size: int
     peers: tuple
+    per_card: int = 1
     stats: dict = dataclasses.field(default_factory=_span_stats)
 
     def count(self, what: str, nbytes: int, seconds: float) -> None:
@@ -151,7 +157,7 @@ class RankMesh:
     """Ranks on a 1-D ring (``axis_names == ("rank",)``) or a 2-D
     ``("slice", "intra")`` grid, each with its torch device; ``shape`` is
     the mesh shape, the leading dims of a rank-major tensor on it. With a
-    ``span`` the slice axis spans processes: ``devices`` are this
+    ``span`` the leading axis spans processes: ``devices`` are this
     process's ranks only, and ``local_shape`` leads a tensor on it."""
 
     devices: tuple
@@ -170,27 +176,42 @@ class RankMesh:
     @property
     def local_shape(self) -> tuple:
         """The leading dims of a tensor on the mesh in this process: the
-        mesh shape, or ``(1, per_slice)`` where the mesh spans processes."""
+        mesh shape, or where the mesh spans processes ``(1,)`` (1-D) or
+        ``(1, per_slice)`` (2-D)."""
         return self.shape if self.span is None else (1,) + tuple(self.shape[1:])
 
     @property
     def device(self) -> torch.device:
-        """The one device every rank lives on (this slice's layout)."""
+        """The one device this process's ranks live on."""
         if len(set(self.devices)) != 1:
             raise ValueError(
                 f"ranks span several devices {sorted(set(map(str, self.devices)))}; "
-                f"this slice runs every rank on one device")
+                f"a process holds its ranks of a mesh on one device (ranks on "
+                f"other devices belong to other processes: rank_mesh or "
+                f"slice_mesh with group=)")
         return self.devices[0]
 
 
-def rank_mesh(n: int, device: torch.device | str | None = None) -> RankMesh:
+def rank_mesh(n: int, device: torch.device | str | None = None, *,
+              group=None) -> RankMesh:
     """``n`` ranks on ``device`` (default: the GPU; raises without one).
     Over this process's device it is also the counterpart of the
     reference's ``local_mesh``: the mesh a process rebuilds and runs on
-    its own after a device-plane heal."""
+    its own after a device-plane heal.
+
+    With a process group (``torch.distributed.group.WORLD`` or a subgroup)
+    the rank axis is the process boundary, as the reference's mesh over
+    every process's devices: process g of the group is rank g and holds
+    its row on ``device``; the group must have ``n`` processes. The cross
+    leg is picked as for ``slice_mesh``, so every process of the world
+    makes the first such mesh over a group together."""
     if n < 1:
         raise ValueError(f"need n >= 1 ranks, got {n}")
-    return RankMesh(devices=(_mesh_device(device),) * n)
+    dev = _mesh_device(device)
+    if group is None:
+        return RankMesh(devices=(dev,) * n)
+    return RankMesh(devices=(dev,), shape=(n,),
+                    span=_process_span(n, group, dev, RANK_AXIS))
 
 
 def slice_mesh(n_slices: int, per_slice: int,
@@ -219,7 +240,7 @@ def slice_mesh(n_slices: int, per_slice: int,
     return RankMesh(devices=(dev,) * per_slice,
                     axis_names=(SLICE_AXIS, INTRA_AXIS),
                     shape=(n_slices, per_slice),
-                    span=_process_span(n_slices, group, dev))
+                    span=_process_span(n_slices, group, dev, SLICE_AXIS))
 
 
 # the gloo group made beside each non-gloo group a mesh spans, made by the
@@ -227,8 +248,9 @@ def slice_mesh(n_slices: int, per_slice: int,
 _GLOO_BESIDE: dict = {}
 
 
-def _process_span(n_slices: int, group, device: torch.device) -> ProcessSpan:
-    """The slice axis of a mesh over ``group``'s processes. The cross
+def _process_span(n: int, group, device: torch.device, axis: str) -> ProcessSpan:
+    """The leading axis ``axis`` (``rank`` or ``slice``) of a mesh over
+    ``group``'s processes, one index of its ``n`` a process. The cross
     leg's backend is decided here, once, from what this process can see:
     NCCL where the group is NCCL and every process has a GPU of its own,
     else gloo (the group itself when it is gloo, else a gloo group made
@@ -239,11 +261,11 @@ def _process_span(n_slices: int, group, device: torch.device) -> ProcessSpan:
         raise RuntimeError("a mesh that spans processes needs a process "
                            "group: join one first (runtime.init_runtime)")
     size = dist.get_world_size(group)
-    if size != n_slices:
+    if size != n:
         raise ValueError(
-            f"the slice axis spans the group's processes, one slice each: "
+            f"the {axis} axis spans the group's processes, one {axis} each: "
             f"the group has {size} process(es), the mesh asks for "
-            f"{n_slices} slices")
+            f"{n} {axis}s")
     backend = dist.get_backend(group)
     ranks = tuple(dist.get_process_group_ranks(group))
     if device.type == "cuda" and backend == "nccl" \
@@ -259,7 +281,9 @@ def _process_span(n_slices: int, group, device: torch.device) -> ProcessSpan:
         cross, cross_backend = _GLOO_BESIDE[group], "gloo"
     return ProcessSpan(cross_group=cross, backend=cross_backend,
                        staged=device.type == "cuda" and cross_backend == "gloo",
-                       index=dist.get_rank(group), size=size, peers=ranks)
+                       index=dist.get_rank(group), size=size, peers=ranks,
+                       per_card=(-(-size // torch.cuda.device_count())
+                                 if device.type == "cuda" else 1))
 
 
 def _mesh_device(device) -> torch.device:

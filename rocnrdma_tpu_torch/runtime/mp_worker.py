@@ -6,11 +6,13 @@ process of the job: it runs its task and reports on stdout.
 Device tasks (the torch process group; ``--platform cpu`` is gloo, the
 default is NCCL on the card, one process per GPU):
 
-- ``allreduce``: ``torch.distributed.all_reduce`` of each rank's buffer
-  (the reference's jitted global psum); every rank checks the sum.
-- ``alltoall``: ``all_to_all_single`` of each rank's buffer (the
-  reference's global transpose); every rank checks that row j of what it
-  got is what rank j sent it.
+- ``allreduce``: the ``fused`` allreduce of each rank's buffer on a 1-D
+  ``Transport(rank_mesh(n, group=WORLD))``, one rank a process (the
+  reference's jitted global psum over its mesh of every process's
+  devices); every rank checks the sum.
+- ``alltoall``: the same mesh's ``fused`` alltoall of each rank's buffer
+  (the reference's global transpose); every rank checks that chunk j of
+  what it got is what rank j sent it.
 - ``fault``: ``--fault-rank`` exits 3 BEFORE the rendezvous (prints
   ``FAULT``); the others must fail their deadline-bounded init with a named
   error, printed as ``CLEAN-ABORT``, exit 4.
@@ -67,6 +69,29 @@ phase and the ``fused`` allreduce, reduce_scatter and reduce. It prints each
 call's ms (``HIERTIMES``), the cross leg's backend, its bytes and GB/s
 through the cross group and staged each way (``HIERCROSS``), on the CPU each result's sha256
 (``HIERDIGEST``), and ``OK rank=i/m hierarchical``.
+
+``rank-mesh``: the 1-D counterpart, a ``rank_mesh(n, group=WORLD)`` whose
+rank axis is the process boundary, process r rank r with its row on its
+own device; it passes only that row, ``(1, --size)``, to the
+``Transport``. At the reference's size (8) with no ``--seed`` rank r's
+row is ``r + 1`` (the ``allreduce`` task's); otherwise each row comes
+from its own seed ``(--seed or 7, r)``, so a process draws its own row
+for its input and every row only for its checks. The calls
+(``RANK_CALLS``) are every 1-D (verb, algo) pair but ``cuda_ring``: the
+allreduce fused, ring, ring_bidir, tree, khd at the radix ladder's digits
+and at explicit ones, dtree, ptree and ktree, ``avg``, ``max`` and a
+ragged buffer; reduce_scatter and allgather fused, ring and khd; alltoall
+fused, rotation and Bruck; the fused alltoallv; the four rooted verbs
+fused and binomial at roots off process 0; sendrecv at shift 3; the
+``prog_ring_allreduce`` program; and a ``group()`` of a khd allreduce
+and a fused alltoall. Where the world is not a power of two, ``tree`` is
+refused, by both meshes with one error (``RANKREFUSED``). The reference's
+checks (the ring allreduce against the float64 sum, rtol 1e-5, atol
+1e-6; the fused alltoall against the transpose), then each result held to
+the one-process port's row (``Transport(rank_mesh(n, device))`` on every
+row): bitwise, the fused reductions within rtol 1e-5, atol 1e-6. It
+prints ``RANKTIMES``, ``RANKERRS``, ``RANKCROSS``, on the CPU
+``RANKDIGEST``, and ``OK rank=i/n rank-mesh``.
 
 ``hang`` forks a grandchild and blocks far past any deadline; the harness
 must reap the WHOLE process group.
@@ -1461,8 +1486,8 @@ def _witnessed(code: int) -> int:
 
 # tasks that build an NCCL communicator on the card (one process per GPU)
 NCCL_TASKS = ("allreduce", "alltoall")
-TASKS = (NCCL_TASKS + ("fault", "hierarchical") + CHAOS_TASKS + DEVICE_TASKS
-         + AUX_TASKS)
+TASKS = (NCCL_TASKS + ("fault", "hierarchical", "rank-mesh") + CHAOS_TASKS
+         + DEVICE_TASKS + AUX_TASKS)
 
 INIT_TIMEOUT_S = 15  # the rendezvous deadline, as the reference's workers
 
@@ -1479,20 +1504,21 @@ def _collective(task: str, rank: int, n: int, size: int | None, seed, device) ->
     import numpy as np
     import torch
 
+    from rocnrdma_tpu_torch.runtime.mesh import rank_mesh
+    from rocnrdma_tpu_torch.transport import Transport
+
     elems = size or 8
     if task == "alltoall":
         elems = -(-elems // n) * n
     rows = _rows(n, elems, seed)
-    local = torch.from_numpy(rows[rank].copy()).to(device)
+    t = Transport(rank_mesh(n, device, group=torch.distributed.group.WORLD))
+    local = torch.from_numpy(rows[rank:rank + 1].copy()).to(device)
     if task == "allreduce":
-        torch.distributed.all_reduce(local)
-        got, want = local.cpu().numpy(), rows.sum(0)
+        got, want = t.allreduce(local, "fused")[0].cpu().numpy(), rows.sum(0)
         # the constant rows sum exactly; seeded ones in the backend's order
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     else:
-        out = torch.empty_like(local)
-        torch.distributed.all_to_all_single(out, local)
-        got = out.cpu().numpy().reshape(n, -1)
+        got = t.alltoall(local.reshape(1, n, -1), "fused")[0].cpu().numpy()
         # chunk j of the result is rank j's chunk for this rank
         np.testing.assert_array_equal(got, rows.reshape(n, n, -1)[:, rank])
 
@@ -1617,11 +1643,93 @@ def _grouped(t, x):
                       a2a.result().reshape(lead + (-1,))], dim=2)
 
 
-def _hierarchical_main(args, rank: int, m: int, device) -> int:
-    """The ``hierarchical`` task (module docstring)."""
+def _hold_calls(calls: dict, rank: int, device, checked: tuple) -> dict:
+    """Run each spanning call three times (the first result is the one
+    checked) and hold it to row ``[rank:rank + 1]`` of the one-process
+    port's call: bitwise where the call's tolerance is None, else within
+    its (rtol, atol). A call both meshes refuse with one ``ValueError`` is
+    recorded as refused. Returns ``times`` (ms), ``errs`` (max abs err),
+    ``digests`` (sha256, on the CPU), ``got`` (the results named in
+    ``checked``) and ``refused`` (the error of each refused call)."""
     import hashlib
+
+    import numpy as np
+    import torch
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    res = {k: {} for k in ("times", "errs", "digests", "got", "refused")}
+    for name, (spanning, whole, tol) in calls.items():
+        ms, first = [], None
+        for _ in range(3):  # the first result is the one checked
+            sync()
+            t0 = time.perf_counter()
+            try:
+                out = spanning()
+            except ValueError as e:
+                res["refused"][name] = str(e)
+                try:
+                    whole()
+                except ValueError as e1:
+                    if str(e1) == str(e):
+                        break
+                raise AssertionError(f"{name}: refused here ({e}), not by the "
+                                     f"one-process port the same way") from e
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            first = out if first is None else first
+        if name in res["refused"]:
+            continue
+        res["times"][name] = [round(v, 3) for v in ms]
+        out, want = first, whole()[rank:rank + 1]
+        if name in checked:
+            res["got"][name] = out
+        if out.shape != want.shape or out.dtype != want.dtype:
+            raise AssertionError(f"{name}: {tuple(out.shape)} {out.dtype} vs the "
+                                 f"one-process port's {tuple(want.shape)} {want.dtype}")
+        err = res["errs"][name] = float((out.float() - want.float()).abs().max())
+        if tol is None and not torch.equal(out, want):
+            raise AssertionError(f"{name}: not bitwise the one-process port's "
+                                 f"(max abs err {err})")
+        if tol is not None:
+            np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                                       rtol=tol[0], atol=tol[1], err_msg=name)
+        if device.type == "cpu":
+            res["digests"][name] = hashlib.sha256(out.numpy().tobytes()).hexdigest()
+        del want
+    return res
+
+
+def _cross_line(t, device, rows_bytes: int) -> dict:
+    """The cross leg of ``t``'s spanning mesh: its ``stats()`` entry with
+    the GB/s through the cross group and staged each way, the backend, the
+    device and the bytes of this process's rows."""
+    span = t.span
+    cross = t.stats()[f"cross/{span.backend}"]
+    for way, nbytes, secs in (("wire", "bytes", "wire_s"),
+                              ("d2h", "d2h_bytes", "d2h_s"),
+                              ("h2d", "h2d_bytes", "h2d_s")):
+        # an NCCL leg's host seconds are its enqueue, not its transfer
+        sec = cross[secs] if way != "wire" or span.backend == "gloo" else 0
+        cross[f"{way}_GBps"] = round(cross[nbytes] / sec / 1e9, 3) if sec else None
+    cross.update(backend=span.backend, device=str(device), rows_bytes=rows_bytes)
+    return cross
+
+
+def _print_held(prefix: str, res: dict, cross: dict) -> None:
     import json
 
+    print(f"{prefix}TIMES " + json.dumps(res["times"]), flush=True)
+    print(f"{prefix}ERRS " + json.dumps(res["errs"]), flush=True)
+    print(f"{prefix}CROSS " + json.dumps(cross), flush=True)
+    if res["digests"]:
+        print(f"{prefix}DIGEST " + json.dumps(res["digests"]), flush=True)
+
+
+def _hierarchical_main(args, rank: int, m: int, device) -> int:
+    """The ``hierarchical`` task (module docstring)."""
     import numpy as np
     import torch
 
@@ -1638,40 +1746,11 @@ def _hierarchical_main(args, rank: int, m: int, device) -> int:
     full = torch.from_numpy(full_np).to(device)
     one = Transport(slice_mesh(m, n, device))
 
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
     calls = _hier_calls(t, one, mesh, mine, full)
     if tuple(calls) != HIER_CALLS:
         raise AssertionError(f"the task's calls {tuple(calls)} != {HIER_CALLS}")
-    times, digests, errs, got = {}, {}, {}, {}
-    for name, (spanning, whole, tol) in calls.items():
-        ms, first = [], None
-        for _ in range(3):  # the first result is the one checked
-            sync()
-            t0 = time.perf_counter()
-            out = spanning()
-            sync()
-            ms.append((time.perf_counter() - t0) * 1e3)
-            first = out if first is None else first
-        times[name] = [round(v, 3) for v in ms]
-        out, want = first, whole()[rank:rank + 1]
-        if name in _HIER_NUMPY_CHECKED:
-            got[name] = out
-        if out.shape != want.shape or out.dtype != want.dtype:
-            raise AssertionError(f"{name}: {tuple(out.shape)} {out.dtype} vs the "
-                                 f"one-process port's {tuple(want.shape)} {want.dtype}")
-        errs[name] = float((out.float() - want.float()).abs().max())
-        if tol is None and not torch.equal(out, want):
-            raise AssertionError(f"{name}: not bitwise the one-process port's "
-                                 f"(max abs err {errs[name]})")
-        if tol is not None:
-            np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
-                                       rtol=tol[0], atol=tol[1], err_msg=name)
-        if device.type == "cpu":
-            digests[name] = hashlib.sha256(out.numpy().tobytes()).hexdigest()
-        del want
+    res = _hold_calls(calls, rank, device, _HIER_NUMPY_CHECKED)
+    got = res["got"]
     # the reference's own checks, against numpy; the sum in float64, whose
     # own rounding stays out of the tolerance at 16M elements a row
     mine_np = full_np[rank:rank + 1]
@@ -1684,21 +1763,182 @@ def _hierarchical_main(args, rank: int, m: int, device) -> int:
                                rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(got["allreduce/bf16"].cpu().numpy(), total,
                                rtol=2e-2, atol=1e-1)
-    cross = t.stats()[f"cross/{mesh.span.backend}"]
-    for way, nbytes, secs in (("wire", "bytes", "wire_s"),
-                              ("d2h", "d2h_bytes", "d2h_s"),
-                              ("h2d", "h2d_bytes", "h2d_s")):
-        # an NCCL leg's host seconds are its enqueue, not its transfer
-        s = cross[secs] if way != "wire" or mesh.span.backend == "gloo" else 0
-        cross[f"{way}_GBps"] = round(cross[nbytes] / s / 1e9, 3) if s else None
-    cross.update(backend=mesh.span.backend, device=str(device),
-                 rows_bytes=mine.numel() * mine.element_size())
-    print("HIERTIMES " + json.dumps(times), flush=True)
-    print("HIERERRS " + json.dumps(errs), flush=True)
-    print("HIERCROSS " + json.dumps(cross), flush=True)
-    if digests:
-        print("HIERDIGEST " + json.dumps(digests), flush=True)
+    _print_held("HIER", res, _cross_line(t, device, mine.numel() * mine.element_size()))
     print(f"OK rank={rank}/{m} hierarchical", flush=True)
+    return 0
+
+
+RANK_SEED = 7  # the seed of a rank's row where none is given
+RANK_REF_SIZE = 8  # the reference's buffer (the allreduce task's rows)
+
+
+def rank_rows(n: int, size: int, seed, ranks) -> "np.ndarray":
+    """The ``rank-mesh`` task's rank buffers ``(len(ranks), size)`` fp32:
+    at the reference's size with no seed rank r's row is ``r + 1``
+    (``_rows``), else each row from its own seed ``(seed or RANK_SEED,
+    r)``, so a process can draw its own."""
+    import numpy as np
+    if size == RANK_REF_SIZE and seed is None:
+        return _rows(n, size, None)[list(ranks)]
+    base = RANK_SEED if seed is None else seed
+    return np.stack([np.random.default_rng((base, r)).standard_normal(
+        size, dtype=np.float32) for r in ranks])
+
+
+def prime_digits(n: int) -> tuple[int, ...]:
+    """n's prime factors, smallest first: the explicit khd digits of the
+    ``rank-mesh`` task, a pick other than the radix ladder's."""
+    out, d = [], 2
+    while n > 1:
+        while n % d == 0:
+            out.append(d)
+            n //= d
+        d += 1
+    return tuple(out)
+
+
+def rank_inputs(v, n: int) -> dict:
+    """A rank-mesh call's inputs from rows ``v`` (rows, S) of an n-rank
+    axis: ``row``; ``even``, its first multiple of n elements (the verbs
+    that shard a buffer n ways); ``a2a``, ``even`` as (rows, n, S // n);
+    ``part``, the first S // n elements (the gathering verbs, so a
+    gathered row is about S); and ``ragged``, a buffer n does not divide
+    (the row, or all of it but its last element)."""
+    size = v.shape[1]
+    even = v[:, :size - size % n]
+    return {"row": v, "even": even, "a2a": even.reshape(v.shape[0], n, -1),
+            "part": v[:, :size // n], "ragged": v if size % n else v[:, :size - 1]}
+
+
+def rank_counts(n: int, c: int):
+    """The alltoallv count matrix of the ``rank-mesh`` task: rank r sends
+    ``(3r + 5d + 1) mod (c + 1)`` of its c rows to rank d."""
+    import numpy as np
+    r = np.arange(n)
+    return (3 * r[:, None] + 5 * r[None, :] + 1) % (c + 1)
+
+
+# the calls the reference's own numpy checks read
+_RANK_NUMPY_CHECKED = ("allreduce/ring", "alltoall/fused")
+# the task's calls, in the order it runs them (``_rank_calls``' names)
+RANK_CALLS = (
+    "allreduce/fused", "allreduce/ring", "allreduce/ring_bidir", "allreduce/tree",
+    "allreduce/khd", "allreduce/khd_digits", "allreduce/dtree", "allreduce/ptree",
+    "allreduce/ktree", "allreduce/avg", "allreduce/max", "allreduce/ragged",
+    "reduce_scatter/fused", "reduce_scatter/ring", "reduce_scatter/khd",
+    "allgather/fused", "allgather/ring", "allgather/khd",
+    "alltoall/fused", "alltoall/rotation", "alltoall/bruck", "alltoallv/fused",
+    "broadcast/fused", "broadcast/binomial", "reduce/fused", "reduce/binomial",
+    "gather/fused", "gather/binomial", "scatter/fused", "scatter/binomial",
+    "sendrecv/shift3", "program/ring_allreduce", "group/khd_alltoall")
+# the fused reductions: torch's order of summation, rtol 1e-5, atol 1e-6
+RANK_FUSED = ("allreduce/fused", "reduce_scatter/fused", "reduce/fused")
+
+
+def _rank_calls(t, one, mesh, mine, full):
+    """The ``rank-mesh`` task's calls: name -> (the call on this process's
+    row, the one-process port's call on ``full``, tolerance or None for
+    bitwise)."""
+    import torch
+
+    from rocnrdma_tpu_torch.collectives import prog_ring_allreduce
+
+    n = mesh.n_ranks
+    last = n - 1
+    digits = prime_digits(n)
+
+    def alltoallv(tr, a):
+        out, rc = tr.alltoallv(a["a2a"], rank_counts(n, a["a2a"].shape[2]), "fused")
+        return torch.cat([out.reshape(out.shape[0], -1), rc.to(out.dtype)], 1)
+
+    def grouped(tr, a):
+        with tr.group() as g:
+            ar, a2a = g.allreduce(a["row"], "khd"), g.alltoall(a["a2a"], "fused")
+        rows = a["row"].shape[0]
+        return torch.cat([ar.result(), a2a.result().reshape(rows, -1)], 1)
+
+    def call(verb, key, algo, **knobs):
+        return lambda tr, a: getattr(tr, verb)(a[key], algo, **knobs)
+
+    specs = {
+        "allreduce/fused": call("allreduce", "row", "fused"),
+        "allreduce/ring": call("allreduce", "row", "ring"),
+        "allreduce/ring_bidir": call("allreduce", "row", "ring_bidir"),
+        "allreduce/tree": call("allreduce", "row", "tree"),
+        "allreduce/khd": call("allreduce", "row", "khd"),
+        "allreduce/khd_digits": call("allreduce", "row", "khd", digits=digits),
+        "allreduce/dtree": call("allreduce", "row", "dtree"),
+        "allreduce/ptree": call("allreduce", "row", "ptree", chunks=4),
+        "allreduce/ktree": call("allreduce", "row", "ktree"),
+        "allreduce/avg": call("allreduce", "row", "khd", op="avg"),
+        "allreduce/max": call("allreduce", "row", "dtree", op="max"),
+        "allreduce/ragged": call("allreduce", "ragged", "ring"),
+        "reduce_scatter/fused": call("reduce_scatter", "even", "fused"),
+        "reduce_scatter/ring": call("reduce_scatter", "even", "ring"),
+        "reduce_scatter/khd": call("reduce_scatter", "even", "khd"),
+        "allgather/fused": call("allgather", "part", "fused"),
+        "allgather/ring": call("allgather", "part", "ring"),
+        "allgather/khd": call("allgather", "part", "khd"),
+        "alltoall/fused": call("alltoall", "a2a", "fused"),
+        "alltoall/rotation": call("alltoall", "a2a", "ring"),
+        "alltoall/bruck": call("alltoall", "a2a", "bruck"),
+        "alltoallv/fused": alltoallv,
+        # roots off process 0: the last rank, and rank 1
+        "broadcast/fused": call("broadcast", "row", "fused", root=last),
+        "broadcast/binomial": call("broadcast", "row", "binomial", root=last),
+        "reduce/fused": call("reduce", "row", "fused", root=1),
+        "reduce/binomial": call("reduce", "row", "binomial", root=1),
+        "gather/fused": call("gather", "part", "fused", root=last),
+        "gather/binomial": call("gather", "part", "binomial", root=last),
+        "scatter/fused": call("scatter", "even", "fused", root=1),
+        "scatter/binomial": call("scatter", "even", "binomial", root=1),
+        "sendrecv/shift3": call("sendrecv", "row", "fused", shift=3),
+        "program/ring_allreduce": lambda tr, a: tr.program_fn(prog_ring_allreduce(n))(a["row"]),
+        "group/khd_alltoall": grouped,
+    }
+    tol = (1e-5, 1e-6)
+    return {name: (lambda f=f: f(t, rank_inputs(mine, n)),
+                   lambda f=f: f(one, rank_inputs(full, n)),
+                   tol if name in RANK_FUSED else None)
+            for name, f in specs.items()}
+
+
+def _rank_mesh_main(args, rank: int, n: int, device) -> int:
+    """The ``rank-mesh`` task (module docstring)."""
+    import json
+
+    import numpy as np
+    import torch
+
+    from rocnrdma_tpu_torch.runtime.mesh import rank_mesh
+    from rocnrdma_tpu_torch.transport import Transport
+
+    size = args.size or RANK_REF_SIZE
+    mesh = rank_mesh(n, device, group=torch.distributed.group.WORLD)
+    t = Transport(mesh)
+    mine = torch.from_numpy(rank_rows(n, size, args.seed, [rank])).to(device)
+    full_np = rank_rows(n, size, args.seed, range(n))
+    full = torch.from_numpy(full_np).to(device)
+    one = Transport(rank_mesh(n, device))
+
+    calls = _rank_calls(t, one, mesh, mine, full)
+    if tuple(calls) != RANK_CALLS:
+        raise AssertionError(f"the task's calls {tuple(calls)} != {RANK_CALLS}")
+    res = _hold_calls(calls, rank, device, _RANK_NUMPY_CHECKED)
+    if set(res["refused"]) != ({"allreduce/tree"} if n & (n - 1) else set()):
+        raise AssertionError(f"refused {res['refused']} on {n} ranks")
+    got = res["got"]
+    # the reference's own checks, against numpy; the sum in float64
+    total = full_np.sum(0, dtype=np.float64)[None]
+    np.testing.assert_allclose(got["allreduce/ring"].cpu().numpy(), total,
+                               rtol=1e-5, atol=1e-6)
+    a2a = rank_inputs(full_np, n)["a2a"]
+    np.testing.assert_array_equal(got["alltoall/fused"].cpu().numpy(),
+                                  a2a.transpose(1, 0, 2)[rank:rank + 1])
+    _print_held("RANK", res, _cross_line(t, device, mine.numel() * mine.element_size()))
+    if res["refused"]:
+        print("RANKREFUSED " + json.dumps(res["refused"]), flush=True)
+    print(f"OK rank={rank}/{n} rank-mesh", flush=True)
     return 0
 
 
@@ -1838,8 +2078,9 @@ def main(argv=None) -> int:
     device = (torch.device("cuda", torch.cuda.current_device())
               if info.backend == "nccl" else torch.device("cpu"))
     n, rank = info.world_size, info.rank
-    if args.task == "hierarchical":
-        status = _hierarchical_main(args, rank, n, device)
+    if args.task in ("hierarchical", "rank-mesh"):
+        main_ = _hierarchical_main if args.task == "hierarchical" else _rank_mesh_main
+        status = main_(args, rank, n, device)
         shutdown_runtime()
         return status
     _collective(args.task, rank, n, args.size, args.seed, device)

@@ -22,10 +22,20 @@ of rank (``span.index``, i), leading dims ``(1, per_slice)``, and so is the
 result: the rows ``[s]`` of the one-process mesh's result. Every (verb,
 algo) pair that ``supports(..., is_2d=True)`` admits runs there, ``auto``
 and ``model`` resolve as there, and what a 2-D mesh refuses is refused
-with the same error. The slice axis's exchanges cross processes on the
-span's cross group (``collectives._exchange``), and ``stats()`` counts
-them under ``cross/<backend>`` with the bytes and host seconds staged each
-way.
+with the same error.
+
+A 1-D mesh may span processes too (``rank_mesh(n, group=g)``; each
+process one rank). A tensor on it is this process's row, leading dim
+``(1,)``, and so is the result: row ``[index:index + 1]`` of the
+one-process mesh's result. Every (verb, algo) pair of a 1-D mesh runs
+there but ``cuda_ring``, whose kernels read every rank's row on one card
+(refused by name; ``auto``, ``model``, ``RNR_ALGO`` and a tuning table
+never pick it there, and otherwise resolve as on a one-process mesh);
+what a 1-D mesh refuses is refused with the same error.
+
+On either, the leading axis's exchanges cross processes on the span's
+cross group (``collectives._exchange``), and ``stats()`` counts them under
+``cross/<backend>`` with the bytes and host seconds staged each way.
 
 Algorithms (``SCHEDULES``; the reference's names, except that its
 ``pallas_ring`` is ``cuda_ring`` here):
@@ -149,30 +159,36 @@ def _khd(digits) -> dict:
 # the mesh's ranks flattened, through the schedule; ``shape`` is the mesh
 # shape (the 2-D schedules read it). Keyword knobs: ``op`` (the reduction,
 # ignored by the verbs that only move data), ``root`` (the rooted verbs),
-# ``shift`` (sendrecv) and the schedule-specific ones. The 2-D pairs also
-# take ``span``: the mesh's ProcessSpan where its slice axis spans
-# processes, ``x`` then this process's rows.
+# ``shift`` (sendrecv) and the schedule-specific ones. Every pair but
+# ``cuda_ring`` also takes ``span``: the mesh's ProcessSpan where its
+# leading axis spans processes, ``x`` then this process's rows (a 1-D
+# mesh's ``shape`` is then ``(n, 1)``: the ``spanning_fused_*`` verbs see
+# n slices of one rank).
 SCHEDULES = {
     "allreduce": {
         "fused": lambda x, shape, op="sum", root=0, span=None:
             C.fused_allreduce(x, op=op) if span is None
             else X.spanning_fused_allreduce(x, shape, span, op=op),
-        "ring": lambda x, shape, op="sum", root=0: C.ring_allreduce(x, op=op),
-        "ring_bidir": lambda x, shape, op="sum", root=0:
-            C.ring_allreduce(x, bidir=True, op=op),
-        "tree": lambda x, shape, op="sum", root=0: C.hd_allreduce(x, op=op),
+        "ring": lambda x, shape, op="sum", root=0, span=None:
+            C.ring_allreduce(x, op=op, span=span),
+        "ring_bidir": lambda x, shape, op="sum", root=0, span=None:
+            C.ring_allreduce(x, bidir=True, op=op, span=span),
+        "tree": lambda x, shape, op="sum", root=0, span=None:
+            C.hd_allreduce(x, op=op, span=span),
         # the registered khd runs bidir: a part's halves ride opposite
         # rotations where the split is real (collectives/khd.py)
-        "khd": lambda x, shape, op="sum", root=0, digits=None:
-            C.khd_allreduce(x, op=op, bidir=True, **_khd(digits)),
+        "khd": lambda x, shape, op="sum", root=0, digits=None, span=None:
+            C.khd_allreduce(x, op=op, bidir=True, span=span, **_khd(digits)),
         # digits = the mesh shape, round t within mesh axis t
         "khd2d": lambda x, shape, op="sum", root=0, span=None:
             C.khd2d_allreduce(x, shape, op=op, bidir=True, span=span),
-        "dtree": lambda x, shape, op="sum", root=0: C.dbtree_allreduce(x, op=op),
+        "dtree": lambda x, shape, op="sum", root=0, span=None:
+            C.dbtree_allreduce(x, op=op, span=span),
         # ``chunks`` overrides the pipeline depth
-        "ptree": lambda x, shape, op="sum", root=0, chunks=None:
-            C.ptree_allreduce(x, op=op, chunks=chunks),
-        "ktree": lambda x, shape, op="sum", root=0: C.kary_tree_allreduce(x, op=op),
+        "ptree": lambda x, shape, op="sum", root=0, chunks=None, span=None:
+            C.ptree_allreduce(x, op=op, chunks=chunks, span=span),
+        "ktree": lambda x, shape, op="sum", root=0, span=None:
+            C.kary_tree_allreduce(x, op=op, span=span),
         # ``intra_algo``: ring|khd for the two intra-slice phases
         "hierarchical": lambda x, shape, op="sum", root=0, cross_dtype=None,
                                intra_algo=None, span=None:
@@ -184,9 +200,10 @@ SCHEDULES = {
         "fused": lambda x, shape, op="sum", root=0, span=None:
             C.fused_reduce_scatter(x, op=op) if span is None
             else X.spanning_fused_reduce_scatter(x, shape, span, op=op),
-        "ring": lambda x, shape, op="sum", root=0: C.ring_reduce_scatter(x, op=op),
-        "khd": lambda x, shape, op="sum", root=0, digits=None:
-            C.khd_reduce_scatter(x, op=op, **_khd(digits)),
+        "ring": lambda x, shape, op="sum", root=0, span=None:
+            C.ring_reduce_scatter(x, op=op, span=span),
+        "khd": lambda x, shape, op="sum", root=0, digits=None, span=None:
+            C.khd_reduce_scatter(x, op=op, span=span, **_khd(digits)),
         "khd2d": lambda x, shape, op="sum", root=0, span=None:
             C.khd2d_reduce_scatter(x, shape, op=op, span=span),
         "cuda_ring": _sum_only("reduce_scatter", _cuda_ring_reduce_scatter),
@@ -195,9 +212,10 @@ SCHEDULES = {
         "fused": lambda x, shape, op="sum", root=0, span=None:
             C.fused_allgather(x) if span is None
             else X.spanning_fused_allgather(x, shape, span),
-        "ring": lambda x, shape, op="sum", root=0: C.ring_allgather(x),
-        "khd": lambda x, shape, op="sum", root=0, digits=None:
-            C.khd_allgather(x, **_khd(digits)).reshape(x.shape[0], -1),
+        "ring": lambda x, shape, op="sum", root=0, span=None:
+            C.ring_allgather(x, span=span),
+        "khd": lambda x, shape, op="sum", root=0, digits=None, span=None:
+            C.khd_allgather(x, span=span, **_khd(digits)).reshape(x.shape[0], -1),
         "khd2d": lambda x, shape, op="sum", root=0, span=None:
             C.khd2d_allgather(x, shape, span=span).reshape(x.shape[0], -1),
         "cuda_ring": lambda x, shape, op="sum", root=0: ring_cuda.ring_allgather(
@@ -208,8 +226,10 @@ SCHEDULES = {
         "fused": lambda x, shape, op="sum", root=0, span=None:
             C.fused_alltoall(x) if span is None
             else X.spanning_fused_alltoall(x, shape, span),
-        "ring": lambda x, shape, op="sum", root=0: C.rotation_alltoall(x),
-        "bruck": lambda x, shape, op="sum", root=0: C.bruck_alltoall(x),
+        "ring": lambda x, shape, op="sum", root=0, span=None:
+            C.rotation_alltoall(x, span=span),
+        "bruck": lambda x, shape, op="sum", root=0, span=None:
+            C.bruck_alltoall(x, span=span),
         # 2-D mesh only: within slices, then one crossing per chunk
         "hierarchical": lambda x, shape, op="sum", root=0, span=None:
             C.hierarchical_alltoall(x, shape, span=span),
@@ -221,35 +241,36 @@ SCHEDULES = {
         "fused": lambda x, shape, op="sum", root=0, span=None:
             C.fused_broadcast(x, root=root) if span is None
             else X.spanning_fused_broadcast(x, shape, span, root=root),
-        "binomial": lambda x, shape, op="sum", root=0:
-            C.binomial_broadcast(x, root=root),
+        "binomial": lambda x, shape, op="sum", root=0, span=None:
+            C.binomial_broadcast(x, root=root, span=span),
     },
     "reduce": {
         "fused": lambda x, shape, op="sum", root=0, span=None:
             C.fused_rooted_reduce(x, root=root, op=op) if span is None
             else X.spanning_fused_rooted_reduce(x, shape, span, root=root, op=op),
-        "binomial": lambda x, shape, op="sum", root=0:
-            C.binomial_reduce(x, root=root, op=op),
+        "binomial": lambda x, shape, op="sum", root=0, span=None:
+            C.binomial_reduce(x, root=root, op=op, span=span),
     },
     "gather": {
         "fused": lambda x, shape, op="sum", root=0, span=None:
             (C.fused_gather(x, root=root) if span is None
              else X.spanning_fused_gather(x, shape, span, root=root))
             .reshape(x.shape[0], -1),
-        "binomial": lambda x, shape, op="sum", root=0:
-            C.binomial_gather(x, root=root).reshape(x.shape[0], -1),
+        "binomial": lambda x, shape, op="sum", root=0, span=None:
+            C.binomial_gather(x, root=root, span=span).reshape(x.shape[0], -1),
     },
     "scatter": {
         "fused": lambda x, shape, op="sum", root=0, span=None:
             C.fused_scatter(x, root=root) if span is None
             else X.spanning_fused_scatter(x, shape, span, root=root),
-        "binomial": lambda x, shape, op="sum", root=0:
-            C.binomial_scatter(x, root=root),
+        "binomial": lambda x, shape, op="sum", root=0, span=None:
+            C.binomial_scatter(x, root=root, span=span),
     },
     # Point to point: rank r sends to r + shift (mod n). One step is the
     # whole schedule, so there is no explicit-vs-fused split.
     "sendrecv": {
-        "fused": lambda x, shape, shift=1: C.fused_sendrecv(x, shift=shift),
+        "fused": lambda x, shape, shift=1, span=None:
+            C.fused_sendrecv(x, shift=shift, span=span),
     },
 }
 
@@ -258,11 +279,23 @@ SCHEDULES = {
 ALLTOALLV_ALGOS = ("fused", "cuda_ring")
 
 
-def supports(op: str, algo: str, is_2d: bool = False) -> bool:
-    """Does ``(op, algo)`` resolve on a mesh of this dimensionality?"""
+# why a 1-D mesh across processes refuses cuda_ring
+CUDA_RING_ACROSS = (
+    "cuda_ring is refused on a 1-D mesh that spans processes: its kernels "
+    "read every rank's row on one card, and the kernels across processes "
+    "over CUDA IPC are not ported yet (ROADMAP Queue 1, item 1); use ring, "
+    "khd or fused")
+
+
+def supports(op: str, algo: str, is_2d: bool = False, spans: bool = False) -> bool:
+    """Does ``(op, algo)`` resolve on a mesh of this dimensionality?
+    ``spans``: the mesh's leading axis spans processes (then a 1-D mesh
+    has no ``cuda_ring``: ``CUDA_RING_ACROSS``)."""
     if algo == "auto":
         return True
     if algo not in SCHEDULES.get(op, {}):
+        return False
+    if algo == "cuda_ring" and spans:
         return False
     if algo in ("hierarchical", "khd2d"):
         return is_2d
@@ -312,7 +345,8 @@ class Transport:
         # the leading dims of a tensor on it in this process
         self._local = tuple(self.mesh.local_shape)
         self._rows = math.prod(self._local)
-        self.span = self.mesh.span  # the slice axis across processes, or None
+        self.span = self.mesh.span  # the leading axis across processes, or None
+        self._spans = self.span is not None
         self.device = self.mesh.device
         on_card = self.device.type == "cuda"
         # the tuning-table platform (detect_topology's) and the cost
@@ -320,7 +354,10 @@ class Transport:
         self.platform = "gpu" if on_card else "cpu"
         self.device_kind = torch.cuda.get_device_name(self.device) if on_card else "cpu"
         cards = len(set(self.mesh.devices))
-        self.ranks_per_card = len(self.mesh.devices) // cards
+        # this process's ranks on its card, times the processes of a
+        # spanning mesh that share the card
+        self.ranks_per_card = (len(self.mesh.devices) // cards
+                               * (self.span.per_card if self.span is not None else 1))
         # ``dcn``: does the slice axis cross the network? None = only when
         # the ranks span more than one device or process; explicit
         # True/False overrides. It sets the cost model's constants only.
@@ -377,7 +414,7 @@ class Transport:
             # version, which the model does not price)
             from rocnrdma_tpu_torch.transport.tuner import dcn_constants_for, model_pick
             cands = [a for a in SCHEDULES[op]
-                     if supports(op, a, self.is_2d)
+                     if supports(op, a, self.is_2d, self._spans)
                      and (self.platform == "gpu" or a != "cuda_ring")]
             alpha, beta, hbm_beta = self._constants(op)
             picked = (model_pick(op, self.n_ranks, nbytes, candidates=cands,
@@ -394,12 +431,12 @@ class Transport:
             # RNR_ALGO replaces only the policy default, and only where the
             # op supports it, so one env var doesn't break unrelated verbs
             forced = self._forced_algo()
-            if forced and supports(op, forced, self.is_2d):
+            if forced and supports(op, forced, self.is_2d, self._spans):
                 algo = forced
         if algo == "auto" and self.tuning is not None and nbytes is not None:
             tuned = self.tuning.lookup(op, nbytes, self.n_ranks, len(self.axes),
                                        self.platform)
-            if tuned is not None and supports(op, tuned, self.is_2d):
+            if tuned is not None and supports(op, tuned, self.is_2d, self._spans):
                 algo = tuned
         if algo == "auto":
             # 2-D mesh: the two-level schedules are the default for the
@@ -407,11 +444,13 @@ class Transport:
             algo = ("hierarchical"
                     if self.is_2d and op in ("allreduce", "alltoall")
                     else "fused")
-        if not supports(op, algo, self.is_2d):
+        if algo == "cuda_ring" and self._spans and not self.is_2d:
+            raise ValueError(f"op {op!r}: {CUDA_RING_ACROSS}")
+        if not supports(op, algo, self.is_2d, self._spans):
             raise ValueError(
                 f"op {op!r} has no {algo!r} schedule on a "
                 f"{'2-D' if self.is_2d else '1-D'} mesh; compatible here: "
-                f"{[a for a in SCHEDULES[op] if supports(op, a, self.is_2d)]}")
+                f"{[a for a in SCHEDULES[op] if supports(op, a, self.is_2d, self._spans)]}")
         return algo
 
     def _msg_bytes(self, verb: str, x: torch.Tensor) -> int:
@@ -469,7 +508,7 @@ class Transport:
         t = torch.from_numpy(np.ascontiguousarray(x)) if isinstance(x, np.ndarray) else x
         lead = self._lead
         if self.span is not None:
-            if t.shape[:2] == lead:
+            if t.shape[:len(lead)] == lead:
                 t = t[self.span.index:self.span.index + 1]
             lead = self._local
         if t.shape[:len(lead)] != lead:
@@ -576,20 +615,26 @@ class Transport:
         ``recv_counts[r] = counts[:, r]``. The wire always ships
         ``max_count`` rows a chunk. ``algo``: ``fused`` (one transpose) or
         ``cuda_ring`` (the direct alltoall kernel); ``auto`` and ``model``
-        are ``fused`` unless ``RNR_ALGO`` names one of the two. 1-D meshes
-        only."""
+        are ``fused`` unless ``RNR_ALGO`` names one of the two this mesh
+        runs. 1-D meshes only; across processes ``fused`` only
+        (``CUDA_RING_ACROSS``), the result this process's row and its row
+        of ``recv_counts``."""
         if self.is_2d:
             raise ValueError("alltoallv rings a 1-D rank mesh (use the "
                              "dense alltoall on 2-D meshes)")
         if algo in ("auto", "model"):
             forced = self._forced_algo()
-            algo = forced if forced in ALLTOALLV_ALGOS else "fused"
+            algo = (forced if forced in ALLTOALLV_ALGOS
+                    and supports("alltoall", forced, spans=self._spans) else "fused")
         if algo not in ALLTOALLV_ALGOS:
             raise ValueError(f"alltoallv knows algos {'|'.join(ALLTOALLV_ALGOS)}, "
                              f"got {algo!r}")
+        if algo == "cuda_ring" and self._spans:
+            raise ValueError(f"op 'alltoallv': {CUDA_RING_ACROSS}")
         self._check_rank_major(x)
-        fn = C.fused_alltoallv if algo == "fused" else alltoall_cuda.alltoallv
-        out = fn(x, torch.as_tensor(counts, device=self.device))
+        counts = torch.as_tensor(counts, device=self.device)
+        out = (C.fused_alltoallv(x, counts, span=self.span) if algo == "fused"
+               else alltoall_cuda.alltoallv(x, counts))
         self._count("alltoallv", algo, x)
         return out
 
@@ -640,8 +685,9 @@ class Transport:
 
     def program_fn(self, prog):
         """A callable running a custom :class:`collectives.Program` (the
-        MSCCL-analogue schedule IR) over this mesh's ranks. 1-D meshes only:
-        a Program's perm speaks flat rank ids."""
+        MSCCL-analogue schedule IR) over this mesh's ranks, this process's
+        row where the mesh spans processes. 1-D meshes only: a Program's
+        perm speaks flat rank ids."""
         if self.is_2d:
             raise ValueError("custom programs run on a 1-D rank mesh")
         if prog.n_ranks != self.n_ranks:
@@ -652,7 +698,7 @@ class Transport:
 
         def run(x: torch.Tensor) -> torch.Tensor:
             self._check_rank_major(x)
-            return execute(prog, x)
+            return execute(prog, x, span=self.span)
         return run
 
     # -- lowering ----------------------------------------------------------
@@ -779,6 +825,8 @@ class Transport:
         shape = self._lead
         if self.span is not None:
             knobs["span"] = self.span
+            if not self.is_2d:
+                shape += (1,)  # n slices of one rank (SCHEDULES)
         fn = lambda v: schedule(v, shape, **knobs)
         if premul is not None:
             # scale each rank's contribution before the sum: a
@@ -813,9 +861,13 @@ class Transport:
         if x.shape[:len(lead)] != lead:
             what = (f"{self.n_ranks} rows" if not self.is_2d
                     else f"leading dims {lead}")
-            if self.span is not None:
+            if self.span is not None and self.is_2d:
                 what += (f" (this process's rows, slice {self.span.index} "
                          f"of a mesh {self._lead} that spans processes)")
+            elif self.span is not None:
+                what = (f"1 row (this process's row, rank {self.span.index} "
+                        f"of a {self.n_ranks}-rank 1-D mesh that spans "
+                        f"processes, one rank a process)")
             raise ValueError(f"expected a rank-major tensor with {what}, "
                              f"got shape {tuple(x.shape)}")
         if x.device != self.device:

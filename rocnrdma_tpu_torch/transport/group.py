@@ -16,10 +16,11 @@ knobs), cached on the Transport like every other schedule::
 Touching ``.result()`` before the block closes raises, as an in-group
 call's result is undefined in RCCL until the group ends.
 
-On a mesh whose slice axis spans processes a group runs like the verbs it
-queues, each process on its own rows; every process of the mesh queues
-the same verbs in the same order, since each verb's cross-slice exchanges
-pair up with the other processes' at exit.
+On a mesh that spans processes (a 1-D mesh one rank a process, or a 2-D
+mesh one slice a process) a group runs like the verbs it queues, in
+queue order, each process on its own rows; every process of the mesh
+queues the same verbs in the same order, since each verb's exchanges
+across processes pair up with the other processes' at exit.
 """
 
 from __future__ import annotations

@@ -1633,7 +1633,8 @@ class Autotuner:
 
     def _candidates(self, verb: str, algos=None) -> list[str]:
         from rocnrdma_tpu_torch.transport.api import SCHEDULES, supports
-        cands = [a for a in SCHEDULES[verb] if supports(verb, a, self.t.is_2d)]
+        cands = [a for a in SCHEDULES[verb]
+                 if supports(verb, a, self.t.is_2d, self.t.span is not None)]
         if algos is not None:
             return [a for a in cands if a in algos]
         # the kernel arm is opt-in: on the CPU it runs the plain version,
