@@ -177,27 +177,42 @@ Phases, each timed, any failure exits non-zero:
    missing call fails the phase. Printed: each call's ms, the cross
    leg's backend (gloo, staged through pinned host memory, while the
    processes share one GPU) and its bytes and GB/s each way;
-14. the 1-D rank mesh across processes, after phase 13 (no kernel runs on
-   it): ``run_workers(8, "rank-mesh")``, the ``ring8`` preset's world of
-   8 ranks, one process each (with several GPUs, one process a GPU, up
-   to 8), a ``rank_mesh(8, group=WORLD)`` whose rank axis is the process
+14. the 1-D rank mesh across processes, after phase 13:
+   ``run_workers(8, "rank-mesh")``, the ``ring8`` preset's world of 8
+   ranks, one process each (with several GPUs, one process a GPU, up to
+   8), a ``rank_mesh(8, group=WORLD)`` whose rank axis is the process
    boundary, each process holding its row on the card and passing only
    it; once at the reference's shape (8 fp32 a rank, rank r's row r + 1)
    and once at full width (64 MiB fp32 a rank, seeded rows). The calls
-   are every 1-D (verb, algo) pair but ``cuda_ring``
-   (``mp_worker.RANK_CALLS``: the allreduce fused, ring, ring_bidir,
-   tree, khd at the radix ladder's digits and at 2,2,2, dtree, ptree,
-   ktree, avg, max and a ragged buffer; reduce_scatter and allgather
-   fused, ring and khd; alltoall fused, rotation and Bruck; the fused
-   alltoallv; the rooted verbs fused and binomial at roots off process
-   0; sendrecv at shift 3; a ``prog_ring_allreduce`` program; a
-   ``group()``). Every rank holds every result to the one-process port on
-   the card (bitwise, the fused reductions within rtol 1e-5, atol 1e-6)
-   and to the reference's checks; a failing rank, a missing call, rows
-   off the card, or a cross leg other than gloo staged with one GPU
-   (NCCL unstaged with a GPU a process) fails the phase. Printed: each
-   call's ms, the cross leg's backend and its GB/s each way; all of it
-   to ``smoke_out/rank_mesh.json``;
+   are every 1-D (verb, algo) pair (``mp_worker.RANK_CALLS``: the
+   allreduce fused, ring, ring_bidir, tree, khd at the radix ladder's
+   digits and at 2,2,2, dtree, ptree, ktree, avg, max and a ragged
+   buffer; reduce_scatter and allgather fused, ring and khd; alltoall
+   fused, rotation and Bruck; the fused alltoallv; the rooted verbs fused
+   and binomial at roots off process 0; sendrecv at shift 3; a
+   ``prog_ring_allreduce`` program; a ``group()``), and ``cuda_ring``:
+   the ring and alltoall kernels across processes, each process
+   launching its rank's blocks with the peers' rows and flags mapped
+   through CUDA IPC (the allreduce, the tiled in-place allreduce at 3 x
+   128-element tiles, reduce_scatter, allgather, alltoall, alltoallv and
+   a ``group()``; the reduce_scatter on a buffer not of whole
+   n*128-element chunks refused by both meshes alike). The kernels build
+   once here first. Every rank holds every result to the one-process
+   port on the card (bitwise, the fused reductions within rtol 1e-5,
+   atol 1e-6) and to the reference's checks, each ``cuda_ring`` result
+   also bitwise to its kernels' plain PyTorch versions on every rank's
+   rows at the same shapes (``RANKPLAINERRS``), and counts its kernels'
+   launches across processes from 0 (``RANKLAUNCHES``): each
+   ``cuda_ring`` call must launch its kernel once a run. A failing rank
+   (an expired bounded wait among them), a missing call, a plain-version
+   error other than 0, a launch count off (a plain-version fallback), rows off
+   the card, or a cross leg other than gloo staged with one GPU (NCCL
+   unstaged with a GPU a process) fails the phase. With a GPU a process
+   a third case runs the headline size, 1 GiB fp32 a rank, for the
+   ``cuda_ring`` and ``fused`` allreduce, with their busbw beside the
+   NVLink datasheet bound. Printed: each call's ms, each ``cuda_ring``
+   call beside its verb's ``fused`` and ``ring``, the cross leg's backend
+   and its GB/s each way; all of it to ``smoke_out/rank_mesh.json``;
 15. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
    main path, its time, its plain version's and the library call's time at
    the main path's shapes, and its bound: the larger of its bytes (each
@@ -210,7 +225,9 @@ Phases, each timed, any failure exits non-zero:
    against ``fused`` at 4 KiB and at the sweep's crossover size. Each
    kernel's ``workload_launches`` are its launches on the workload and
    headline paths (phases 8 and 9), its ``chaos_launches`` those of the
-   healed fleets' ``DEVICE-LOCAL`` (phase 12).
+   healed fleets' ``DEVICE-LOCAL`` (phase 12), its ``across_launches``
+   those across processes in phase 14 (every rank's, both cases; rows
+   1-5 must have some, the local folds have no form across processes).
 
 ``python3 chip_smoke.py --host-plane`` runs the probe and phase 11 alone,
 ``--chaos`` the probe and phase 12 alone, ``--hierarchical`` the probe and
@@ -1720,7 +1737,11 @@ def hierarchical_phase(smi: str) -> dict:
 
 
 # phase 14: (label, elements of a rank's row, seed: None = the reference's rows)
-RANK_CASES = (("reference", 8, None), ("full_width", 64 * MiB // 4, 7))
+# (label, elements a rank, seed, the calls or None for every one)
+RANK_CASES = (("reference", 8, None, None), ("full_width", 64 * MiB // 4, 7, None))
+# with a GPU a process: the headline size, the kernel against NCCL
+RANK_HEADLINE = ("headline", 1024 * MiB // 4, 7, "allreduce/cuda_ring,allreduce/fused")
+NVLINK_GBPS = 450.0  # datasheet: NVLink 4, each way per H100 (not measured)
 
 
 def _median(vals: list) -> float:
@@ -1728,20 +1749,32 @@ def _median(vals: list) -> float:
     return vals[len(vals) // 2]
 
 
+def nvlink_bound_ms(name: str, n: int, rank_bytes: int) -> float:
+    """The least ms of the ``rank-mesh`` task's ``cuda_ring`` call ``name``
+    at NVLink's datasheet rate, a GPU a rank: each rank's kernel moves
+    (n-1)/n of its rank's bytes each way (a ``group()`` two verbs' worth)."""
+    verbs = 2 if name.startswith("group/") else 1
+    return verbs * (n - 1) / n * rank_bytes / (NVLINK_GBPS * 1e9) * 1e3
+
+
 def rank_mesh_phase(smi: str) -> dict:
     """The 1-D rank mesh across processes (module docstring, phase 14)."""
-    from rocnrdma_tpu_torch.runtime.mp_worker import RANK_CALLS
+    from rocnrdma_tpu_torch.metrics import busbw_GBps
+    from rocnrdma_tpu_torch.ops import _build
+    from rocnrdma_tpu_torch.runtime.mp_worker import (RANK_CALLS, rank_launches,
+                                                      rank_refused)
     from rocnrdma_tpu_torch.runtime.multiprocess import run_workers
 
     gpus = torch.cuda.device_count()
     n = 8 if gpus < 2 else min(gpus, 8)
     want = ("gloo", True) if gpus < n else ("nccl", False)
-    res = {"smi": smi, "gpus": gpus, "processes": n}
+    res = {"smi": smi, "gpus": gpus, "processes": n, "across_launches": {}}
     full = {}
-    for label, size, seed in RANK_CASES:
+    _build.build()  # the kernels, once, before the workers load them
+    for label, size, seed, only in RANK_CASES + ((RANK_HEADLINE,) if gpus >= 2 else ()):
         t0 = time.perf_counter()
         rs = run_workers(n, "rank-mesh", timeout_s=300.0, platform="auto",
-                         size=size, seed=seed)
+                         size=size, seed=seed, calls=only)
         secs = time.perf_counter() - t0
         for r in rs:
             if r.returncode != 0 or f"OK rank={r.process_id}/{n} rank-mesh" \
@@ -1749,30 +1782,52 @@ def rank_mesh_phase(smi: str) -> dict:
                 raise AssertionError(f"rank-mesh {label} rank {r.process_id}: exit "
                                      f"{r.returncode}\n{r.stdout[-3000:]}\n"
                                      f"{r.stderr[-4000:]}")
-        refused = set() if n & (n - 1) == 0 else {"allreduce/tree"}
-        names = set(RANK_CALLS) - refused
+        ran = only.split(",") if only else list(RANK_CALLS)
+        names = set(ran) - rank_refused(n, size)
+        launches = rank_launches(names, n, size)
         ranks = [{"ms": json.loads(_line(r, "RANKTIMES")),
                   "max_abs_err": json.loads(_line(r, "RANKERRS")),
-                  "cross": json.loads(_line(r, "RANKCROSS"))} for r in rs]
+                  "plain_err": json.loads(_line(r, "RANKPLAINERRS")),
+                  "cross": json.loads(_line(r, "RANKCROSS")),
+                  "launches": json.loads(_line(r, "RANKLAUNCHES"))} for r in rs]
+        kernel_calls = {name for name in names if "cuda_ring" in name}
         for rank in ranks:
             if set(rank["ms"]) != names or set(rank["max_abs_err"]) != names:
                 raise AssertionError(f"rank-mesh {label}: calls {sorted(rank['ms'])}, "
                                      f"want {sorted(names)}")
+            # each cuda_ring result bitwise its kernels' plain versions
+            if set(rank["plain_err"]) != kernel_calls or any(rank["plain_err"].values()):
+                raise AssertionError(f"rank-mesh {label}: against the plain versions "
+                                     f"{rank['plain_err']}, want 0 for {sorted(kernel_calls)}")
+            # every cuda_ring call launched its kernel once a run: none fell
+            # back to a plain version
+            if rank["launches"] != launches:
+                raise AssertionError(f"rank-mesh {label}: kernel launches across "
+                                     f"processes {rank['launches']}, want {launches}")
             cross = rank["cross"]
             if not cross["device"].startswith("cuda"):
                 raise AssertionError(f"rank-mesh {label}: rows on {cross['device']}")
             if (cross["backend"], cross["staged"]) != want:
                 raise AssertionError(f"rank-mesh {label}: cross leg {cross}, want "
                                      f"{want} with {gpus} GPU(s) and {n} processes")
+            for k, v in rank["launches"].items():
+                res["across_launches"][k] = res["across_launches"].get(k, 0) + v
         full[label] = ranks
         # per call, the median over the ranks of each steady call's ms
         calls = {name: [round(_median([r["ms"][name][i] for r in ranks]), 3)
-                        for i in (1, 2)] for name in RANK_CALLS if name in names}
+                        for i in (1, 2)] for name in ran if name in names}
         for name, ms in calls.items():
-            print(f"  {label} {name:<24} ms (median of {n} ranks) "
+            plain = (f", vs plain {max(r['plain_err'][name] for r in ranks):.3g}"
+                     if name in kernel_calls else "")
+            print(f"  {label} {name:<30} ms (median of {n} ranks) "
                   + ", ".join(f"{v:.1f}" for v in ms)
-                  + f"  max_abs_err {max(r['max_abs_err'][name] for r in ranks):.3g}",
-                  flush=True)
+                  + f"  max_abs_err {max(r['max_abs_err'][name] for r in ranks):.3g}"
+                  + plain, flush=True)
+        beside = {name: {algo: calls.get(name.split("/")[0] + "/" + algo)
+                         for algo in ("cuda_ring", "fused", "ring")} | {"call": calls[name]}
+                  for name in calls if "cuda_ring" in name}
+        print(f"rank-mesh {label} cuda_ring calls beside the verb's fused and ring, ms "
+              f"(median of {n} ranks; {smi}): " + json.dumps(beside), flush=True)
         gbps = {way: [r["cross"][f"{way}_GBps"] for r in ranks]
                 for way in ("wire", "d2h", "h2d")}
         cross = {"backend": ranks[0]["cross"]["backend"],
@@ -1782,11 +1837,32 @@ def rank_mesh_phase(smi: str) -> dict:
                  **{f"{way}_GBps": [min(v), max(v)] if None not in v else None
                     for way, v in gbps.items()}}
         res[label] = {"rank_bytes": size * 4, "seed": seed, "seconds": round(secs, 1),
-                      "cross": cross, "ms": calls}
+                      "cross": cross, "ms": calls, "launches_per_rank": launches}
+        if gpus >= 2 and size * 4 >= MiB:
+            res[label]["nvlink_bound_ms"] = {
+                name: round(nvlink_bound_ms(name, n, size * 4), 4)
+                for name in calls if "cuda_ring" in name}
+            print(f"rank-mesh {label} cuda_ring NVLink bound ms (datasheet 450 GB/s each "
+                  f"way): " + json.dumps(res[label]["nvlink_bound_ms"]), flush=True)
+        if label == "headline":
+            res[label]["busbw_GBps"] = {
+                name: round(busbw_GBps("allreduce", n, size * 4, min(ms) / 1e3), 1)
+                for name, ms in calls.items()}
+            bound_ms = nvlink_bound_ms("allreduce/cuda_ring", n, size * 4)
+            res[label]["nvlink_bound"] = {
+                "ms": round(bound_ms, 3),
+                "busbw_GBps": round(busbw_GBps("allreduce", n, size * 4, bound_ms / 1e3), 1),
+                "source": "datasheet, NVLink 4 at 450 GB/s each way per GPU"}
+            print(f"rank-mesh headline, {n} x 1 GiB fp32 ({smi}): busbw GB/s "
+                  f"{res[label]['busbw_GBps']}, NVLink bound {res[label]['nvlink_bound']}",
+                  flush=True)
         print(f"rank-mesh {label}, {n} processes x {size * 4} bytes a rank ({smi}): "
               f"cross leg {cross['backend']} (staged {cross['staged']}), {secs:.1f} s, "
               f"GB/s [min, max] over ranks: wire {cross['wire_GBps']}, "
               f"d2h {cross['d2h_GBps']}, h2d {cross['h2d_GBps']}", flush=True)
+    for k, v in res["across_launches"].items():
+        if v < 1:
+            raise AssertionError(f"rank-mesh: the kernel wrapper {k} never launched")
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "rank_mesh.json"), "w") as f:
         json.dump({"summary": res, "ranks": full}, f)
@@ -2109,6 +2185,10 @@ def main() -> int:
     for kern in kernels:
         kern["workload_launches"] = workload_launches[kern["name"]]
         kern["chaos_launches"] = chaos["launches"].get(kern["name"], 0)
+        # phase 14's launches across processes (none for the local folds)
+        kern["across_launches"] = ranks["across_launches"].get(kern["name"] + "_across", 0)
+        if kern["route"] == "cuda" and "combine" not in kern["name"]                 and kern["across_launches"] < 1:
+            raise AssertionError(f"{kern['name']}: no launch across processes in phase 14")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -116,11 +116,11 @@ def _ag_bulk(src: str) -> str:
     return head + _AG_BULK + _AG_VECTOR_END + rest.split(_AG_VECTOR_END, 1)[1]
 
 
-_A2A_KERNEL = "template <typename T, int N>\n__global__"
+_A2A_KERNEL = "template <typename T, int N, RnrScope S>\n__global__"
 _A2A_RELEASE_SYS = r"""// the previous barrier: a system fence, then one release add per peer
 __device__ __forceinline__ void meet_release_sys(unsigned* const* flags, int n,
                                                  int r, long long word,
-                                                 unsigned target) {
+                                                 unsigned target, const RnrDeadline&) {
   __syncthreads();
   if (threadIdx.x == 0) {
     __threadfence_system();
@@ -217,7 +217,7 @@ __device__ __forceinline__ void scatter_bulk(const A2AArgs& a, int n, int r,
 
 def _a2a_release_sys(src: str) -> str:
     src = _sub(_A2A_KERNEL, _A2A_RELEASE_SYS + _A2A_KERNEL)(src)
-    return _sub("meet<kA2AScope>(", "meet_release_sys(")(src)
+    return _sub("meet<S>(", "meet_release_sys(")(src)
 
 
 def _a2a_data_pass(name: str, body: str):

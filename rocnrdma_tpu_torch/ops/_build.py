@@ -3,9 +3,12 @@
 Each ``ops/csrc/<name>.cu`` is compiled by ``nvcc`` on its own into
 ``ops/_build/lib<name>_<hash>.so`` (a plain C interface: pointers and the
 stream travel as ``c_void_p``), at first use, so a fresh checkout builds
-everything the first time a kernel is called. ``build()`` starts one
-``nvcc`` per source at once and waits for all. The hash covers the sources
-and the flags, so an edited kernel is rebuilt and a current one is reused.
+everything the first time a kernel is called. ``ring.cu`` and
+``alltoall.cu`` also build ``ring_across`` and ``alltoall_across``
+(``_VARIANTS``: their kernels across processes, at kSys). ``build()``
+starts one ``nvcc`` per library at once and waits for all. The hash
+covers the sources and the flags, so an edited kernel is rebuilt and a
+current one is reused.
 A failed build raises with the ``nvcc`` command and its output; nothing
 falls back.
 
@@ -25,11 +28,15 @@ import subprocess
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("alltoall", "combine", "ring")
+SOURCES = ("alltoall", "alltoall_across", "combine", "ipc", "ring", "ring_across")
+# a library built from another one's source with extra flags
+_VARIANTS = {"alltoall_across": ("alltoall", ("-DRNR_ACROSS=1",)),
+             "ring_across": ("ring", ("-DRNR_ACROSS=1",))}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _VP, _INT, _UINT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
+_ULL, _PVP = ctypes.c_ulonglong, ctypes.POINTER(ctypes.c_void_p)
 # argtypes/restype of every exported C function, by library
 _SIGNATURES = {
     "alltoall": {
@@ -38,19 +45,35 @@ _SIGNATURES = {
                           _VP], _INT),
         "rnr_alltoall_rows": ([_VP, _LL, _VP, _LL, _VP, _LL, _INT, _LL, _INT, _INT,
                                _UINT, _INT, _INT, _VP], _INT),
+        "rnr_a2a_lanes_across": ([_INT, _LL, _INT, _INT], _INT),
+        "rnr_alltoall_rank": ([_VP, _VP, _VP, _INT, _LL, _INT, _INT, _UINT, _INT, _ULL,
+                               _VP, _INT, _VP], _INT),
         "rnr_a2a_error": ([_INT], ctypes.c_char_p),
     },
     "combine": {
         "rnr_combine": ([_VP, _INT, _VP, _LL, _INT, _INT, _VP], _INT),
         "rnr_combine_error": ([_INT], ctypes.c_char_p),
     },
+    "ipc": {
+        "rnr_ipc_handle_bytes": ([], _INT),
+        "rnr_ipc_alloc": ([_LL, _INT, _PVP, _VP], _INT),
+        "rnr_ipc_open": ([_VP, _INT, _PVP], _INT),
+        "rnr_ipc_close": ([_VP, _INT], _INT),
+        "rnr_ipc_free": ([_VP, _INT], _INT),
+        "rnr_ipc_diag": ([_PVP, _PVP], _INT),
+        "rnr_ipc_error": ([_INT], ctypes.c_char_p),
+    },
     "ring": {
         "rnr_ring_lanes": ([_INT, _LL, _INT], _INT),
+        "rnr_ring_lanes_across": ([_INT, _LL, _INT], _INT),
+        "rnr_ring_rank": ([_VP, _VP, _VP, _INT, _LL, _INT, _INT, _INT, _UINT, _INT, _ULL,
+                           _VP, _INT, _VP], _INT),
         "rnr_ring": ([_VP, _VP, _VP, _INT, _LL, _INT, _INT, _INT, _UINT, _INT,
                       _INT, _VP], _INT),
         "rnr_ring_error": ([_INT], ctypes.c_char_p),
     },
 }
+_SIGNATURES.update({v: _SIGNATURES[src] for v, (src, _) in _VARIANTS.items()})
 
 
 def nvcc_path() -> str:
@@ -64,10 +87,17 @@ def nvcc_path() -> str:
                        "/usr/local/cuda/bin); the CUDA kernels cannot be built")
 
 
+def _source(name: str) -> tuple[str, tuple]:
+    """The source file and the extra ``nvcc`` flags of library ``name``."""
+    src, flags = _VARIANTS.get(name, (name, ()))
+    return os.path.join(CSRC, f"{src}.cu"), flags
+
+
 def _digest(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    src, flags = _source(name)
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + flags).encode())
     for fn in sorted(os.listdir(CSRC)):
-        if fn == f"{name}.cu" or fn.endswith(".cuh"):
+        if fn == os.path.basename(src) or fn.endswith(".cuh"):
             with open(os.path.join(CSRC, fn), "rb") as fp:
                 h.update(fn.encode() + fp.read())
     return h.hexdigest()[:12]
@@ -89,7 +119,8 @@ def build(names=SOURCES) -> dict[str, str]:
     procs = {}
     for name, path in todo.items():
         tmp = f"{path}.tmp{os.getpid()}"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+        src, flags = _source(name)
+        cmd = [nvcc, *NVCC_FLAGS, *flags, "-o", tmp, src]
         procs[name] = (cmd, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failures = []

@@ -32,6 +32,12 @@
 // resident at once: the launch is cooperative and a grid that cannot be is
 // refused.
 //
+// Across processes (rnr_alltoall_rank): one rank a process; rank r's
+// `lanes` blocks scatter only rank r's chunks, into the peers' output rows
+// opened from CUDA IPC handles (ops/ipc.py), then meet the peers' blocks
+// as above, with flags at kSys and a deadline on every wait (common.cuh,
+// wait_geq_until), as ring.cu's launch across processes.
+//
 // Bound on the H100: device-memory bytes. Each chunk is read once and
 // written once: 2*n*S bytes over all ranks for S bytes per rank, which is
 // also the least any alltoall must move, so this kernel can reach its
@@ -44,7 +50,6 @@
 #define RNR_A2A_FLAG_WORDS 2  // per lane: barrier, arrivals
 #define RNR_A2A_BAR 0
 #define RNR_A2A_ARR 1
-#define RNR_MIN_LANE_ELEMS 1024
 #define RNR_A2A_BATCH 8  // chunks loaded together when n > 8
 
 struct A2AArgs {
@@ -57,10 +62,15 @@ struct A2AArgs {
   unsigned epoch;  // launches of this flag buffer, this one included
   long long per;   // chunk elements (multiple of 128)
   long long lane;  // lane elements (multiple of 128)
+  int rank;        // -1: all n ranks' blocks in this launch; else rank's alone
+  RnrDeadline dl;  // the waits' deadline (kSys instantiations only)
 };
 
-// The flags' memory-model scope. Every rank of this slice lives on one GPU,
-// so kGpu orders them all; ranks on other GPUs need kSys.
+#define RNR_KERNEL_A2A 3  // the RNR_DIAG_KERNEL of this kernel
+
+// The flags' memory-model scope of the one-process launch: every rank of it
+// lives on one GPU, so kGpu orders them all; the launch across processes
+// instantiates the kernel at kSys.
 constexpr RnrScope kA2AScope = kGpu;
 
 // Sub-range [lo, lo + nv vectors) of every chunk of x[r] into out[d, r],
@@ -97,78 +107,84 @@ __device__ __forceinline__ void scatter(const A2AArgs& a, int n, int r,
   }
 }
 
-template <typename T, int N>
+template <typename T, int N, RnrScope S>
 __global__ void __launch_bounds__(RNR_BLOCK_THREADS)
     alltoall_kernel(const A2AArgs a) {
   const int n = N > 0 ? N : a.n;
-  const int r = blockIdx.x / a.lanes;
-  const int b = blockIdx.x % a.lanes;
+  const int r = a.rank >= 0 ? a.rank : blockIdx.x / a.lanes;
+  const int b = a.rank >= 0 ? blockIdx.x : blockIdx.x % a.lanes;
   const long long lo = (long long)b * a.lane;
   const long long hi = lo + a.lane < a.per ? lo + a.lane : a.per;
   const long long nv = hi > lo ? (hi - lo) * (long long)sizeof(T) / 16 : 0;
   const unsigned target = a.epoch * (unsigned)(n - 1);
 
-  if (a.sync) meet<kA2AScope>(a.flags, n, r, b * RNR_A2A_FLAG_WORDS + RNR_A2A_BAR, target);
+  if (a.sync) meet<S>(a.flags, n, r, b * RNR_A2A_FLAG_WORDS + RNR_A2A_BAR, target, a.dl);
   scatter<T, N>(a, n, r, lo, nv);
-  if (a.sync) meet<kA2AScope>(a.flags, n, r, b * RNR_A2A_FLAG_WORDS + RNR_A2A_ARR, target);
+  if (a.sync) meet<S>(a.flags, n, r, b * RNR_A2A_FLAG_WORDS + RNR_A2A_ARR, target, a.dl);
 }
 
-template <typename T>
+template <typename T, RnrScope S>
 static const void* a2a_fn(int n) {
   switch (n) {
-    case 2: return reinterpret_cast<const void*>(alltoall_kernel<T, 2>);
-    case 3: return reinterpret_cast<const void*>(alltoall_kernel<T, 3>);
-    case 4: return reinterpret_cast<const void*>(alltoall_kernel<T, 4>);
-    case 5: return reinterpret_cast<const void*>(alltoall_kernel<T, 5>);
-    case 6: return reinterpret_cast<const void*>(alltoall_kernel<T, 6>);
-    case 7: return reinterpret_cast<const void*>(alltoall_kernel<T, 7>);
-    case 8: return reinterpret_cast<const void*>(alltoall_kernel<T, 8>);
-    default: return reinterpret_cast<const void*>(alltoall_kernel<T, 0>);
+    case 2: return reinterpret_cast<const void*>(alltoall_kernel<T, 2, S>);
+    case 3: return reinterpret_cast<const void*>(alltoall_kernel<T, 3, S>);
+    case 4: return reinterpret_cast<const void*>(alltoall_kernel<T, 4, S>);
+    case 5: return reinterpret_cast<const void*>(alltoall_kernel<T, 5, S>);
+    case 6: return reinterpret_cast<const void*>(alltoall_kernel<T, 6, S>);
+    case 7: return reinterpret_cast<const void*>(alltoall_kernel<T, 7, S>);
+    case 8: return reinterpret_cast<const void*>(alltoall_kernel<T, 8, S>);
+    default: return reinterpret_cast<const void*>(alltoall_kernel<T, 0, S>);
   }
 }
 
-// The kernel for n ranks of `dtype`, or null for another dtype.
-static const void* kernel_for(int n, int dtype) {
-  if (dtype == RNR_DTYPE_F32) return a2a_fn<float>(n);
-  if (dtype == RNR_DTYPE_BF16) return a2a_fn<__nv_bfloat16>(n);
+// Two libraries, as ring.cu: one process (kA2AScope) and, with
+// -DRNR_ACROSS=1, across processes (kSys).
+#ifndef RNR_ACROSS
+#define RNR_ACROSS 0
+#endif
+
+// The kernel for n ranks of `dtype`, one process (kA2AScope) or one rank a
+// process (`across`: kSys, the bounded waits), or null for another dtype or
+// the other library's launch.
+static const void* kernel_for(int n, int dtype, int across) {
+  constexpr RnrScope S = RNR_ACROSS ? kSys : kA2AScope;
+  if (across != RNR_ACROSS) return nullptr;
+  if (dtype == RNR_DTYPE_F32) return a2a_fn<float, S>(n);
+  if (dtype == RNR_DTYPE_BF16) return a2a_fn<__nv_bfloat16, S>(n);
   return nullptr;
 }
 
-// Lanes per rank for n ranks and `per`-element chunks, as rnr_ring_lanes
-// chooses them: enough blocks to cover the SMs about four times, at least
-// RNR_MIN_LANE_ELEMS elements a lane, and never more than can be resident
-// at once (a block waits on lane b of all n-1 peers, so the whole n*lanes
-// grid has to fit). One occupancy query: the wrapper caches the answer per
-// shape. Returns lanes (> 0) or -cudaError.
-extern "C" int rnr_a2a_lanes(int n, long long per, int dtype, int device) {
-  const void* fn = kernel_for(n, dtype);
+// Lanes per rank for n ranks and `per`-element chunks on `device`, as
+// rnr_ring_lanes chooses them (common.cuh, rnr_lanes). One occupancy query:
+// the wrapper caches the answer per shape. Returns lanes (> 0) or
+// -cudaError.
+static int a2a_lanes(int n, long long per, int dtype, int device, int across) {
+  const void* fn = kernel_for(n, dtype, across);
   if (n < 2 || n > RNR_MAX_RANKS || per <= 0 || per % 128 || fn == nullptr)
     return -(int)cudaErrorInvalidValue;
   int lanes = 0;
   const int rc = rnr_on_device(device, [&] {
-    int per_sm = 0;
-    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fn, RNR_BLOCK_THREADS, 0);
-    if (e != cudaSuccess) return (int)e;
-    const int sms = rnr_sm_count();
-    if (sms <= 0) return (int)cudaErrorInvalidDevice;
-    const long long total = (long long)per_sm * sms;
-    long long l = (per + RNR_MIN_LANE_ELEMS - 1) / RNR_MIN_LANE_ELEMS;
-    const long long cap = (4LL * sms + n - 1) / n;
-    if (l > cap) l = cap;
-    if (l > total / n) l = total / n;
-    if (l < 1) l = 1;
-    const long long lane = rnr_lane_elems(per, (int)l);
-    lanes = (int)((per + lane - 1) / lane);  // no empty lanes
-    return 0;
+    lanes = rnr_lanes(fn, n, per);
+    return lanes < 0 ? -lanes : 0;
   });
   return rc ? -rc : lanes;
 }
 
-// Fills the rest of `a` (its row pointers set) and launches on `device`.
+extern "C" int rnr_a2a_lanes(int n, long long per, int dtype, int device) {
+  return a2a_lanes(n, per, dtype, device, 0);
+}
+
+// The same for the launch across processes (its kSys kernel's occupancy).
+extern "C" int rnr_a2a_lanes_across(int n, long long per, int dtype, int device) {
+  return a2a_lanes(n, per, dtype, device, 1);
+}
+
+// Fills the rest of `a` (its row pointers set) and launches on `device`:
+// all n ranks' blocks, or with a.rank >= 0 that rank's alone.
 static int launch(A2AArgs& a, int n, long long per, int lanes, int dtype,
                   unsigned epoch, int sync, int device, void* stream) {
-  const void* fn = kernel_for(n, dtype);
+  const int across = a.rank >= 0;
+  const void* fn = kernel_for(n, dtype, across);
   if (lanes < 1 || per <= 0 || per % 128 || fn == nullptr)
     return (int)cudaErrorInvalidValue;
   a.n = n;
@@ -177,29 +193,36 @@ static int launch(A2AArgs& a, int n, long long per, int lanes, int dtype,
   a.epoch = epoch;
   a.per = per;
   a.lane = rnr_lane_elems(per, lanes);
+  const unsigned blocks = (unsigned)(across ? lanes : n * lanes);
   void* args[] = {&a};
   return rnr_on_device(device, [&] {
     return (int)cudaLaunchCooperativeKernel(
-        fn, dim3((unsigned)(n * lanes)), dim3(RNR_BLOCK_THREADS), args, 0,
+        fn, dim3(blocks), dim3(RNR_BLOCK_THREADS), args, 0,
         reinterpret_cast<cudaStream_t>(stream));
   });
 }
 
+static void fill(A2AArgs& a, const void* const* src, void* const* dst,
+                 void* const* flags, int n) {
+  for (int r = 0; r < n; ++r) {
+    a.src[r] = src[r];
+    a.dst[r] = dst[r];
+    a.flags[r] = reinterpret_cast<unsigned*>(flags[r]);
+  }
+}
+
 // One launch on `device`, the ranks' rows given as pointer tables (one
-// pointer a rank, as peer pointers will be across GPUs). `epoch` counts the
-// launches of this flag buffer, this one included; `sync` 0 skips the
-// barrier and the arrivals and leaves the flags alone.
+// pointer a rank). `epoch` counts the launches of this flag buffer, this
+// one included; `sync` 0 skips the barrier and the arrivals and leaves the
+// flags alone.
 extern "C" int rnr_alltoall(const void* const* src, void* const* dst,
                             void* const* flags, int n, long long per,
                             int lanes, int dtype, unsigned epoch, int sync,
                             int device, void* stream) {
   if (n < 2 || n > RNR_MAX_RANKS) return (int)cudaErrorInvalidValue;
   A2AArgs a = {};
-  for (int r = 0; r < n; ++r) {
-    a.src[r] = src[r];
-    a.dst[r] = dst[r];
-    a.flags[r] = reinterpret_cast<unsigned*>(flags[r]);
-  }
+  a.rank = -1;
+  fill(a, src, dst, flags, n);
   return launch(a, n, per, lanes, dtype, epoch, sync, device, stream);
 }
 
@@ -213,12 +236,35 @@ extern "C" int rnr_alltoall_rows(const void* src, long long src_stride,
                                  int device, void* stream) {
   if (n < 2 || n > RNR_MAX_RANKS) return (int)cudaErrorInvalidValue;
   A2AArgs a = {};
+  a.rank = -1;
   for (int r = 0; r < n; ++r) {
     a.src[r] = static_cast<const char*>(src) + r * src_stride;
     a.dst[r] = static_cast<char*>(dst) + r * dst_stride;
     a.flags[r] = reinterpret_cast<unsigned*>(static_cast<char*>(flags) + r * flags_stride);
   }
   return launch(a, n, per, lanes, dtype, epoch, sync, device, stream);
+}
+
+// One launch of rank `rank`'s `lanes` blocks across processes: the tables
+// hold every rank's rows and flags (peers' mapped from CUDA IPC handles).
+// Each wait gives up after `timeout_ns` (0: never), writing its record into
+// `diag` (mapped host words, RNR_DIAG_WORDS) before the launch traps.
+extern "C" int rnr_alltoall_rank(const void* const* src, void* const* dst,
+                                 void* const* flags, int n, long long per,
+                                 int lanes, int dtype, unsigned epoch, int rank,
+                                 unsigned long long timeout_ns, void* diag,
+                                 int device, void* stream) {
+  if (n < 2 || n > RNR_MAX_RANKS || rank < 0 || rank >= n)
+    return (int)cudaErrorInvalidValue;
+  A2AArgs a = {};
+  a.rank = rank;
+  a.dl.timeout_ns = timeout_ns;
+  a.dl.diag = static_cast<unsigned*>(diag);
+  a.dl.rank = rank;
+  a.dl.kernel = RNR_KERNEL_A2A;
+  a.dl.epoch = epoch;
+  fill(a, src, dst, flags, n);
+  return launch(a, n, per, lanes, dtype, epoch, 1, device, stream);
 }
 
 extern "C" const char* rnr_a2a_error(int code) {

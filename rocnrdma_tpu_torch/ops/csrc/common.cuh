@@ -152,18 +152,96 @@ __device__ __forceinline__ void wait_geq(const unsigned* p, unsigned v) {
 
 __device__ __forceinline__ int wrap(int v, int n) { return ((v % n) + n) % n; }
 
+// ---------------------------------------------------------------------------
+// The bounded wait of the kernels whose ranks live in other processes (one
+// rank a process, peers' rows and flags mapped through CUDA IPC). There a
+// peer that died, or that made another call, would leave a wait spinning
+// for good, so each wait has a deadline: `timeout_ns` from when it began,
+// read from %globaltimer (0: none). On expiry one thread of the launch
+// writes what it waited for into `diag`, pinned host memory mapped into the
+// device (RNR_DIAG_WORDS words: RNR_DIAG_* below), and every expiring
+// thread traps: the launch fails, as an NCCL timeout aborts its
+// communicator, and the wrapper names the record (ops/ipc.py). The
+// one-process kernels keep the unbounded wait_geq above.
+
+#define RNR_DIAG_WORDS 8
+#define RNR_DIAG_STATE 0   // 0 none, 1 being written, 2 written
+#define RNR_DIAG_RANK 1
+#define RNR_DIAG_LANE 2
+#define RNR_DIAG_WORD 3    // index of the flag word in the rank's flags
+#define RNR_DIAG_SEEN 4    // its value when the deadline passed
+#define RNR_DIAG_TARGET 5  // the value waited for
+#define RNR_DIAG_EPOCH 6
+#define RNR_DIAG_KERNEL 7  // ring.cu's RNR_MODE_*, or RNR_KERNEL_A2A
+
+struct RnrDeadline {
+  unsigned long long timeout_ns;  // 0: no deadline
+  unsigned* diag;                 // device address of the mapped words
+  int rank;                       // the rank this launch runs
+  int kernel;                     // written into RNR_DIAG_KERNEL
+  unsigned epoch;
+};
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// (`d` by value: a reference would copy the whole kernel argument block to
+// every thread's stack)
+__device__ __noinline__ void expire(RnrDeadline d, long long word,
+                                    unsigned seen, unsigned target) {
+  if (d.diag != nullptr && atomicCAS_system(d.diag + RNR_DIAG_STATE, 0u, 1u) == 0u) {
+    volatile unsigned* w = d.diag;
+    w[RNR_DIAG_RANK] = (unsigned)d.rank;
+    w[RNR_DIAG_LANE] = blockIdx.x;
+    w[RNR_DIAG_WORD] = (unsigned)word;
+    w[RNR_DIAG_SEEN] = seen;
+    w[RNR_DIAG_TARGET] = target;
+    w[RNR_DIAG_EPOCH] = d.epoch;
+    w[RNR_DIAG_KERNEL] = (unsigned)d.kernel;
+    __threadfence_system();
+    w[RNR_DIAG_STATE] = 2u;
+    __threadfence_system();
+  }
+  __trap();
+}
+
+// wait_geq with the deadline: word `word` of my flags is at p.
+template <RnrScope S>
+__device__ __forceinline__ void wait_geq_until(const unsigned* p, unsigned v,
+                                               const RnrDeadline& d,
+                                               long long word) {
+  if (threadIdx.x == 0) {
+    const unsigned long long t0 = global_ns();
+    unsigned seen;
+    while ((int)((seen = ld_relaxed<S>(p)) - v) < 0) {
+      if (d.timeout_ns != 0 && global_ns() - t0 > d.timeout_ns) expire(d, word, seen, v);
+      __nanosleep(64);
+    }
+    fence<S>();
+  }
+  __syncthreads();
+}
+
 // One arrival on word `word` of every other rank's flags (rank q's word is
 // flags[q] + word), after every thread's prior writes: one fence, then
-// relaxed adds. Then wait until my own word reaches `target`.
+// relaxed adds. Then wait until my own word reaches `target`: unbounded at
+// kGpu (every rank in this launch), with `d`'s deadline at kSys.
 template <RnrScope S>
 __device__ __forceinline__ void meet(unsigned* const* flags, int n, int r,
-                                     long long word, unsigned target) {
+                                     long long word, unsigned target,
+                                     const RnrDeadline& d) {
   __syncthreads();
   if (threadIdx.x == 0) {
     fence<S>();
     for (int s = 1; s < n; ++s) add_relaxed<S>(flags[wrap(r + s, n)] + word, 1u);
   }
-  wait_geq<S>(flags[r] + word, target);
+  if constexpr (S == kSys)
+    wait_geq_until<S>(flags[r] + word, target, d, word);
+  else
+    wait_geq<S>(flags[r] + word, target);
 }
 
 // Lane width of a kernel whose rank runs `lanes` blocks over `elems`
@@ -172,4 +250,34 @@ __device__ __forceinline__ void meet(unsigned* const* flags, int n, int r,
 static inline long long rnr_lane_elems(long long elems, int lanes) {
   long long l = (elems + lanes - 1) / lanes;
   return (l + 127) / 128 * 128;
+}
+
+#define RNR_MIN_LANE_ELEMS 1024
+
+// Lanes per rank of kernel `fn` for n ranks and `per`-element chunks, on
+// the current device: enough blocks to cover the SMs about four times, at
+// least RNR_MIN_LANE_ELEMS elements a lane, and never more than can be
+// resident at once. A block waits on lane b of all n-1 peers, so the
+// blocks of all n ranks have to fit on one card together: the whole n*lanes
+// grid in one process, and with one rank a process all n processes'
+// grids at once when they share the card under MPS (on separate cards the
+// cap is only stricter than needed). The answer depends only on n, per, the
+// kernel and the card's model, so every process of a job on like cards
+// gets the same lanes, which the epoch-counted flags of a launch across
+// processes require. Returns lanes (> 0) or -cudaError.
+static inline int rnr_lanes(const void* fn, int n, long long per) {
+  int per_sm = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, fn, RNR_BLOCK_THREADS, 0);
+  if (e != cudaSuccess) return -(int)e;
+  const int sms = rnr_sm_count();
+  if (sms <= 0) return -(int)cudaErrorInvalidDevice;
+  const long long total = (long long)per_sm * sms;
+  long long lanes = (per + RNR_MIN_LANE_ELEMS - 1) / RNR_MIN_LANE_ELEMS;
+  const long long cap = (4LL * sms + n - 1) / n;
+  if (lanes > cap) lanes = cap;
+  if (lanes > total / n) lanes = total / n;
+  if (lanes < 1) lanes = 1;
+  const long long lane = rnr_lane_elems(per, (int)lanes);
+  return (int)((per + lane - 1) / lane);  // no empty lanes
 }

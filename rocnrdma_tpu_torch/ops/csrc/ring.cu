@@ -45,6 +45,16 @@
 // resident at once: the launch is cooperative and a grid that cannot be is
 // refused.
 //
+// Across processes (rnr_ring_rank): one rank a process, each process
+// launching its own rank's `lanes` blocks; the tables hold the peers' rows
+// and flags, opened from CUDA IPC handles (ops/ipc.py), on this card or on
+// another over NVLink. The protocol and the fold are the same, so each
+// rank's row is the one-process launch's bit for bit. What changes: the
+// flags' scope is kSys (peers in other processes or on other cards), and
+// every wait has a deadline (common.cuh, wait_geq_until), since a peer
+// that never launches would otherwise leave this process's kernel spinning
+// for good.
+//
 // Bound on the H100: device-memory bytes. Each mode reads every input
 // element once and writes every output element once, which is the least
 // any implementation must move: over all ranks, with S bytes per rank,
@@ -61,7 +71,6 @@
 #define RNR_FLAG_WORDS 2  // per lane: barrier, arrivals
 #define RNR_BAR 0
 #define RNR_ARR 1
-#define RNR_MIN_LANE_ELEMS 1024
 #define RNR_FOLD_BATCH 8  // operands loaded together on the batched path
 
 #define RNR_MODE_AR 0  // allreduce: fold from rank r, store into all rows
@@ -79,12 +88,14 @@ struct RingArgs {
   unsigned epoch;   // launches of this flag buffer, this one included
   long long per;    // chunk elements (16-byte multiple)
   long long lane;   // lane elements (multiple of 128)
+  int rank;         // -1: all n ranks' blocks in this launch; else rank's alone
+  RnrDeadline dl;   // the waits' deadline (kSys instantiations only)
 };
 
-// The flags' memory-model scope. Every rank of this slice lives on one GPU,
-// so kGpu orders them all; ranks on other GPUs (peer pointers over NVLink)
-// need kSys, whose fences cost several microseconds more per launch on the
-// H100 (bench/bench_kernel_variants.py, PERF.md).
+// The flags' memory-model scope of the one-process launch. Every rank of it
+// lives on one GPU, so kGpu orders them all; the launch across processes
+// instantiates the kernel at kSys, whose fences cost several microseconds
+// more per launch on the H100 (bench/bench_kernel_variants.py, PERF.md).
 constexpr RnrScope kRingScope = kGpu;
 
 // Vector i of my sub-range of chunk r in operand k of the fold, which is
@@ -152,12 +163,12 @@ __device__ __forceinline__ void store_vectors(const uint4 (&s)[U],
   }
 }
 
-template <typename T, int N>
+template <typename T, int N, RnrScope S>
 __global__ void __launch_bounds__(RNR_BLOCK_THREADS)
     ring_kernel(const RingArgs a) {
   const int n = N > 0 ? N : a.n;
-  const int r = blockIdx.x / a.lanes;
-  const int b = blockIdx.x % a.lanes;
+  const int r = a.rank >= 0 ? a.rank : blockIdx.x / a.lanes;
+  const int b = a.rank >= 0 ? blockIdx.x : blockIdx.x % a.lanes;
   const long long lo = (long long)b * a.lane;
   const long long hi = lo + a.lane < a.per ? lo + a.lane : a.per;
   const long long nv = hi > lo ? (hi - lo) * (long long)sizeof(T) / 16 : 0;
@@ -165,7 +176,7 @@ __global__ void __launch_bounds__(RNR_BLOCK_THREADS)
   const int TH = RNR_BLOCK_THREADS;
 
   if (a.sync)
-    meet<kRingScope>(a.flags, n, r, b * RNR_FLAG_WORDS + RNR_BAR, a.epoch * (unsigned)(n - 1));
+    meet<S>(a.flags, n, r, b * RNR_FLAG_WORDS + RNR_BAR, a.epoch * (unsigned)(n - 1), a.dl);
 
   long long i = threadIdx.x;
   if (a.mode == RNR_MODE_AG) {
@@ -199,71 +210,73 @@ __global__ void __launch_bounds__(RNR_BLOCK_THREADS)
   }
 
   if (a.sync)
-    meet<kRingScope>(a.flags, n, r, b * RNR_FLAG_WORDS + RNR_ARR, a.epoch * (unsigned)(n - 1));
+    meet<S>(a.flags, n, r, b * RNR_FLAG_WORDS + RNR_ARR, a.epoch * (unsigned)(n - 1), a.dl);
 }
 
-template <typename T>
+template <typename T, RnrScope S>
 static const void* ring_fn(int n) {
   switch (n) {
-    case 2: return reinterpret_cast<const void*>(ring_kernel<T, 2>);
-    case 3: return reinterpret_cast<const void*>(ring_kernel<T, 3>);
-    case 4: return reinterpret_cast<const void*>(ring_kernel<T, 4>);
-    case 5: return reinterpret_cast<const void*>(ring_kernel<T, 5>);
-    case 6: return reinterpret_cast<const void*>(ring_kernel<T, 6>);
-    case 7: return reinterpret_cast<const void*>(ring_kernel<T, 7>);
-    case 8: return reinterpret_cast<const void*>(ring_kernel<T, 8>);
-    default: return reinterpret_cast<const void*>(ring_kernel<T, 0>);
+    case 2: return reinterpret_cast<const void*>(ring_kernel<T, 2, S>);
+    case 3: return reinterpret_cast<const void*>(ring_kernel<T, 3, S>);
+    case 4: return reinterpret_cast<const void*>(ring_kernel<T, 4, S>);
+    case 5: return reinterpret_cast<const void*>(ring_kernel<T, 5, S>);
+    case 6: return reinterpret_cast<const void*>(ring_kernel<T, 6, S>);
+    case 7: return reinterpret_cast<const void*>(ring_kernel<T, 7, S>);
+    case 8: return reinterpret_cast<const void*>(ring_kernel<T, 8, S>);
+    default: return reinterpret_cast<const void*>(ring_kernel<T, 0, S>);
   }
 }
 
-// The kernel for n ranks of `dtype`, or null for another dtype.
-static const void* kernel_for(int n, int dtype) {
-  if (dtype == RNR_DTYPE_F32) return ring_fn<float>(n);
-  if (dtype == RNR_DTYPE_BF16) return ring_fn<__nv_bfloat16>(n);
+// This source builds two libraries (ops/_build.py): the one-process one
+// instantiates the kernels at kRingScope only, the one across processes
+// (-DRNR_ACROSS=1) at kSys only, so that each nvcc compiles half of them.
+#ifndef RNR_ACROSS
+#define RNR_ACROSS 0
+#endif
+
+// The kernel for n ranks of `dtype`, one process (kRingScope) or one rank a
+// process (`across`: kSys, the bounded waits), or null for another dtype or
+// the other library's launch.
+static const void* kernel_for(int n, int dtype, int across) {
+  constexpr RnrScope S = RNR_ACROSS ? kSys : kRingScope;
+  if (across != RNR_ACROSS) return nullptr;
+  if (dtype == RNR_DTYPE_F32) return ring_fn<float, S>(n);
+  if (dtype == RNR_DTYPE_BF16) return ring_fn<__nv_bfloat16, S>(n);
   return nullptr;
 }
 
-// Lanes per rank for n ranks and `per`-element chunks: enough blocks to
-// cover the SMs about four times (faster than twice for reduce-scatter on
-// the H100, no slower for the other modes: bench/bench_kernel_variants.py),
-// at least RNR_MIN_LANE_ELEMS elements a lane,
-// and never more than can be resident at once (a block waits on lane b of
-// all n-1 peers, so the whole n*lanes grid has to fit). Returns lanes
+// Lanes per rank for n ranks and `per`-element chunks (rnr_lanes: about
+// four blocks an SM over all ranks; four were faster than two for
+// reduce-scatter on the H100 and no slower for the other modes,
+// bench/bench_kernel_variants.py), on the current device. Returns lanes
 // (> 0) or -cudaError.
-extern "C" int rnr_ring_lanes(int n, long long per, int dtype) {
-  const void* fn = kernel_for(n, dtype);
+static int ring_lanes(int n, long long per, int dtype, int across) {
+  const void* fn = kernel_for(n, dtype, across);
   if (n < 2 || n > RNR_MAX_RANKS || per <= 0 || fn == nullptr)
     return -(int)cudaErrorInvalidValue;
-  int per_sm = 0;
-  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, fn, RNR_BLOCK_THREADS, 0);
-  if (e != cudaSuccess) return -(int)e;
-  const int sms = rnr_sm_count();
-  if (sms <= 0) return -(int)cudaErrorInvalidDevice;
-  const long long total = (long long)per_sm * sms;
-  long long lanes = (per + RNR_MIN_LANE_ELEMS - 1) / RNR_MIN_LANE_ELEMS;
-  long long cap = (4LL * sms + n - 1) / n;
-  if (lanes > cap) lanes = cap;
-  if (lanes > total / n) lanes = total / n;
-  if (lanes < 1) lanes = 1;
-  const long long lane = rnr_lane_elems(per, (int)lanes);
-  return (int)((per + lane - 1) / lane);  // no empty lanes
+  return rnr_lanes(fn, n, per);
 }
 
-// One launch of the ring kernel in `mode` (RNR_MODE_*) on `device`.
-// `epoch` counts the launches of this flag buffer, this one included;
-// `sync` 0 skips the barrier and the arrivals and leaves the flags alone.
-extern "C" int rnr_ring(const void* const* src, void* const* dst,
-                        void* const* flags, int n, long long per, int lanes,
-                        int dtype, int mode, unsigned epoch, int sync,
-                        int device, void* stream) {
-  const void* fn = kernel_for(n, dtype);
+extern "C" int rnr_ring_lanes(int n, long long per, int dtype) {
+  return ring_lanes(n, per, dtype, 0);
+}
+
+// The same for the launch across processes (its kSys kernel's occupancy).
+extern "C" int rnr_ring_lanes_across(int n, long long per, int dtype) {
+  return ring_lanes(n, per, dtype, 1);
+}
+
+// Fills `a` from the tables and launches `blocks` blocks on `device`.
+static int launch(RingArgs& a, const void* const* src, void* const* dst,
+                  void* const* flags, int n, long long per, int lanes,
+                  int dtype, int mode, unsigned epoch, int sync, int across,
+                  int device, void* stream) {
+  const void* fn = kernel_for(n, dtype, across);
   const int itemsize = dtype == RNR_DTYPE_BF16 ? 2 : 4;
   if (n < 2 || n > RNR_MAX_RANKS || lanes < 1 || per <= 0 ||
       per * itemsize % 16 || mode < RNR_MODE_AR || mode > RNR_MODE_AG ||
       fn == nullptr)
     return (int)cudaErrorInvalidValue;
-  RingArgs a = {};
   for (int r = 0; r < n; ++r) {
     a.src[r] = src[r];
     a.dst[r] = dst[r];
@@ -276,12 +289,48 @@ extern "C" int rnr_ring(const void* const* src, void* const* dst,
   a.epoch = epoch;
   a.per = per;
   a.lane = rnr_lane_elems(per, lanes);
+  const unsigned blocks = (unsigned)(across ? lanes : n * lanes);
   void* args[] = {&a};
   return rnr_on_device(device, [&] {
     return (int)cudaLaunchCooperativeKernel(
-        fn, dim3((unsigned)(n * lanes)), dim3(RNR_BLOCK_THREADS), args, 0,
+        fn, dim3(blocks), dim3(RNR_BLOCK_THREADS), args, 0,
         reinterpret_cast<cudaStream_t>(stream));
   });
+}
+
+// One launch of the ring kernel in `mode` (RNR_MODE_*) on `device`, every
+// rank's blocks. `epoch` counts the launches of this flag buffer, this one
+// included; `sync` 0 skips the barrier and the arrivals and leaves the flags
+// alone.
+extern "C" int rnr_ring(const void* const* src, void* const* dst,
+                        void* const* flags, int n, long long per, int lanes,
+                        int dtype, int mode, unsigned epoch, int sync,
+                        int device, void* stream) {
+  RingArgs a = {};
+  a.rank = -1;
+  return launch(a, src, dst, flags, n, per, lanes, dtype, mode, epoch, sync, 0,
+                device, stream);
+}
+
+// One launch of rank `rank`'s `lanes` blocks across processes: the tables
+// hold every rank's rows and flags (peers' mapped from CUDA IPC handles).
+// Each wait gives up after `timeout_ns` (0: never), writing its record into
+// `diag` (mapped host words, RNR_DIAG_WORDS) before the launch traps.
+extern "C" int rnr_ring_rank(const void* const* src, void* const* dst,
+                             void* const* flags, int n, long long per, int lanes,
+                             int dtype, int mode, unsigned epoch, int rank,
+                             unsigned long long timeout_ns, void* diag,
+                             int device, void* stream) {
+  if (rank < 0 || rank >= n) return (int)cudaErrorInvalidValue;
+  RingArgs a = {};
+  a.rank = rank;
+  a.dl.timeout_ns = timeout_ns;
+  a.dl.diag = static_cast<unsigned*>(diag);
+  a.dl.rank = rank;
+  a.dl.kernel = mode;
+  a.dl.epoch = epoch;
+  return launch(a, src, dst, flags, n, per, lanes, dtype, mode, epoch, 1, 1,
+                device, stream);
 }
 
 extern "C" const char* rnr_ring_error(int code) {

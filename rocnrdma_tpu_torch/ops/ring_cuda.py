@@ -15,9 +15,23 @@ of the Pallas ring kernels in ``rocnrdma_tpu/ops/ring_pallas.py``:
 - ``ring_allgather(x, tile_rows)`` <- ``pallas_ring_allgather``: ``(n, c)``
   -> ``(n, n*c)``, every row the concatenation.
 
-``x`` is rank-major: row ``x[r]`` is rank r's buffer; in this slice every
-rank lives on the tensor's one device. For a CUDA tensor a wrapper
-launches the kernel or raises; only a CPU tensor takes the plain version.
+``x`` is rank-major: row ``x[r]`` is rank r's buffer, every rank on the
+tensor's one device. For a CUDA tensor a wrapper launches the kernel or
+raises; only a CPU tensor takes the plain version.
+
+Across processes, one rank a process (a 1-D mesh that spans processes,
+``runtime.mesh.ProcessSpan``): ``ring_allreduce_across``,
+``hbm_ring_allreduce_across`` (and ``_tiled_allreduce_across``),
+``ring_reduce_scatter_across`` and ``ring_allgather_across`` take this
+process's row ``(1, ...)`` and the span, and return this process's row of
+the one-process wrapper's result, bit for bit: the chunk geometry comes
+from the span's n, so padding, chunk ownership and fold order are the one
+process's. On a CUDA tensor each copies the row into this process's IPC
+workspace (``ops/ipc.py``), launches its rank's blocks of the same kernel
+at ``kSys`` with every rank's rows and flags mapped from CUDA IPC handles,
+and copies its row of the result out. Each has a plain version across
+processes for a CPU tensor: every rank's row gathered on the span's cross
+group, the one-process plain version, this process's row.
 
 The TPU ring relays chunk c around the ring, each hop adding one rank's
 value to the running sum, starting at rank c (allreduce) or rank c+1
@@ -37,12 +51,16 @@ import functools
 
 import torch
 
+from rocnrdma_tpu_torch.collectives._exchange import cross_allgather
 from rocnrdma_tpu_torch.ops import _build
 from rocnrdma_tpu_torch.ops.local_cuda import DTYPE_CODES
 
-# launches of each kernel wrapper since the last reset
+# launches of each kernel wrapper since the last reset; the *_across ones
+# are one rank's launch across processes
 LAUNCHES = {"ring_allreduce": 0, "hbm_ring_allreduce": 0,
-            "ring_reduce_scatter": 0, "ring_allgather": 0}
+            "ring_reduce_scatter": 0, "ring_allgather": 0,
+            "ring_allreduce_across": 0, "hbm_ring_allreduce_across": 0,
+            "ring_reduce_scatter_across": 0, "ring_allgather_across": 0}
 
 LANES = 128
 MAX_RANKS = 32
@@ -50,10 +68,12 @@ FLAG_WORDS = 2  # per lane and rank, as ring.cu's RNR_FLAG_WORDS
 MODE_AR, MODE_RS, MODE_AG = 0, 1, 2  # ring.cu's RNR_MODE_*
 
 
-def _geometry(x: torch.Tensor, align: int) -> tuple[int, int, int]:
-    """(n ranks, elements per rank, padded chunk elements)."""
-    n = x.shape[0]
-    size = x.numel() // n if n else 0
+def _geometry(x: torch.Tensor, align: int, n: int | None = None) -> tuple[int, int, int]:
+    """(n ranks, elements per rank, padded chunk elements); ``n`` defaults
+    to ``x``'s rows (across processes it is the span's, ``x`` one row)."""
+    rows = x.shape[0]
+    n = rows if n is None else n
+    size = x.numel() // rows if rows else 0
     per = -(-size // n) if n else 0
     return n, size, -(-per // align) * align
 
@@ -115,10 +135,11 @@ def _check_tile_rows(tile_rows: int | None) -> None:
         raise ValueError(f"tile_rows must be >= 1, got {tile_rows}")
 
 
-def _rs_chunk(x: torch.Tensor) -> int:
-    """Chunk elements of a reduce-scatter of ``x``; raises the reference's
-    error when the rank buffer is not a whole number of 128-lane chunks."""
-    n, size = x.shape[0], x[0].numel()
+def _rs_chunk(x: torch.Tensor, n: int | None = None) -> int:
+    """Chunk elements of a reduce-scatter of ``x`` over ``n`` ranks
+    (default: its rows); raises the reference's error when the rank buffer
+    is not a whole number of 128-lane chunks."""
+    n, size = x.shape[0] if n is None else n, x[0].numel()
     if size % (n * LANES):
         raise ValueError(
             f"ring reduce_scatter needs size % (n*128) == 0, got size={size}, "
@@ -318,3 +339,168 @@ def ring_allgather(x: torch.Tensor, tile_rows: int | None = None) -> torch.Tenso
     _launch(src, out, n, per, MODE_AG)
     LAUNCHES["ring_allgather"] += 1
     return out if per == c else out.view(n, n, per)[:, :, :c].reshape(n, n * c)
+
+
+# ---------------------------------------------------------------------------
+# Across processes, one rank a process (module docstring).
+
+
+def _check_row(x: torch.Tensor, span, what: str) -> bool:
+    """Validate this process's row ``x`` of ``span``'s ranks; True when it
+    lies on the CPU (the plain version across processes)."""
+    if x.dim() < 1 or x.shape[0] != 1:
+        raise ValueError(f"{what}: x must be this process's row (1, ...), got "
+                         f"shape {tuple(x.shape)}")
+    if span.size > MAX_RANKS:
+        raise ValueError(f"{what} kernel takes <= {MAX_RANKS} ranks, got {span.size}")
+    return _check(x, what)
+
+
+def _gathered(x: torch.Tensor, span) -> torch.Tensor:
+    """Every rank's row, rank-major ``(n, ...)``: one all-gather on the
+    span's cross group."""
+    return cross_allgather(x[0], span)
+
+
+def _mine(out: torch.Tensor, span) -> torch.Tensor:
+    return out[span.index:span.index + 1]
+
+
+def ring_allreduce_across_plain(x: torch.Tensor, span) -> torch.Tensor:
+    """Plain version of ``ring_allreduce_across``."""
+    return _mine(ring_allreduce_plain(_gathered(x, span)), span)
+
+
+def _tiled_allreduce_across_plain(x: torch.Tensor, span, tile_rows: int) -> torch.Tensor:
+    """Plain version of ``_tiled_allreduce_across`` (out of place)."""
+    return _mine(_allreduce_plain(_gathered(x, span), tile_rows * LANES), span)
+
+
+def ring_reduce_scatter_across_plain(x: torch.Tensor, span,
+                                     tile_rows: int | None = None) -> torch.Tensor:
+    """Plain version of ``ring_reduce_scatter_across``."""
+    if span.size > 1:  # refused before any exchange, as by the kernel's wrapper
+        _rs_chunk(x, span.size)
+    return _mine(ring_reduce_scatter_plain(_gathered(x, span), tile_rows), span)
+
+
+def ring_allgather_across_plain(x: torch.Tensor, span,
+                                tile_rows: int | None = None) -> torch.Tensor:
+    """Plain version of ``ring_allgather_across``."""
+    return _mine(ring_allgather_plain(_gathered(x, span), tile_rows), span)
+
+
+@functools.lru_cache(maxsize=256)
+def _lanes_across(device: int, n: int, per: int, code: int) -> int:
+    """The across launch's lanes for n ranks of ``per``-element chunks: the
+    same in every process of a job on like cards."""
+    lib = _build.load("ring_across")
+    with torch.cuda.device(device):
+        lanes = lib.rnr_ring_lanes_across(n, per, code)
+    _build.check(lib, "rnr_ring_error", min(lanes, 0), "ring lane query")
+    return lanes
+
+
+def _run_across(x: torch.Tensor, span, mode: int, per: int, in_elems: int,
+                out_elems: int, fill) -> tuple:
+    """One launch of this rank's blocks in ``mode`` over chunks of ``per``
+    elements: ``fill(inp)`` writes this process's input row (``in_elems``),
+    then the kernel runs. Returns the workspace and its output row
+    (``out_elems``), which the caller copies out before ``finish``."""
+    lib = _build.load("ring_across")
+    n, code = span.size, DTYPE_CODES[x.dtype]
+    lanes = _lanes_across(x.get_device(), n, per, code)
+    ws = span.workspace(x.device)
+    inp, out = ws.rows(x.dtype, in_elems, out_elems, (mode, code, per, lanes))
+    fill(inp)
+    ws.launch("ring", lanes, lib, "rnr_ring_rank", n, per, lanes, code, mode)
+    return ws, out
+
+
+def _copy_row(x: torch.Tensor, size: int):
+    """``fill`` of a row of ``size`` elements from ``x``, zero-padded."""
+    def fill(inp: torch.Tensor) -> None:
+        inp[:size].copy_(x.reshape(-1))
+        inp[size:].zero_()
+    return fill
+
+
+def _allreduce_across(x: torch.Tensor, span, align: int, counter: str,
+                      into: torch.Tensor | None = None) -> torch.Tensor:
+    """The kernel's allreduce of this process's CUDA row ``x`` with chunks
+    padded to ``align``, into ``into`` or a new tensor; counts one launch of
+    ``counter``."""
+    n, size, per = _geometry(x, align, span.size)
+    if n == 1 or size == 0:
+        return x.clone() if into is None else into
+    ws, out = _run_across(x, span, MODE_AR, per, n * per, n * per, _copy_row(x, size))
+    res = torch.empty_like(x) if into is None else into
+    res.copy_(out[:size].view(x.shape))
+    ws.finish()
+    LAUNCHES[counter] += 1
+    return res
+
+
+def ring_allreduce_across(x: torch.Tensor, span) -> torch.Tensor:
+    """Sum allreduce across processes: ``x`` is this process's row
+    ``(1, S)`` of ``span``'s n ranks; returns its row of ``ring_allreduce``
+    of every rank's row (``x`` unchanged)."""
+    if _check_row(x, span, "ring_allreduce"):
+        return ring_allreduce_across_plain(x, span)
+    return _allreduce_across(x, span, LANES, "ring_allreduce_across")
+
+
+def hbm_ring_allreduce_across(x: torch.Tensor, span, tile_rows: int = 64) -> torch.Tensor:
+    """``hbm_ring_allreduce`` across processes: the result overwrites this
+    process's row ``x``, which is returned."""
+    _check_tile_rows(tile_rows)
+    if _check_row(x, span, "hbm_ring_allreduce"):
+        return x.copy_(_tiled_allreduce_across_plain(x, span, tile_rows))
+    return _allreduce_across(x, span, tile_rows * LANES, "hbm_ring_allreduce_across", into=x)
+
+
+def _tiled_allreduce_across(x: torch.Tensor, span, tile_rows: int) -> torch.Tensor:
+    """``hbm_ring_allreduce_across``'s result, out of place: the
+    ``cuda_ring`` arm's tiled tier across processes."""
+    _check_tile_rows(tile_rows)
+    if _check_row(x, span, "hbm_ring_allreduce"):
+        return _tiled_allreduce_across_plain(x, span, tile_rows)
+    return _allreduce_across(x, span, tile_rows * LANES, "hbm_ring_allreduce_across")
+
+
+def ring_reduce_scatter_across(x: torch.Tensor, span,
+                               tile_rows: int | None = None) -> torch.Tensor:
+    """Sum reduce-scatter across processes: ``x`` is this process's row
+    ``(1, S)``; returns ``(1, S/n)``, this rank's summed chunk. ``S`` must be
+    a multiple of ``n*128``."""
+    if _check_row(x, span, "ring_reduce_scatter"):
+        return ring_reduce_scatter_across_plain(x, span, tile_rows)
+    n = span.size
+    if n == 1:
+        return x.reshape(1, -1).clone()
+    per = _rs_chunk(x, n)
+    _check_tile_rows(tile_rows)
+    ws, out = _run_across(x, span, MODE_RS, per, n * per, per, _copy_row(x, n * per))
+    res = out.clone().view(1, per)
+    ws.finish()
+    LAUNCHES["ring_reduce_scatter_across"] += 1
+    return res
+
+
+def ring_allgather_across(x: torch.Tensor, span,
+                          tile_rows: int | None = None) -> torch.Tensor:
+    """Allgather across processes: ``x`` is this process's row ``(1, c...)``;
+    returns ``(1, n*c)``, the concatenation of every rank's buffer."""
+    if _check_row(x, span, "ring_allgather"):
+        return ring_allgather_across_plain(x, span, tile_rows)
+    n, c = span.size, x[0].numel()
+    if n == 1 or c == 0:
+        return x.reshape(1, -1).clone()
+    _check_tile_rows(tile_rows)
+    vec = 16 // x.element_size()
+    per = -(-c // vec) * vec  # chunks start 16-byte aligned
+    ws, out = _run_across(x, span, MODE_AG, per, per, n * per, _copy_row(x, c))
+    res = out.view(n, per)[:, :c].clone().reshape(1, n * c)
+    ws.finish()
+    LAUNCHES["ring_allgather_across"] += 1
+    return res

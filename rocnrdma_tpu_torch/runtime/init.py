@@ -267,6 +267,11 @@ def shutdown_runtime(timeout_s: float = 5.0, abort: bool = False) -> bool:
     ``deviceheal-`` replay digest, because clean-vs-abandoned is
     wall-clock-determined."""
     dist = torch.distributed
+    ipc = sys.modules.get("rocnrdma_tpu_torch.ops.ipc")
+    if ipc is not None:
+        # the kernels' IPC workspaces: peers unmapped before the group goes;
+        # an aborted job's peers may be gone, so no wait on them then
+        ipc.close_all(collective=not abort)
     store, _STORE["store"] = _STORE["store"], None
     if store is not None:
         _RETIRED_STORES.append(store)

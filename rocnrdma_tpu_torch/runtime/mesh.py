@@ -129,7 +129,10 @@ class ProcessSpan:
     process's card (1 on the CPU or with a GPU a process). ``stats``: exchanges, the bytes sent and the
     host seconds they took (``wire_s``; on an unstaged NCCL leg, the
     seconds to enqueue them), and the bytes and host seconds staged each
-    way, each copy timed after the device's queued work."""
+    way, each copy timed after the device's queued work. ``workspace``:
+    the CUDA IPC workspace of the kernels across processes (one rank a
+    process, ``ops/ipc.py``), made at their first launch on the span and
+    freed by ``close``."""
 
     cross_group: object
     backend: str
@@ -139,6 +142,24 @@ class ProcessSpan:
     peers: tuple
     per_card: int = 1
     stats: dict = dataclasses.field(default_factory=_span_stats)
+    _ipc: object = dataclasses.field(default=None, init=False, repr=False)
+
+    def workspace(self, device: torch.device):
+        """This span's IPC workspace on ``device`` (made once; collective at
+        its first use, as every process of the span launches together)."""
+        if self._ipc is None:
+            from rocnrdma_tpu_torch.ops import ipc
+            self._ipc = ipc.Workspace(self, device)
+        elif self._ipc.device != device:
+            raise ValueError(f"the span's IPC workspace is on {self._ipc.device}, "
+                             f"not {device}")
+        return self._ipc
+
+    def close(self) -> None:
+        """Unmap the peers' IPC workspaces and free this process's."""
+        if self._ipc is not None:
+            self._ipc.close()
+            self._ipc = None
 
     def count(self, what: str, nbytes: int, seconds: float) -> None:
         """Add an exchange (``what="exchange"``: bytes sent, host seconds

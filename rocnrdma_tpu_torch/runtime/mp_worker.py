@@ -77,21 +77,32 @@ own device; it passes only that row, ``(1, --size)``, to the
 row is ``r + 1`` (the ``allreduce`` task's); otherwise each row comes
 from its own seed ``(--seed or 7, r)``, so a process draws its own row
 for its input and every row only for its checks. The calls
-(``RANK_CALLS``) are every 1-D (verb, algo) pair but ``cuda_ring``: the
-allreduce fused, ring, ring_bidir, tree, khd at the radix ladder's digits
-and at explicit ones, dtree, ptree and ktree, ``avg``, ``max`` and a
-ragged buffer; reduce_scatter and allgather fused, ring and khd; alltoall
-fused, rotation and Bruck; the fused alltoallv; the four rooted verbs
-fused and binomial at roots off process 0; sendrecv at shift 3; the
-``prog_ring_allreduce`` program; and a ``group()`` of a khd allreduce
-and a fused alltoall. Where the world is not a power of two, ``tree`` is
-refused, by both meshes with one error (``RANKREFUSED``). The reference's
-checks (the ring allreduce against the float64 sum, rtol 1e-5, atol
-1e-6; the fused alltoall against the transpose), then each result held to
-the one-process port's row (``Transport(rank_mesh(n, device))`` on every
-row): bitwise, the fused reductions within rtol 1e-5, atol 1e-6. It
-prints ``RANKTIMES``, ``RANKERRS``, ``RANKCROSS``, on the CPU
-``RANKDIGEST``, and ``OK rank=i/n rank-mesh``.
+(``RANK_CALLS``) are every 1-D (verb, algo) pair: the allreduce fused,
+ring, ring_bidir, tree, khd at the radix ladder's digits and at explicit
+ones, dtree, ptree and ktree, ``avg``, ``max`` and a ragged buffer;
+reduce_scatter and allgather fused, ring and khd; alltoall fused,
+rotation and Bruck; the fused alltoallv; the four rooted verbs fused and
+binomial at roots off process 0; sendrecv at shift 3; the
+``prog_ring_allreduce`` program; a ``group()`` of a khd allreduce and a
+fused alltoall; and the ``cuda_ring`` arm (the kernels across processes,
+``RANK_KERNELS``): the allreduce, the tiled in-place allreduce
+(``hbm_ring_allreduce_across`` at ``TILED_ROWS``), the reduce_scatter on
+the row tiled to whole ``n*128``-element chunks and on the ``even``
+buffer, the allgather, alltoall and alltoallv, and a ``group()`` of its
+allreduce and alltoall. Where the world is not a power of two ``tree`` is
+refused, and where the ``even`` buffer is not whole ``n*128``-element
+chunks so is the reduce_scatter kernel on it, by both meshes with one error
+(``rank_refused``, ``RANKREFUSED``). The reference's checks (the ring
+allreduce against the float64 sum, rtol 1e-5, atol 1e-6; the fused
+alltoall against the transpose), then each result held to the
+one-process port's row (``Transport(rank_mesh(n, device))`` on every
+row): bitwise, the fused reductions within rtol 1e-5, atol 1e-6; each
+``cuda_ring`` call also bitwise to its kernels' plain PyTorch versions
+on every row (``_rank_plains``). It prints ``RANKTIMES``, ``RANKERRS``,
+``RANKCROSS``, on the CPU ``RANKDIGEST``, the ``cuda_ring`` calls' max
+abs err against the plain versions (``RANKPLAINERRS``), the kernels'
+launches across processes (``RANKLAUNCHES``: on the card each call's
+launches, on the CPU none), and ``OK rank=i/n rank-mesh``.
 
 ``hang`` forks a grandchild and blocks far past any deadline; the harness
 must reap the WHOLE process group.
@@ -1643,14 +1654,17 @@ def _grouped(t, x):
                       a2a.result().reshape(lead + (-1,))], dim=2)
 
 
-def _hold_calls(calls: dict, rank: int, device, checked: tuple) -> dict:
+def _hold_calls(calls: dict, rank: int, device, checked: tuple,
+                plains: dict | None = None) -> dict:
     """Run each spanning call three times (the first result is the one
     checked) and hold it to row ``[rank:rank + 1]`` of the one-process
     port's call: bitwise where the call's tolerance is None, else within
-    its (rtol, atol). A call both meshes refuse with one ``ValueError`` is
-    recorded as refused. Returns ``times`` (ms), ``errs`` (max abs err),
-    ``digests`` (sha256, on the CPU), ``got`` (the results named in
-    ``checked``) and ``refused`` (the error of each refused call)."""
+    its (rtol, atol); a call named in ``plains`` also bitwise to that row
+    of its plain version on every row. A call both meshes refuse with one
+    ``ValueError`` is recorded as refused. Returns ``times`` (ms), ``errs``
+    (max abs err), ``plain_errs`` (against the plain versions), ``digests``
+    (sha256, on the CPU), ``got`` (the results named in ``checked``) and
+    ``refused`` (the error of each refused call)."""
     import hashlib
 
     import numpy as np
@@ -1660,7 +1674,8 @@ def _hold_calls(calls: dict, rank: int, device, checked: tuple) -> dict:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    res = {k: {} for k in ("times", "errs", "digests", "got", "refused")}
+    plains = plains or {}
+    res = {k: {} for k in ("times", "errs", "plain_errs", "digests", "got", "refused")}
     for name, (spanning, whole, tol) in calls.items():
         ms, first = [], None
         for _ in range(3):  # the first result is the one checked
@@ -1696,9 +1711,19 @@ def _hold_calls(calls: dict, rank: int, device, checked: tuple) -> dict:
         if tol is not None:
             np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
                                        rtol=tol[0], atol=tol[1], err_msg=name)
+        del want
+        if name in plains:
+            want = plains[name]()[rank:rank + 1]
+            if out.shape != want.shape or out.dtype != want.dtype:
+                raise AssertionError(f"{name}: {tuple(out.shape)} {out.dtype} vs the plain "
+                                     f"version's {tuple(want.shape)} {want.dtype}")
+            err = res["plain_errs"][name] = float((out.float() - want.float()).abs().max())
+            if not torch.equal(out, want):
+                raise AssertionError(f"{name}: not bitwise the plain version's (max abs "
+                                     f"err {err})")
+            del want
         if device.type == "cpu":
             res["digests"][name] = hashlib.sha256(out.numpy().tobytes()).hexdigest()
-        del want
     return res
 
 
@@ -1802,12 +1827,37 @@ def rank_inputs(v, n: int) -> dict:
     axis: ``row``; ``even``, its first multiple of n elements (the verbs
     that shard a buffer n ways); ``a2a``, ``even`` as (rows, n, S // n);
     ``part``, the first S // n elements (the gathering verbs, so a
-    gathered row is about S); and ``ragged``, a buffer n does not divide
-    (the row, or all of it but its last element)."""
+    gathered row is about S); ``ragged``, a buffer n does not divide (the
+    row, or all of it but its last element); and ``grain``, the row
+    repeated up to the first multiple of n*128 elements at or above S (the
+    reduce_scatter kernel's grain; the row itself where S is one)."""
+    import numpy as np
+
     size = v.shape[1]
     even = v[:, :size - size % n]
+    grain = -(-size // (n * 128)) * n * 128
+    reps = [v] * -(-grain // size)
+    if grain == size:
+        tiled = v
+    elif isinstance(v, np.ndarray):
+        tiled = np.concatenate(reps, 1)
+    else:
+        import torch
+        tiled = torch.cat(reps, 1)
     return {"row": v, "even": even, "a2a": even.reshape(v.shape[0], n, -1),
-            "part": v[:, :size // n], "ragged": v if size % n else v[:, :size - 1]}
+            "part": v[:, :size // n], "ragged": v if size % n else v[:, :size - 1],
+            "grain": tiled[:, :grain]}
+
+
+def rank_refused(n: int, size: int) -> set:
+    """The calls of the ``rank-mesh`` task both meshes refuse at n ranks of
+    ``size`` elements: ``tree`` where n is not a power of two, the
+    reduce_scatter kernel where the ``even`` buffer is not whole
+    n*128-element chunks."""
+    out = set() if n & (n - 1) == 0 else {"allreduce/tree"}
+    if (size - size % n) % (n * 128):
+        out.add("reduce_scatter/cuda_ring_even")
+    return out
 
 
 def rank_counts(n: int, c: int):
@@ -1830,9 +1880,49 @@ RANK_CALLS = (
     "alltoall/fused", "alltoall/rotation", "alltoall/bruck", "alltoallv/fused",
     "broadcast/fused", "broadcast/binomial", "reduce/fused", "reduce/binomial",
     "gather/fused", "gather/binomial", "scatter/fused", "scatter/binomial",
-    "sendrecv/shift3", "program/ring_allreduce", "group/khd_alltoall")
+    "sendrecv/shift3", "program/ring_allreduce", "group/khd_alltoall",
+    "allreduce/cuda_ring", "allreduce/cuda_ring_tiled", "reduce_scatter/cuda_ring",
+    "reduce_scatter/cuda_ring_even", "allgather/cuda_ring", "alltoall/cuda_ring",
+    "alltoallv/cuda_ring", "group/cuda_ring")
 # the fused reductions: torch's order of summation, rtol 1e-5, atol 1e-6
 RANK_FUSED = ("allreduce/fused", "reduce_scatter/fused", "reduce/fused")
+# the cuda_ring calls: the kernel wrappers (ops.launch_counts) each launches
+# once a call across processes
+RANK_KERNELS = {
+    "allreduce/cuda_ring": ("ring_allreduce_across",),
+    "allreduce/cuda_ring_tiled": ("hbm_ring_allreduce_across",),
+    "reduce_scatter/cuda_ring": ("ring_reduce_scatter_across",),
+    "reduce_scatter/cuda_ring_even": ("ring_reduce_scatter_across",),
+    "allgather/cuda_ring": ("ring_allgather_across",),
+    "alltoall/cuda_ring": ("alltoall_across",),
+    "alltoallv/cuda_ring": ("alltoall_across",),
+    "group/cuda_ring": ("ring_allreduce_across", "alltoall_across"),
+}
+# the tile_rows of "allreduce/cuda_ring_tiled": chunks padded to whole
+# 3 x 128-element tiles, a geometry other than the one-tile tier's (whole
+# 128-element rows) at every size the task runs (no power of two is whole
+# tiles of 384)
+TILED_ROWS = 3
+
+
+def rank_launches(names, n: int, size: int) -> dict:
+    """The launches across processes each kernel wrapper makes when the
+    ``rank-mesh`` task runs the calls ``names`` (three times each) on the
+    card, n ranks of ``size`` elements: the ``cuda_ring`` allreduce of a row
+    whose chunk outgrows one tile takes the tiled tier."""
+    import torch
+
+    from rocnrdma_tpu_torch.transport.api import cuda_ring_tile_rows
+
+    row = torch.empty((1, size), device="meta")
+    tiled = cuda_ring_tile_rows(row, "allreduce", n) is not None
+    out = {k: 0 for ks in RANK_KERNELS.values() for k in ks}
+    for name in names:
+        for k in RANK_KERNELS.get(name, ()):
+            if tiled and k == "ring_allreduce_across":
+                k = "hbm_ring_allreduce_across"
+            out[k] += 3
+    return out
 
 
 def _rank_calls(t, one, mesh, mine, full):
@@ -1842,6 +1932,7 @@ def _rank_calls(t, one, mesh, mine, full):
     import torch
 
     from rocnrdma_tpu_torch.collectives import prog_ring_allreduce
+    from rocnrdma_tpu_torch.ops import ring_cuda
 
     n = mesh.n_ranks
     last = n - 1
@@ -1851,11 +1942,21 @@ def _rank_calls(t, one, mesh, mine, full):
         out, rc = tr.alltoallv(a["a2a"], rank_counts(n, a["a2a"].shape[2]), "fused")
         return torch.cat([out.reshape(out.shape[0], -1), rc.to(out.dtype)], 1)
 
-    def grouped(tr, a):
+    def alltoallv_kernel(tr, a):
+        out, rc = tr.alltoallv(a["a2a"], rank_counts(n, a["a2a"].shape[2]), "cuda_ring")
+        return torch.cat([out.reshape(out.shape[0], -1), rc.to(out.dtype)], 1)
+
+    def grouped(tr, a, algos=("khd", "fused")):
         with tr.group() as g:
-            ar, a2a = g.allreduce(a["row"], "khd"), g.alltoall(a["a2a"], "fused")
+            ar, a2a = g.allreduce(a["row"], algos[0]), g.alltoall(a["a2a"], algos[1])
         rows = a["row"].shape[0]
         return torch.cat([ar.result(), a2a.result().reshape(rows, -1)], 1)
+
+    def tiled(tr, a):  # the in-place tiled kernel on a copy of the row
+        x = a["row"].clone()
+        if tr.span is None:
+            return ring_cuda.hbm_ring_allreduce(x, TILED_ROWS)
+        return ring_cuda.hbm_ring_allreduce_across(x, tr.span, TILED_ROWS)
 
     def call(verb, key, algo, **knobs):
         return lambda tr, a: getattr(tr, verb)(a[key], algo, **knobs)
@@ -1895,12 +1996,62 @@ def _rank_calls(t, one, mesh, mine, full):
         "sendrecv/shift3": call("sendrecv", "row", "fused", shift=3),
         "program/ring_allreduce": lambda tr, a: tr.program_fn(prog_ring_allreduce(n))(a["row"]),
         "group/khd_alltoall": grouped,
+        "allreduce/cuda_ring": call("allreduce", "row", "cuda_ring"),
+        "allreduce/cuda_ring_tiled": tiled,
+        "reduce_scatter/cuda_ring": call("reduce_scatter", "grain", "cuda_ring"),
+        "reduce_scatter/cuda_ring_even": call("reduce_scatter", "even", "cuda_ring"),
+        "allgather/cuda_ring": call("allgather", "part", "cuda_ring"),
+        "alltoall/cuda_ring": call("alltoall", "a2a", "cuda_ring"),
+        "alltoallv/cuda_ring": alltoallv_kernel,
+        "group/cuda_ring": lambda tr, a: grouped(tr, a, ("cuda_ring", "cuda_ring")),
     }
     tol = (1e-5, 1e-6)
     return {name: (lambda f=f: f(t, rank_inputs(mine, n)),
                    lambda f=f: f(one, rank_inputs(full, n)),
                    tol if name in RANK_FUSED else None)
             for name, f in specs.items()}
+
+
+def _rank_plains(full, n: int) -> dict:
+    """The plain PyTorch versions of the ``rank-mesh`` task's ``cuda_ring``
+    calls on every rank's rows ``full``: name -> the call, rank-major like
+    the one-process port's."""
+    import torch
+
+    from rocnrdma_tpu_torch.collectives.alltoall import ragged_mask
+    from rocnrdma_tpu_torch.ops import alltoall_cuda, ring_cuda
+    from rocnrdma_tpu_torch.transport.api import cuda_ring_tile_rows
+
+    def allreduce(x):  # the arm's tier, as the Transport picks it
+        tile_rows = cuda_ring_tile_rows(x, "allreduce")
+        return (ring_cuda.ring_allreduce_plain(x) if tile_rows is None
+                else ring_cuda.hbm_ring_allreduce_plain(x.clone(), tile_rows))
+
+    def alltoallv(a):
+        out, rc = ragged_mask(alltoall_cuda.alltoall_plain(a["a2a"]),
+                              rank_counts(n, a["a2a"].shape[2]))
+        return torch.cat([out.reshape(n, -1), rc.to(out.dtype)], 1)
+
+    def grouped(a):
+        return torch.cat([allreduce(a["row"]),
+                          alltoall_cuda.alltoall_plain(a["a2a"]).reshape(n, -1)], 1)
+
+    specs = {
+        "allreduce/cuda_ring": lambda a: allreduce(a["row"]),
+        "allreduce/cuda_ring_tiled":
+            lambda a: ring_cuda.hbm_ring_allreduce_plain(a["row"].clone(), TILED_ROWS),
+        "reduce_scatter/cuda_ring": lambda a: ring_cuda.ring_reduce_scatter_plain(a["grain"]),
+        "reduce_scatter/cuda_ring_even":
+            lambda a: ring_cuda.ring_reduce_scatter_plain(a["even"]),
+        "allgather/cuda_ring": lambda a: ring_cuda.ring_allgather_plain(a["part"]),
+        "alltoall/cuda_ring": lambda a: alltoall_cuda.alltoall_plain(a["a2a"]),
+        "alltoallv/cuda_ring": alltoallv,
+        "group/cuda_ring": grouped,
+    }
+    if set(specs) != set(RANK_KERNELS):
+        raise AssertionError(f"plain versions of {sorted(specs)}, kernel calls "
+                             f"{sorted(RANK_KERNELS)}")
+    return {name: (lambda f=f: f(rank_inputs(full, n))) for name, f in specs.items()}
 
 
 def _rank_mesh_main(args, rank: int, n: int, device) -> int:
@@ -1910,10 +2061,12 @@ def _rank_mesh_main(args, rank: int, n: int, device) -> int:
     import numpy as np
     import torch
 
+    from rocnrdma_tpu_torch import ops
     from rocnrdma_tpu_torch.runtime.mesh import rank_mesh
     from rocnrdma_tpu_torch.transport import Transport
 
     size = args.size or RANK_REF_SIZE
+    ops.reset_launch_counts()
     mesh = rank_mesh(n, device, group=torch.distributed.group.WORLD)
     t = Transport(mesh)
     mine = torch.from_numpy(rank_rows(n, size, args.seed, [rank])).to(device)
@@ -1924,18 +2077,36 @@ def _rank_mesh_main(args, rank: int, n: int, device) -> int:
     calls = _rank_calls(t, one, mesh, mine, full)
     if tuple(calls) != RANK_CALLS:
         raise AssertionError(f"the task's calls {tuple(calls)} != {RANK_CALLS}")
-    res = _hold_calls(calls, rank, device, _RANK_NUMPY_CHECKED)
-    if set(res["refused"]) != ({"allreduce/tree"} if n & (n - 1) else set()):
-        raise AssertionError(f"refused {res['refused']} on {n} ranks")
+    if args.calls:
+        only = args.calls.split(",")
+        if not set(only) <= set(RANK_CALLS):
+            raise ValueError(f"--calls {sorted(set(only) - set(RANK_CALLS))}: not calls "
+                             f"of the task; know {RANK_CALLS}")
+        calls = {k: v for k, v in calls.items() if k in only}
+    res = _hold_calls(calls, rank, device, _RANK_NUMPY_CHECKED, _rank_plains(full, n))
+    refused = rank_refused(n, size) & set(calls)
+    if set(res["refused"]) != refused:
+        raise AssertionError(f"refused {sorted(res['refused'])} on {n} ranks of {size}, "
+                             f"want {sorted(refused)}")
+    launched = {k: v for k, v in ops.launch_counts().items() if k.endswith("_across")}
+    want = rank_launches(set(calls) - refused, n, size)
+    if device.type == "cpu":  # the plain versions across processes: no kernel
+        want = dict.fromkeys(want, 0)
+    if launched != want:
+        raise AssertionError(f"kernel launches across processes {launched}, want {want}")
     got = res["got"]
     # the reference's own checks, against numpy; the sum in float64
-    total = full_np.sum(0, dtype=np.float64)[None]
-    np.testing.assert_allclose(got["allreduce/ring"].cpu().numpy(), total,
-                               rtol=1e-5, atol=1e-6)
-    a2a = rank_inputs(full_np, n)["a2a"]
-    np.testing.assert_array_equal(got["alltoall/fused"].cpu().numpy(),
-                                  a2a.transpose(1, 0, 2)[rank:rank + 1])
+    if "allreduce/ring" in got:
+        total = full_np.sum(0, dtype=np.float64)[None]
+        np.testing.assert_allclose(got["allreduce/ring"].cpu().numpy(), total,
+                                   rtol=1e-5, atol=1e-6)
+    if "alltoall/fused" in got:
+        a2a = rank_inputs(full_np, n)["a2a"]
+        np.testing.assert_array_equal(got["alltoall/fused"].cpu().numpy(),
+                                      a2a.transpose(1, 0, 2)[rank:rank + 1])
     _print_held("RANK", res, _cross_line(t, device, mine.numel() * mine.element_size()))
+    print("RANKPLAINERRS " + json.dumps(res["plain_errs"]), flush=True)
+    print("RANKLAUNCHES " + json.dumps(launched), flush=True)
     if res["refused"]:
         print("RANKREFUSED " + json.dumps(res["refused"]), flush=True)
     print(f"OK rank={rank}/{n} rank-mesh", flush=True)
@@ -2023,6 +2194,9 @@ def main(argv=None) -> int:
     p.add_argument("--per-slice", type=int, default=2,
                    help="hierarchical: the ranks each process holds as rows "
                         "(its slice of the 2-D mesh)")
+    p.add_argument("--calls", default=None,
+                   help="rank-mesh: a comma list of RANK_CALLS to run "
+                        "(default: every one)")
     p.add_argument("--platform", choices=("auto", "cpu"), default="auto",
                    help="the device plane: auto (NCCL on the card, "
                         "raising without one) or cpu (gloo)")

@@ -126,6 +126,7 @@ def run_workers(n: int, task: str, timeout_s: float = 120.0,
                 store_death: str | None = None,
                 kill_store_op: int | None = None,
                 per_slice: int | None = None,
+                calls: str | None = None,
                 _retry_left: int = 1) -> list[WorkerResult]:
     """Spawn ``n`` worker processes running ``task``; wait for all.
 
@@ -144,7 +145,8 @@ def run_workers(n: int, task: str, timeout_s: float = 120.0,
     mode), ``lanes``/``coalesce``/``codec``/``hier`` (the
     ``kill-and-heal`` variants) and ``store_death``/``kill_store_op``
     (``kill-the-store``) are the reference's; ``per_slice``: the ranks each
-    process holds in ``hierarchical`` (default 2). The rendezvous ports are
+    process holds in ``hierarchical`` (default 2); ``calls``: the comma list
+    of ``rank-mesh`` calls to run (default all). The rendezvous ports are
     held reserved until the instant before the spawn, and a run that still
     loses the bind race is retried once with fresh ports."""
     from rocnrdma_tpu_torch.runtime.mp_worker import DEVICE_TASKS, TASKS
@@ -166,7 +168,7 @@ def run_workers(n: int, task: str, timeout_s: float = 120.0,
                       ("--die-at-promotion", die_at_promotion),
                       ("--codec", codec), ("--store-death", store_death),
                       ("--kill-store-op", kill_store_op),
-                      ("--per-slice", per_slice)):
+                      ("--per-slice", per_slice), ("--calls", calls)):
         if val is not None:
             extra += [flag, str(val)]
     for flag, on in (("--device-heal-fail", device_heal_fail),
@@ -208,6 +210,6 @@ def run_workers(n: int, task: str, timeout_s: float = 120.0,
                            platform, rounds, kill_ranks, kill_ops, spares,
                            join, grow_round, die_at_promotion,
                            device_heal_fail, lanes, coalesce, codec, hier,
-                           store_death, kill_store_op, per_slice,
+                           store_death, kill_store_op, per_slice, calls,
                            _retry_left=_retry_left - 1)
     return results

@@ -28,10 +28,11 @@ A 1-D mesh may span processes too (``rank_mesh(n, group=g)``; each
 process one rank). A tensor on it is this process's row, leading dim
 ``(1,)``, and so is the result: row ``[index:index + 1]`` of the
 one-process mesh's result. Every (verb, algo) pair of a 1-D mesh runs
-there but ``cuda_ring``, whose kernels read every rank's row on one card
-(refused by name; ``auto``, ``model``, ``RNR_ALGO`` and a tuning table
-never pick it there, and otherwise resolve as on a one-process mesh);
-what a 1-D mesh refuses is refused with the same error.
+there, ``cuda_ring`` too: each process launches its rank's blocks of the
+same kernels, reading and writing the peers' rows through CUDA IPC
+(``ops/ipc.py``); ``auto``, ``model``, ``RNR_ALGO`` and a tuning table
+resolve as on a one-process mesh, and what a 1-D mesh refuses is refused
+with the same error.
 
 On either, the leading axis's exchanges cross processes on the span's
 cross group (``collectives._exchange``), and ``stats()`` counts them under
@@ -60,7 +61,9 @@ Algorithms (``SCHEDULES``; the reference's names, except that its
   n; for allgather the rank's buffer) fits in one ``CUDA_RING_TILE_BYTES``
   tile, else the fewest tiles of at most that size. Allreduce runs its
   tiled tier out of place (the result of ``ring_cuda.hbm_ring_allreduce``),
-  so the caller's tensor is never changed.
+  so the caller's tensor is never changed. On a 1-D mesh that spans
+  processes the arm runs the kernels across processes (``ring_cuda`` and
+  ``alltoall_cuda``'s ``*_across``), each call waiting for them on the host.
 - ``"auto"`` - ``RNR_ALGO`` when set and supported; else the tuning
   table's arm at this message size when a table is attached
   (``Transport(tuning=...)`` or ``RNR_TUNING``) and names one this mesh
@@ -117,36 +120,63 @@ ALGOS = ("auto", "fused", "ring", "ring_bidir", "tree", "khd", "khd2d",
 CUDA_RING_TILE_BYTES = 16 * MiB
 
 
-def cuda_ring_tile_rows(x: torch.Tensor, verb: str = "allreduce") -> int | None:
+def cuda_ring_tile_rows(x: torch.Tensor, verb: str = "allreduce",
+                        n: int | None = None) -> int | None:
     """The ``tile_rows`` the ``cuda_ring`` arm of ``verb`` runs rank-major
     ``x`` with: None (one tile) while a chunk fits in one tile, else the
     rows of the fewest tiles of at most ``CUDA_RING_TILE_BYTES`` that cover
-    it. A chunk is a rank's buffer over n, for allgather the rank's buffer."""
-    n = x.shape[0]
+    it. A chunk is a rank's buffer over n (default: ``x``'s rows; across
+    processes the span's ranks), for allgather the rank's buffer."""
+    n = x.shape[0] if n is None else n
     chunk = x[0].numel() if verb == "allgather" else -(-x[0].numel() // n)
     rows = -(-chunk // ring_cuda.LANES)
     tiles = -(-rows * ring_cuda.LANES * x.element_size() // CUDA_RING_TILE_BYTES)
     return None if tiles <= 1 else -(-rows // tiles)
 
 
-def _cuda_ring_allreduce(x: torch.Tensor) -> torch.Tensor:
-    tile_rows = cuda_ring_tile_rows(x)
+def _tiles(x: torch.Tensor, verb: str, span) -> int | None:
+    return cuda_ring_tile_rows(x, verb, None if span is None else span.size)
+
+
+def _cuda_ring_allreduce(x: torch.Tensor, span=None) -> torch.Tensor:
+    tile_rows = _tiles(x, "allreduce", span)
+    if span is not None:
+        return (ring_cuda.ring_allreduce_across(x, span) if tile_rows is None
+                else ring_cuda._tiled_allreduce_across(x, span, tile_rows))
     if tile_rows is None:
         return ring_cuda.ring_allreduce(x)
     return ring_cuda._tiled_allreduce(x, tile_rows)
 
 
-def _cuda_ring_reduce_scatter(x: torch.Tensor) -> torch.Tensor:
-    return ring_cuda.ring_reduce_scatter(
-        x, tile_rows=cuda_ring_tile_rows(x, "reduce_scatter"))
+def _cuda_ring_reduce_scatter(x: torch.Tensor, span=None) -> torch.Tensor:
+    tile_rows = _tiles(x, "reduce_scatter", span)
+    if span is not None:
+        return ring_cuda.ring_reduce_scatter_across(x, span, tile_rows=tile_rows)
+    return ring_cuda.ring_reduce_scatter(x, tile_rows=tile_rows)
+
+
+def _cuda_ring_allgather(x: torch.Tensor, shape, op: str = "sum", root: int = 0,
+                         span=None) -> torch.Tensor:
+    tile_rows = _tiles(x, "allgather", span)
+    if span is not None:
+        return ring_cuda.ring_allgather_across(x, span, tile_rows=tile_rows)
+    return ring_cuda.ring_allgather(x, tile_rows=tile_rows)
+
+
+def _cuda_ring_alltoall(x: torch.Tensor, shape, op: str = "sum", root: int = 0,
+                        span=None) -> torch.Tensor:
+    if span is not None:
+        return alltoall_cuda.alltoall_across(x, span)
+    return alltoall_cuda.alltoall(x)
 
 
 def _sum_only(verb: str, kernel):
     """A schedule running ``kernel``, which sums, that refuses other ops."""
-    def schedule(x: torch.Tensor, shape, op: str = "sum", root: int = 0) -> torch.Tensor:
+    def schedule(x: torch.Tensor, shape, op: str = "sum", root: int = 0,
+                 span=None) -> torch.Tensor:
         if op != "sum":
             raise ValueError(f"cuda_ring {verb} is sum-only, got op={op!r}")
-        return kernel(x)
+        return kernel(x, span)
     return schedule
 
 
@@ -159,11 +189,10 @@ def _khd(digits) -> dict:
 # the mesh's ranks flattened, through the schedule; ``shape`` is the mesh
 # shape (the 2-D schedules read it). Keyword knobs: ``op`` (the reduction,
 # ignored by the verbs that only move data), ``root`` (the rooted verbs),
-# ``shift`` (sendrecv) and the schedule-specific ones. Every pair but
-# ``cuda_ring`` also takes ``span``: the mesh's ProcessSpan where its
-# leading axis spans processes, ``x`` then this process's rows (a 1-D
-# mesh's ``shape`` is then ``(n, 1)``: the ``spanning_fused_*`` verbs see
-# n slices of one rank).
+# ``shift`` (sendrecv) and the schedule-specific ones. Every pair also
+# takes ``span``: the mesh's ProcessSpan where its leading axis spans
+# processes, ``x`` then this process's rows (a 1-D mesh's ``shape`` is then
+# ``(n, 1)``: the ``spanning_fused_*`` verbs see n slices of one rank).
 SCHEDULES = {
     "allreduce": {
         "fused": lambda x, shape, op="sum", root=0, span=None:
@@ -218,8 +247,7 @@ SCHEDULES = {
             C.khd_allgather(x, span=span, **_khd(digits)).reshape(x.shape[0], -1),
         "khd2d": lambda x, shape, op="sum", root=0, span=None:
             C.khd2d_allgather(x, shape, span=span).reshape(x.shape[0], -1),
-        "cuda_ring": lambda x, shape, op="sum", root=0: ring_cuda.ring_allgather(
-            x, tile_rows=cuda_ring_tile_rows(x, "allgather")),
+        "cuda_ring": _cuda_ring_allgather,
     },
     "alltoall": {
         # "ring" selects the rotation schedule; "bruck" the log-step one
@@ -234,7 +262,7 @@ SCHEDULES = {
         "hierarchical": lambda x, shape, op="sum", root=0, span=None:
             C.hierarchical_alltoall(x, shape, span=span),
         # direct writes, one per chunk, no relay
-        "cuda_ring": lambda x, shape, op="sum", root=0: alltoall_cuda.alltoall(x),
+        "cuda_ring": _cuda_ring_alltoall,
     },
     # The rooted verbs; off-root rows of reduce/gather are zeroed.
     "broadcast": {
@@ -279,23 +307,11 @@ SCHEDULES = {
 ALLTOALLV_ALGOS = ("fused", "cuda_ring")
 
 
-# why a 1-D mesh across processes refuses cuda_ring
-CUDA_RING_ACROSS = (
-    "cuda_ring is refused on a 1-D mesh that spans processes: its kernels "
-    "read every rank's row on one card, and the kernels across processes "
-    "over CUDA IPC are not ported yet (ROADMAP Queue 1, item 1); use ring, "
-    "khd or fused")
-
-
-def supports(op: str, algo: str, is_2d: bool = False, spans: bool = False) -> bool:
-    """Does ``(op, algo)`` resolve on a mesh of this dimensionality?
-    ``spans``: the mesh's leading axis spans processes (then a 1-D mesh
-    has no ``cuda_ring``: ``CUDA_RING_ACROSS``)."""
+def supports(op: str, algo: str, is_2d: bool = False) -> bool:
+    """Does ``(op, algo)`` resolve on a mesh of this dimensionality?"""
     if algo == "auto":
         return True
     if algo not in SCHEDULES.get(op, {}):
-        return False
-    if algo == "cuda_ring" and spans:
         return False
     if algo in ("hierarchical", "khd2d"):
         return is_2d
@@ -346,7 +362,6 @@ class Transport:
         self._local = tuple(self.mesh.local_shape)
         self._rows = math.prod(self._local)
         self.span = self.mesh.span  # the leading axis across processes, or None
-        self._spans = self.span is not None
         self.device = self.mesh.device
         on_card = self.device.type == "cuda"
         # the tuning-table platform (detect_topology's) and the cost
@@ -414,7 +429,7 @@ class Transport:
             # version, which the model does not price)
             from rocnrdma_tpu_torch.transport.tuner import dcn_constants_for, model_pick
             cands = [a for a in SCHEDULES[op]
-                     if supports(op, a, self.is_2d, self._spans)
+                     if supports(op, a, self.is_2d)
                      and (self.platform == "gpu" or a != "cuda_ring")]
             alpha, beta, hbm_beta = self._constants(op)
             picked = (model_pick(op, self.n_ranks, nbytes, candidates=cands,
@@ -431,12 +446,12 @@ class Transport:
             # RNR_ALGO replaces only the policy default, and only where the
             # op supports it, so one env var doesn't break unrelated verbs
             forced = self._forced_algo()
-            if forced and supports(op, forced, self.is_2d, self._spans):
+            if forced and supports(op, forced, self.is_2d):
                 algo = forced
         if algo == "auto" and self.tuning is not None and nbytes is not None:
             tuned = self.tuning.lookup(op, nbytes, self.n_ranks, len(self.axes),
                                        self.platform)
-            if tuned is not None and supports(op, tuned, self.is_2d, self._spans):
+            if tuned is not None and supports(op, tuned, self.is_2d):
                 algo = tuned
         if algo == "auto":
             # 2-D mesh: the two-level schedules are the default for the
@@ -444,13 +459,11 @@ class Transport:
             algo = ("hierarchical"
                     if self.is_2d and op in ("allreduce", "alltoall")
                     else "fused")
-        if algo == "cuda_ring" and self._spans and not self.is_2d:
-            raise ValueError(f"op {op!r}: {CUDA_RING_ACROSS}")
-        if not supports(op, algo, self.is_2d, self._spans):
+        if not supports(op, algo, self.is_2d):
             raise ValueError(
                 f"op {op!r} has no {algo!r} schedule on a "
                 f"{'2-D' if self.is_2d else '1-D'} mesh; compatible here: "
-                f"{[a for a in SCHEDULES[op] if supports(op, a, self.is_2d, self._spans)]}")
+                f"{[a for a in SCHEDULES[op] if supports(op, a, self.is_2d)]}")
         return algo
 
     def _msg_bytes(self, verb: str, x: torch.Tensor) -> int:
@@ -616,25 +629,25 @@ class Transport:
         ``max_count`` rows a chunk. ``algo``: ``fused`` (one transpose) or
         ``cuda_ring`` (the direct alltoall kernel); ``auto`` and ``model``
         are ``fused`` unless ``RNR_ALGO`` names one of the two this mesh
-        runs. 1-D meshes only; across processes ``fused`` only
-        (``CUDA_RING_ACROSS``), the result this process's row and its row
-        of ``recv_counts``."""
+        runs. 1-D meshes only; across processes the result is this
+        process's row and its row of ``recv_counts``."""
         if self.is_2d:
             raise ValueError("alltoallv rings a 1-D rank mesh (use the "
                              "dense alltoall on 2-D meshes)")
         if algo in ("auto", "model"):
             forced = self._forced_algo()
-            algo = (forced if forced in ALLTOALLV_ALGOS
-                    and supports("alltoall", forced, spans=self._spans) else "fused")
+            algo = forced if forced in ALLTOALLV_ALGOS else "fused"
         if algo not in ALLTOALLV_ALGOS:
             raise ValueError(f"alltoallv knows algos {'|'.join(ALLTOALLV_ALGOS)}, "
                              f"got {algo!r}")
-        if algo == "cuda_ring" and self._spans:
-            raise ValueError(f"op 'alltoallv': {CUDA_RING_ACROSS}")
         self._check_rank_major(x)
         counts = torch.as_tensor(counts, device=self.device)
-        out = (C.fused_alltoallv(x, counts, span=self.span) if algo == "fused"
-               else alltoall_cuda.alltoallv(x, counts))
+        if algo == "fused":
+            out = C.fused_alltoallv(x, counts, span=self.span)
+        elif self.span is not None:
+            out = alltoall_cuda.alltoallv_across(x, counts, self.span)
+        else:
+            out = alltoall_cuda.alltoallv(x, counts)
         self._count("alltoallv", algo, x)
         return out
 

@@ -8,7 +8,9 @@
 - A model of the CUDA kernel's protocol (copy home, global barrier, direct
   writes, arrivals and their drain per (rank, lane)), stepped through
   seeded random interleavings, since the kernel itself runs only on the
-  card (``tests/test_torch_card.py``).
+  card (``tests/test_torch_card.py``); also one rank a process, each
+  rank's workspace rows copied in and out on its own stream, and a rank
+  that never launches.
 """
 
 import jax
@@ -108,35 +110,74 @@ def _a2a_program(n, r, e):
             + [("signal", "arr"), ("wait", "arr", e * (n - 1)), ("leave",)])
 
 
-def _run_a2a_protocol(xs, lanes: int, seed: int, program=_a2a_program):
+def _run_a2a_protocol(xs, lanes: int, seed: int, program=_a2a_program, across=False,
+                      missing=None):
     """Run one launch per input in ``xs`` (each (n, n, per) float32, per
-    divisible by lanes) on one flag buffer; returns each launch's output."""
+    divisible by lanes) on one flag buffer; returns each launch's output.
+
+    ``across``: one rank a process, each with one input and one output row
+    (its IPC workspace) reused by every launch, and a stream that runs
+    ``copy_in(e)``, launch e's blocks and ``copy_out(e)`` in order; the
+    model asserts that a rank's blocks read its input row only after its
+    copy in of the same launch, that no peer writes a rank's output row
+    outside that rank's launch e (before it, or after its copy out), and
+    that ``copy_out(e)`` reads only landed chunks. ``missing=(rank, e)``:
+    that rank never launches e; returns the expiries (rank, lane, flag
+    word) every other rank's stuck lanes end in."""
     n, _, per = xs[0].shape
     w = per // lanes
     outs = [np.full_like(x, np.nan) for x in xs]
     writes = np.zeros((len(xs), n, n, lanes), int)  # (launch, dst, src, lane)
+    ws_in = np.full((n, n, per), np.nan, np.float32)
+    ws_out = np.full((n, n, per), np.nan, np.float32)
+    staged, released, copied = np.zeros(n, int), np.zeros(n, int), np.zeros(n, int)
+    left = np.zeros((n, lanes), int)
     flags = {}
     inside = np.zeros((n, lanes), int)  # the launch a (rank, lane) is in, 0 between
     progs = {}
     for r in range(n):
-        prog = [(e, a) for e in range(1, len(xs) + 1) for a in program(n, r, e)]
+        prog = [(e, a) for e in range(1, len(xs) + 1)
+                for a in ([("gate",)] if across else []) + program(n, r, e)]
         for b in range(lanes):
             progs[(r, b)] = prog
+        if across:
+            last = len(xs) if missing is None or missing[0] != r else missing[1] - 1
+            progs[("stream", r)] = [(e, (a,)) for e in range(1, last + 1)
+                                    for a in ("copy_in", "release", "join", "copy_out")]
     pcs = {k: 0 for k in progs}
     rng = np.random.default_rng(seed)
 
     def runnable(key):
         if pcs[key] == len(progs[key]):
             return False
-        act = progs[key][pcs[key]][1]
+        e, act = progs[key][pcs[key]]
+        if key[0] == "stream":
+            return act[0] != "join" or (left[key[1]] >= e).all()
+        if act[0] == "gate":
+            return released[key[0]] >= e
         return act[0] != "wait" or flags.get((act[1], key[0], key[1]), 0) >= act[2]
 
     while True:
         ready = [k for k in progs if runnable(k)]
         if not ready:
             break
-        r, b = key = ready[rng.integers(len(ready))]
+        key = ready[rng.integers(len(ready))]
         e, act = progs[key][pcs[key]]
+        pcs[key] += 1
+        if key[0] == "stream":
+            r = key[1]
+            if act[0] == "copy_in":
+                ws_in[r] = xs[e - 1][r]
+                staged[r] = e
+            elif act[0] == "release":
+                released[r] = e
+            elif act[0] == "copy_out":
+                assert (writes[e - 1, r] == 1).all(), \
+                    f"rank {r} copied out launch {e} before every chunk landed"
+                outs[e - 1][r] = ws_out[r]
+                copied[r] = e
+            continue
+        r, b = key
         lo, hi = b * w, (b + 1) * w
         if act[0] == "enter":
             inside[r, b] = e
@@ -148,15 +189,29 @@ def _run_a2a_protocol(xs, lanes: int, seed: int, program=_a2a_program):
             d = act[1]
             assert inside[d, b] == e, \
                 f"wrote into rank {d} outside its part of launch {e}"
-            outs[e - 1][d, r, lo:hi] = xs[e - 1][r, d, lo:hi]
+            if across:
+                assert staged[r] == e, f"rank {r} read its input row before copy_in({e})"
+                assert released[d] == e and copied[d] < e, \
+                    f"wrote into rank {d}'s output row outside its launch {e}"
+                ws_out[d, r, lo:hi] = ws_in[r, d, lo:hi]
+            else:
+                outs[e - 1][d, r, lo:hi] = xs[e - 1][r, d, lo:hi]
             writes[e - 1, d, r, b] += 1
         elif act[0] == "leave":
-            assert (writes[e - 1, r, :, b] == 1).all(), \
-                f"rank {r} left launch {e} before every chunk landed"
+            if not across:
+                assert (writes[e - 1, r, :, b] == 1).all(), \
+                    f"rank {r} left launch {e} before every chunk landed"
             inside[r, b] = 0
-        pcs[key] += 1
+            left[r, b] = e
 
     stuck = [k for k in progs if pcs[k] != len(progs[k])]
+    if missing is not None:
+        expired = []
+        for k in stuck:
+            act = progs[k][pcs[k]][1]
+            if k[0] != "stream" and act[0] == "wait":
+                expired.append((k[0], k[1], k[1] * 2 + ("bar", "arr").index(act[1])))
+        return sorted(expired)
     assert not stuck, f"deadlock: lanes {stuck} blocked"
     assert (writes == 1).all(), "an output lane written other than once"
     for r in range(n):
@@ -218,6 +273,48 @@ def test_alltoall_kernel_protocol_model_rejects_unsafe_orders(n, program):
         except AssertionError:
             caught += 1
     assert caught > 0
+
+
+@pytest.mark.parametrize("n", [2, 3, 8])
+def test_alltoall_kernel_protocol_model_across_processes(n):
+    # one rank a process: its workspace rows reused by three launches,
+    # copied in before and out after each on its own stream
+    lanes, per = 2, 2 * 128
+    rng = np.random.default_rng(60 + n)
+    xs = [rng.standard_normal((n, n, per)).astype(np.float32) for _ in range(3)]
+    wants = [T.alltoall_plain(torch.from_numpy(x)).numpy() for x in xs]
+    for seed in range(10):
+        gots = _run_a2a_protocol(xs, lanes, seed, across=True)
+        for got, want in zip(gots, wants):
+            np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("n", [2, 3, 8])
+@pytest.mark.parametrize("program", [_a2a_write_before_barrier,
+                                     _a2a_exit_before_arrivals])
+def test_alltoall_kernel_protocol_model_across_processes_rejects_unsafe_orders(n, program):
+    lanes, per = 2, 2 * 128
+    rng = np.random.default_rng(80 + n)
+    xs = [rng.standard_normal((n, n, per)).astype(np.float32) for _ in range(3)]
+    caught = 0
+    for seed in range(10):
+        try:
+            _run_a2a_protocol(xs, lanes, seed, program, across=True)
+        except AssertionError:
+            caught += 1
+    assert caught > 0
+
+
+@pytest.mark.parametrize("n", [2, 3, 8])
+def test_alltoall_kernel_protocol_model_a_rank_that_never_launches_expires_the_others(n):
+    # rank 0 dies before launch 2: every other rank's every lane ends in the
+    # bounded wait of launch 2's entry barrier, on its lane's word
+    lanes, per = 2, 2 * 128
+    rng = np.random.default_rng(100 + n)
+    xs = [rng.standard_normal((n, n, per)).astype(np.float32) for _ in range(2)]
+    want = [(r, b, 2 * b) for r in range(1, n) for b in range(lanes)]
+    for seed in range(10):
+        assert _run_a2a_protocol(xs, lanes, seed, across=True, missing=(0, 2)) == want
 
 
 # ---------------------------------------------------------------------------

@@ -602,3 +602,123 @@ def test_hierarchical_across_two_processes_on_one_card(cuda_device):
         if gpus < 2:
             assert (cross["backend"], cross["staged"]) == ("gloo", True)
             assert cross["d2h_bytes"] > 0 and cross["h2d_bytes"] > 0
+
+
+_ACROSS = """
+import os, sys, time, numpy as np, torch, torch.distributed as dist
+from rocnrdma_tpu_torch import ops
+from rocnrdma_tpu_torch.ops import alltoall_cuda as A, ipc, ring_cuda as R
+from rocnrdma_tpu_torch.runtime.mesh import rank_mesh
+rank, world, port, case = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        world_size=world, rank=rank)
+span = rank_mesh(world, "cuda", group=dist.group.WORLD).span
+n = world
+
+
+def row(shape, dtype, seed):
+    full = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (n,) + shape).astype(np.float32)).to(dtype)
+    return full[rank:rank + 1].cuda()
+
+
+def same(name, got, plain):
+    assert got.is_cuda and torch.equal(got.cpu(), plain), name
+
+
+if case == "parity":
+    for dtype in (torch.float32, torch.bfloat16):
+        x = row((3 * 128 * 8 + 37,), dtype, 1)
+        counts = dict(ops.launch_counts())
+        same("allreduce", R.ring_allreduce_across(x, span),
+             R.ring_allreduce_across_plain(x.cpu(), span))
+        same("tiled", R._tiled_allreduce_across(x, span, 8),
+             R._tiled_allreduce_across_plain(x.cpu(), span, 8))
+        y = x.clone()
+        assert R.hbm_ring_allreduce_across(y, span, tile_rows=8) is y
+        same("in place", y, R._tiled_allreduce_across_plain(x.cpu(), span, 8))
+        z = row((n * 2 * 128,), dtype, 2)
+        same("reduce_scatter", R.ring_reduce_scatter_across(z, span),
+             R.ring_reduce_scatter_across_plain(z.cpu(), span))
+        g = row((700,), dtype, 3)
+        same("allgather", R.ring_allgather_across(g, span),
+             R.ring_allgather_across_plain(g.cpu(), span))
+        a = row((n, 77), dtype, 4)
+        same("alltoall", A.alltoall_across(a, span), A.alltoall_across_plain(a.cpu(), span))
+        c = np.random.default_rng(5).integers(0, 6, size=(n, n))
+        v = row((n, 5, 4), dtype, 6)
+        got, rc = A.alltoallv_across(v, c, span)
+        want, want_rc = A.ragged_mask(A.alltoall_across_plain(v.cpu(), span), c, span=span)
+        same("alltoallv", got, want)
+        assert torch.equal(rc.cpu(), want_rc)
+        after = ops.launch_counts()
+        grew = {k: after[k] - counts[k] for k in after if after[k] != counts[k]}
+        assert grew == {"ring_allreduce_across": 1, "hbm_ring_allreduce_across": 2,
+                        "ring_reduce_scatter_across": 1, "ring_allgather_across": 1,
+                        "alltoall_across": 2}, grew
+    print(f"OK rank={rank} parity", flush=True)
+    span.close()
+    dist.destroy_process_group()
+    os._exit(0)
+# case "peer-exits": both make one call (the workspace is exchanged), then
+# the last rank exits before its next launch; the others' launch gives up
+x = row((4096,), torch.float32, 7)
+R.ring_allreduce_across(x, span)
+dist.barrier()
+if rank == n - 1:
+    os._exit(0)
+ws = span.workspace(x.device)
+ws.timeout_s = 2.0
+t0 = time.perf_counter()
+try:
+    R.ring_allreduce_across(x, span)
+    print("NO-ERROR", flush=True)
+except ipc.PeerWaitExpired as e:
+    print(f"EXPIRED {time.perf_counter() - t0:.3f} {e}", flush=True)
+os._exit(0)
+"""
+
+
+def _across(world: int, case: str) -> list:
+    """Run ``_ACROSS``'s ``case`` in ``world`` processes on the card: each
+    one's (returncode, stdout, stderr)."""
+    import os
+    import subprocess
+    import sys
+
+    from rocnrdma_tpu_torch.runtime.multiprocess import free_port
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, "-c", _ACROSS, str(r), str(world), str(port),
+                               case], cwd=repo, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for r in range(world)]
+    outs = []
+    for p in procs:
+        out, err = p.communicate(timeout=300)
+        outs.append((p.returncode, out, err))
+    return outs
+
+
+def test_kernels_across_two_processes_on_one_card_equal_their_plain_versions(cuda_device):
+    """Rows 1-5 across processes: two processes on the one card, each
+    launching its rank's blocks with the other's rows and flags mapped
+    through CUDA IPC, every result bitwise the plain version across
+    processes (gather, the one-process plain version, own row), fp32 and
+    bf16, each wrapper counted once a call."""
+    for rank, (rc, out, err) in enumerate(_across(2, "parity")):
+        assert rc == 0 and f"OK rank={rank} parity" in out, out + err[-3000:]
+
+
+def test_a_peer_that_never_launches_expires_the_bounded_wait(cuda_device):
+    """A peer that exits before its launch: the other process's launch gives
+    up at its deadline (2 s here) with ``ipc.PeerWaitExpired``, naming the
+    lane and the flag word, never a hang."""
+    import re
+
+    (rc, out, err), _ = _across(2, "peer-exits")
+    assert rc == 0, out + err[-3000:]
+    m = re.search(r"^EXPIRED (\S+) (.*)$", out, re.M)
+    assert m, out + err[-3000:]
+    assert 2.0 <= float(m.group(1)) < 2.0 + 5.0
+    assert re.search(r"rank 0, lane \d+, flag word \d+ \(entry barrier\)", m.group(2))

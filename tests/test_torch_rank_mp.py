@@ -10,21 +10,26 @@ devices, ``rocnrdma_tpu/runtime/mesh.py::rank_mesh``).
   to the one-process port on the whole input (bitwise; the ``fused``
   allreduce, reduce_scatter and reduce within rtol 1e-5, atol 1e-6) and
   prints its results' sha256. The calls are every 1-D (verb, algo) pair
-  but ``cuda_ring`` (``mp_worker._rank_calls``); on 3 ranks ``tree`` is
-  refused with the one-process error.
+  (``mp_worker._rank_calls``), ``cuda_ring`` through its plain versions
+  across processes (the CPU's); on 3 ranks ``tree`` is refused with the
+  one-process error, and on both fleets the reduce_scatter kernel on a
+  buffer that is not whole n*128-element chunks.
 - Here, the one-process port on the same seeded input gives each rank's
   row: its sha256 must be the rank's. The reference's ``Transport`` on 4
   and 3 fake CPU devices, on the same input, is bitwise the one-process
   port for every call that fixes its fold order or only moves data, and
-  ``avg`` within rtol = atol = 1e-6 (the port multiplies by 1/n).
+  ``avg`` within rtol = atol = 1e-6 (the port multiplies by 1/n); the
+  ``cuda_ring`` calls are held to the reference's Pallas kernels in
+  ``tests/test_torch_ring.py`` and ``tests/test_torch_alltoall.py``.
 - ``permute_rows`` over 2 and 3 gloo processes against the one-process
   permutation, partial ones too (a rank that receives nothing gets None),
   staged and unstaged.
 - In this process on a gloo group of one: the mesh's layout and its
   errors, every (verb, algo) pair of the table run or refused as on a
-  one-process 1-D mesh, ``cuda_ring`` refused by name, and ``auto``,
+  one-process 1-D mesh, each ``cuda_ring`` entry point (the five verbs,
+  ``jit_fn`` and ``group()``) bitwise the one-process port, and ``auto``,
   ``model``, ``RNR_ALGO`` and a tuning table resolving as on a
-  one-process mesh without ``cuda_ring``.
+  one-process mesh.
 """
 
 import hashlib
@@ -46,7 +51,7 @@ from rocnrdma_tpu_torch.runtime import mp_worker as W
 from rocnrdma_tpu_torch.runtime.mesh import ProcessSpan, RankMesh, rank_mesh
 from rocnrdma_tpu_torch.runtime.multiprocess import free_port, run_workers
 from rocnrdma_tpu_torch.transport import Transport, api
-from rocnrdma_tpu_torch.transport.tuner import Bucket, TuningTable, model_pick
+from rocnrdma_tpu_torch.transport.tuner import Bucket, TuningTable
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -144,15 +149,18 @@ def test_every_rank_prints_ok_and_holds_the_one_process_port(n, size, seed):
     assert [r.returncode for r in rs] == [0] * n, [r.stderr[-2000:] for r in rs]
     one = _one_process(n, size, seed)
     refused = {k: v for k, v in one.items() if isinstance(v, str)}
-    # a world that is not a power of two refuses tree, with one error
-    assert sorted(refused) == ([] if n == 4 else ["allreduce/tree"])
+    # a world that is not a power of two refuses tree, and the reduce_scatter
+    # kernel refuses a buffer of other than whole n*128-element chunks, each
+    # with one error
+    assert sorted(refused) == sorted(W.rank_refused(n, size))
+    assert ("allreduce/tree" in refused) == (n == 3)
     for r in rs:
         rank = r.process_id
         assert f"OK rank={rank}/{n} rank-mesh" in r.stdout
-        if refused:
-            assert _line(r.stdout, "RANKREFUSED") == refused
-        else:
-            assert "RANKREFUSED" not in r.stdout
+        assert _line(r.stdout, "RANKREFUSED") == refused
+        # on the CPU the kernels' plain versions across processes: no launch
+        assert _line(r.stdout, "RANKLAUNCHES") == dict.fromkeys(
+            W.rank_launches([], n, size), 0)
         digests, errs = _line(r.stdout, "RANKDIGEST"), _line(r.stdout, "RANKERRS")
         held = [name for name in W.RANK_CALLS if name not in refused]
         assert sorted(digests) == sorted(errs) == sorted(held)
@@ -175,7 +183,8 @@ def test_the_ranks_equal_the_reference_through_the_one_process_port(devices, n, 
     khd_digits = Transport(rank_mesh(n, "cpu")).khd_model_digits("allreduce", nbytes)
     ref = _reference(n, size, seed, khd_digits)
     assert sorted(ref) == sorted(k for k, v in one.items()
-                                 if not isinstance(v, str) and k not in W.RANK_FUSED)
+                                 if not isinstance(v, str) and k not in W.RANK_FUSED
+                                 and "cuda_ring" not in k)
     for name, want in ref.items():
         got, want = one[name].numpy(), np.asarray(want)
         assert got.shape == want.shape, name
@@ -319,26 +328,41 @@ def test_the_spanning_rank_mesh_keeps_its_layout_and_names_its_errors(world_of_o
         RankMesh(devices=(torch.device("cpu"), torch.device("meta"))).device
 
 
+def _alltoallv(t, x):
+    out, rc = t.alltoallv(x.reshape(1, 1, -1), np.full((1, 1), 2), "cuda_ring")
+    return torch.cat([out.reshape(1, -1), rc.to(out.dtype)], 1)
+
+
+def _grouped(t, x):
+    with t.group() as g:
+        ar, a2a = g.allreduce(x, "cuda_ring"), g.alltoall(x.reshape(1, 1, -1), "cuda_ring")
+    return torch.cat([ar.result(), a2a.result().reshape(1, -1)], 1)
+
+
 CUDA_RING_CALLS = {
     "allreduce": lambda t, x: t.allreduce(x, "cuda_ring"),
     "reduce_scatter": lambda t, x: t.reduce_scatter(x, "cuda_ring"),
     "allgather": lambda t, x: t.allgather(x, "cuda_ring"),
     "alltoall": lambda t, x: t.alltoall(x.reshape(1, 1, -1), "cuda_ring"),
-    "alltoallv": lambda t, x: t.alltoallv(x.reshape(1, 1, -1), np.full((1, 1), 2),
-                                          "cuda_ring"),
-    "jit_fn": lambda t, x: t.jit_fn("allreduce", "cuda_ring"),
-    "group": lambda t, x: t.group().allreduce(x, "cuda_ring"),
+    "alltoallv": _alltoallv,
+    "jit_fn": lambda t, x: t.jit_fn("allgather", "cuda_ring")(x),
+    "group": _grouped,
 }
 
 
 @pytest.mark.parametrize("call", sorted(CUDA_RING_CALLS))
-def test_cuda_ring_on_a_spanning_rank_mesh_is_refused_by_name(world_of_one, call):
+def test_cuda_ring_on_a_spanning_rank_mesh_equals_the_one_process_port(world_of_one,
+                                                                      call):
     t = Transport(rank_mesh(1, "cpu", group=world_of_one))
-    x = torch.ones((1, 6))
-    with pytest.raises(ValueError, match=re.escape(api.CUDA_RING_ACROSS)):
-        CUDA_RING_CALLS[call](t, x)
-    assert "ROADMAP Queue 1" in api.CUDA_RING_ACROSS
-    assert t.stats() == {"cross/gloo": t.stats()["cross/gloo"]}  # nothing ran
+    one = Transport(rank_mesh(1, "cpu"))
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal((1, 6))
+                         .astype(np.float32))
+    got, want = CUDA_RING_CALLS[call](t, x), CUDA_RING_CALLS[call](one, x)
+    assert got.shape == want.shape and torch.equal(got, want)
+    ran = {k for k in t.stats() if k.endswith("/cuda_ring")}
+    assert ran == ({k for k in one.stats() if k.endswith("/cuda_ring")}
+                   if call != "jit_fn" else set())  # a bare jit_fn is not counted
+    assert "cross/gloo" in t.stats()
 
 
 ROOTED = ("broadcast", "reduce", "gather", "scatter")
@@ -362,18 +386,14 @@ def test_a_spanning_rank_mesh_runs_what_a_1d_mesh_runs_and_refuses_the_rest(
     one = Transport(rank_mesh(1, "cpu"))
     x = torch.from_numpy(np.random.default_rng(3).standard_normal((1, 6))
                          .astype(np.float32))
-    if algo == "cuda_ring":  # the kernels need every row on one card
-        with pytest.raises(ValueError, match=re.escape(api.CUDA_RING_ACROSS)):
-            _call(t, verb, algo, x)
-        return
     try:
         want = _call(one, verb, algo, x)
     except ValueError as e:  # refused on a 1-D mesh: refused alike here
         assert not api.supports(verb, algo)
         with pytest.raises(ValueError) as got:
             _call(t, verb, algo, x)
-        # the same error, its list of what runs here without cuda_ring
-        assert str(got.value) == str(e).replace(", 'cuda_ring'", "")
+        # the same error, its list of what runs here too
+        assert str(got.value) == str(e)
         return
     got = _call(t, verb, algo, x)
     assert got.shape == want.shape and got.dtype == want.dtype
@@ -389,6 +409,8 @@ H100 = "NVIDIA H100 80GB HBM3"
 
 
 def test_policy_resolves_on_a_spanning_rank_mesh_as_without_cuda_ring(monkeypatch):
+    # (the name predates the kernels across processes: the spanning mesh now
+    # resolves exactly as the one-process mesh, cuda_ring included)
     # rank 1 of a 4-rank mesh that spans processes (no exchange runs here)
     # against the one-process mesh, both priced as 4 ranks on one H100
     span = ProcessSpan(cross_group=None, backend="gloo", staged=True, index=1,
@@ -417,25 +439,15 @@ def test_policy_resolves_on_a_spanning_rank_mesh_as_without_cuda_ring(monkeypatc
     for verb in api.SCHEDULES:
         for size in (full, big):
             a, b = both(verb, "model", size)
-            if b != "cuda_ring":
-                assert a == b, (verb, a, b)
-                continue
-            picked_cuda_ring += 1
-            x = size[:, 0] if verb in ("allgather", "gather") else size
-            nbytes = one._msg_bytes(verb, x)
-            alpha, beta, hbm_beta = one._constants(verb)
-            cands = [c for c in api.SCHEDULES[verb]
-                     if api.supports(verb, c) and c != "cuda_ring"]
-            assert a == model_pick(verb, 4, nbytes, candidates=cands, alpha=alpha,
-                                   beta=beta, hbm_beta=hbm_beta, mesh_shape=None,
-                                   dcn=None, device_kind=H100, itemsize=4), verb
+            assert a == b, (verb, a, b)
+            picked_cuda_ring += b == "cuda_ring"
         assert both(verb, "auto") == ["fused"] * 2
         for forced in api.ALGOS[1:]:
             monkeypatch.setenv("RNR_ALGO", forced)
             a, b = both(verb, "auto")
-            assert a == ("fused" if forced == "cuda_ring" else b), (verb, forced)
+            assert a == b, (verb, forced)
         monkeypatch.delenv("RNR_ALGO")
-    assert picked_cuda_ring  # the model picks the kernel somewhere on one mesh
+    assert picked_cuda_ring  # the model picks the kernel somewhere, on both meshes
     table = TuningTable()
     arms = {v: [a for a in algos if api.supports(v, a)]
             for v, algos in api.SCHEDULES.items()}
@@ -446,4 +458,4 @@ def test_policy_resolves_on_a_spanning_rank_mesh_as_without_cuda_ring(monkeypatc
     for verb, algos in arms.items():
         for size, arm in ((full[:, :4], algos[-1]), (big, algos[0])):
             a, b = both(verb, "auto", size)
-            assert b == arm and a == ("fused" if b == "cuda_ring" else b), verb
+            assert a == b == arm, verb

@@ -11,6 +11,10 @@ allreduce, reduce-scatter and allgather modes of ``ops/csrc/ring.cu``.
   over back-to-back launches) in each mode, stepped through seeded random
   interleavings: the stand-in for the interpret-mode backpressure test,
   since the kernel itself runs only on the card.
+- Across processes, one rank a process: the plain version that a CPU row
+  takes, in 3 gloo processes, stacked, against the Pallas ring allreduce;
+  and the protocol model with each rank's workspace rows copied in and out
+  on its own stream, and with a rank that never launches.
 - The kernels themselves run on the card: ``tests/test_torch_card.py``.
 """
 
@@ -74,6 +78,66 @@ def test_ring_plain_bitwise_equals_pallas_ring(devices, n, dtype):
     # the wrapper takes the plain version for a CPU tensor, out of place
     np.testing.assert_array_equal(_bits(T.ring_allreduce(xt)), _bits(ref))
     assert torch.equal(xt, x_before)
+
+
+_ACROSS = """
+import sys, numpy as np, torch, torch.distributed as dist
+from rocnrdma_tpu_torch.ops import ring_cuda as R
+from rocnrdma_tpu_torch.runtime.init import leave
+from rocnrdma_tpu_torch.runtime.mesh import rank_mesh
+rank, world, port, d = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        world_size=world, rank=rank)
+span = rank_mesh(world, "cpu", group=dist.group.WORLD).span
+x = np.load(f"{d}/x.npy")
+for dtype, bits in ((torch.float32, torch.int32), (torch.bfloat16, torch.int16)):
+    row = torch.from_numpy(x[rank:rank + 1]).to(dtype)
+    out = R.ring_allreduce_across(row, span)  # a CPU row: the plain version
+    np.save(f"{d}/{str(dtype)[6:]}_{rank}.npy", out.view(bits).numpy())
+dist.destroy_process_group()
+leave(0)
+"""
+_ACROSS_RUNS: dict = {}
+
+
+def _across_rows(tmp_path_factory, n: int) -> tuple:
+    """The rows ``ring_allreduce_across`` gives n gloo processes, each with
+    its row of one seeded input (float32 and bfloat16), and that input."""
+    if n not in _ACROSS_RUNS:
+        import os
+        import subprocess
+        import sys
+
+        from rocnrdma_tpu_torch.runtime.multiprocess import free_port
+        d = str(tmp_path_factory.mktemp("across"))
+        x = np.random.default_rng(5).standard_normal((n, 1000)).astype(np.float32)
+        np.save(f"{d}/x.npy", x)
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        env = dict(os.environ, PYTHONPATH=repo)
+        port = free_port()
+        procs = [subprocess.Popen([sys.executable, "-c", _ACROSS, str(r), str(n), str(port),
+                                   d], cwd=repo, env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True) for r in range(n)]
+        for p in procs:
+            _, err = p.communicate(timeout=120)
+            assert p.returncode == 0, err[-2000:]
+        _ACROSS_RUNS[n] = (x, d)
+    return _ACROSS_RUNS[n]
+
+
+@needs_tpu_interpret
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ring_allreduce_across_three_processes_bitwise_equals_pallas_ring(
+        devices, tmp_path_factory, dtype):
+    # each of 3 gloo processes passes only its row; stacked, their rows are
+    # the reference's ring allreduce of the whole input, bit for bit
+    n = 3
+    x, d = _across_rows(tmp_path_factory, n)
+    jd, _ = DTYPES[dtype]
+    ref = _shmap(lambda s: pallas_ring_allreduce(s[0], RANK)[None], n)(
+        jnp.asarray(x).astype(jd))
+    got = np.concatenate([np.load(f"{d}/{dtype}_{r}.npy") for r in range(n)])
+    np.testing.assert_array_equal(got.view(_bits(ref).dtype), _bits(ref))
 
 
 @needs_tpu_interpret
@@ -185,23 +249,46 @@ def _lane_program(mode, n, r, e):
             + [("signal", "arr"), ("wait", "arr", e * (n - 1)), ("leave",)])
 
 
-def _run_protocol(launches, lanes, seed, program=_lane_program):
+def _run_protocol(launches, lanes, seed, program=_lane_program, across=False,
+                  missing=None):
     """Run ``launches``, a list of (mode, x, in_place): x the ranks' inputs,
     (n, n, per) for "ar"/"rs", (n, 1, per) for "ag". Returns each launch's
-    outputs: (n, n, per), or (n, 1, per) for "rs"."""
+    outputs: (n, n, per), or (n, 1, per) for "rs".
+
+    ``across``: one rank a process. Each rank owns one input and one output
+    row (its IPC workspace), reused by every launch, and its stream runs
+    ``copy_in(e)`` (its input into its workspace row), launch e's blocks and
+    ``copy_out(e)`` (its output row out) in that order; the model asserts
+    that no peer reads a rank's input row outside its copy of launch e, nor
+    writes its output row before its launch e or after its copy out, and
+    that ``copy_out(e)`` reads only landed chunks. ``missing=(rank, e)``:
+    that rank never launches e (it dies first); the run must end with every
+    other rank's lanes stuck in a bounded wait, returned as the expiries
+    (rank, lane, flag word) in place of the outputs."""
     n, per = launches[0][1].shape[0], launches[0][1].shape[2]
     w = per // lanes
     ins, outs = [], []
     for mode, x, in_place in launches:
         ins.append(x.copy())
-        outs.append(ins[-1] if in_place else
+        outs.append(ins[-1] if in_place and not across else
                     np.full((n, 1 if mode == "rs" else n, per), np.nan, np.float32))
+    # across: the workspace rows, and the launch each rank's stream has
+    # copied in, released to its blocks, and copied out
+    ws_in = np.full((n, n, per), np.nan, np.float32)
+    ws_out = np.full((n, n, per), np.nan, np.float32)
+    staged, released, copied = np.zeros(n, int), np.zeros(n, int), np.zeros(n, int)
+    left = np.zeros((n, lanes), int)  # the last launch a (rank, lane) left
     progs, pcs, acc = {}, {}, {}
     for r in range(n):
         prog = [(e, act) for e, (mode, _, _) in enumerate(launches, 1)
-                for act in program(mode, n, r, e)]
+                for act in ([("gate",)] if across else []) + program(mode, n, r, e)]
         for b in range(lanes):
             progs[(r, b)], pcs[(r, b)] = prog, 0
+        if across:
+            last = len(launches) if missing is None or missing[0] != r else missing[1] - 1
+            progs[("stream", r)] = [(e, (act,)) for e in range(1, last + 1)
+                                    for act in ("copy_in", "release", "join", "copy_out")]
+            pcs[("stream", r)] = 0
     flags = {}
     # the launch whose part a (rank, lane) is in, 0 between its parts
     inside = np.zeros((n, lanes), int)
@@ -211,17 +298,41 @@ def _run_protocol(launches, lanes, seed, program=_lane_program):
     def runnable(key):
         if pcs[key] == len(progs[key]):
             return False
-        act = progs[key][pcs[key]][1]
+        e, act = progs[key][pcs[key]]
+        if key[0] == "stream":
+            return act[0] != "join" or (left[key[1]] >= e).all()
+        if act[0] == "gate":
+            return released[key[0]] >= e
         return act[0] != "wait" or flags.get((act[1], key[0], key[1]), 0) >= act[2]
 
     while True:
         ready = [k for k in progs if runnable(k)]
         if not ready:
             break
-        r, b = key = ready[rng.integers(len(ready))]
+        key = ready[rng.integers(len(ready))]
         e, act = progs[key][pcs[key]]
         mode = launches[e - 1][0]
+        pcs[key] += 1
+        if key[0] == "stream":
+            r = key[1]
+            rows = 1 if mode == "rs" else n
+            if act[0] == "copy_in":
+                ws_in[r, :ins[e - 1].shape[1]] = ins[e - 1][r]
+                staged[r] = e
+            elif act[0] == "release":
+                released[r] = e
+            elif act[0] == "copy_out":
+                for c in range(rows):
+                    for b in range(lanes):
+                        assert landed.get((r, c, b)) == e, \
+                            f"rank {r} copied out launch {e} before chunk {c} lane {b} landed"
+                outs[e - 1][r] = ws_out[r, :rows]
+                copied[r] = e
+            continue
+        r, b = key
         lo, hi = b * w, (b + 1) * w
+        src = ws_in if across else ins[e - 1]
+        dst = ws_out if across else outs[e - 1]
         if act[0] == "enter":
             inside[r, b] = e
         elif act[0] == "signal":
@@ -231,21 +342,38 @@ def _run_protocol(launches, lanes, seed, program=_lane_program):
         elif act[0] == "load":
             _, p, k = act
             assert inside[p, b] == e, f"read rank {p}'s input outside launch {e}"
-            v = ins[e - 1][p, 0 if mode == "ag" else r, lo:hi]
+            if across:
+                assert staged[p] == e, f"read rank {p}'s input row before its copy_in({e})"
+            v = src[p, 0 if mode == "ag" else r, lo:hi]
             acc[key] = v.copy() if k == 0 else v + acc[key]
         elif act[0] == "store":
             _, d, c = act
             assert inside[d, b] == e, f"wrote rank {d}'s output outside launch {e}"
-            outs[e - 1][d, c, lo:hi] = acc[key]
+            if across:
+                assert released[d] == e and copied[d] < e, \
+                    f"wrote rank {d}'s output row outside its launch {e}"
+            dst[d, c, lo:hi] = acc[key]
             landed[(d, c, b)] = e
         elif act[0] == "leave":
-            for c in range(outs[e - 1].shape[1]):
-                assert landed.get((r, c, b)) == e, \
-                    f"rank {r} left launch {e} before chunk {c} landed"
+            if not across:
+                for c in range(outs[e - 1].shape[1]):
+                    assert landed.get((r, c, b)) == e, \
+                        f"rank {r} left launch {e} before chunk {c} landed"
             inside[r, b] = 0
-        pcs[key] += 1
+            left[r, b] = e
 
     stuck = [k for k in progs if pcs[k] != len(progs[k])]
+    if missing is not None:
+        # the bounded waits that expire: each stuck lane's wait, by word
+        # (lane * 2 + 0 for the entry barrier, + 1 for the exit arrivals)
+        expired = []
+        for k in stuck:
+            if k[0] == "stream":
+                continue
+            act = progs[k][pcs[k]][1]
+            if act[0] == "wait":
+                expired.append((k[0], k[1], k[1] * 2 + ("bar", "arr").index(act[1])))
+        return sorted(expired)
     assert not stuck, f"deadlock: blocks {stuck} stuck"
     for r in range(n):
         for b in range(lanes):
@@ -336,3 +464,51 @@ def test_ring_kernel_protocol_model_rejects_unsafe_orders(n, program):
         except AssertionError:
             caught += 1
     assert caught > 0
+
+
+@pytest.mark.parametrize("n", [2, 3, 8])
+def test_ring_kernel_protocol_model_across_processes(n):
+    # one rank a process: each rank's workspace rows reused by every launch,
+    # copied in before its launch and out after it on its own stream; an
+    # allreduce, a reduce-scatter, an allgather and an allreduce again
+    per, lanes = 128, 2
+    rng = np.random.default_rng(100 + n)
+    modes = ["ar", "rs", "ag", "ar"]
+    xs = [_launch_inputs(m, n, per, rng) for m in modes]
+    wants = [_plain(m, x) for m, x in zip(modes, xs)]
+    for seed in range(10):
+        gots = _run_protocol([(m, x, False) for m, x in zip(modes, xs)], lanes, seed,
+                             across=True)
+        for got, want in zip(gots, wants):
+            np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("n", [2, 3, 8])
+@pytest.mark.parametrize("program", [_write_before_barrier, _exit_before_arrivals])
+def test_ring_kernel_protocol_model_across_processes_rejects_unsafe_orders(n, program):
+    # a kernel that writes before the barrier, or lets its stream copy out
+    # (and copy the next launch in) before its peers' writes have landed
+    per, lanes = 128, 2
+    rng = np.random.default_rng(120 + n)
+    launches = [(m, _launch_inputs(m, n, per, rng), False) for m in ("ar", "rs", "ar")]
+    caught = 0
+    for seed in range(10):
+        try:
+            _run_protocol(launches, lanes, seed, program, across=True)
+        except AssertionError:
+            caught += 1
+    assert caught > 0
+
+
+@pytest.mark.parametrize("n", [2, 3, 8])
+def test_ring_kernel_protocol_model_a_rank_that_never_launches_expires_the_others(n):
+    # the last rank dies before launch 2: every other rank's every lane ends
+    # in the bounded wait of launch 2's entry barrier, on its lane's word,
+    # and none finishes it silently
+    per, lanes = 128, 2
+    rng = np.random.default_rng(140 + n)
+    launches = [(m, _launch_inputs(m, n, per, rng), False) for m in ("ar", "ar")]
+    want = [(r, b, 2 * b) for r in range(n - 1) for b in range(lanes)]
+    for seed in range(10):
+        got = _run_protocol(launches, lanes, seed, across=True, missing=(n - 1, 2))
+        assert got == want, (seed, got)
