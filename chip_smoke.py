@@ -132,8 +132,9 @@ Phases, each timed, any failure exits non-zero:
    all_gather, all_to_all, broadcast and send/recv at 4 KiB, 1 MiB and
    64 MiB fp32 over tcp, each result a CUDA tensor on the input's device,
    bitwise the call on the numpy arrays ``.cpu()`` gives; the staging
-   GB/s each way at 64 MiB beside the call's total; a bf16 CUDA tensor
-   raises ``HostPlaneDtypeError``; ``DeviceMeshNet`` with 8 ranks as rows
+   GB/s each way at 64 MiB beside the call's total; a bf16 CUDA tensor's
+   all_reduce bitwise the CPU tensor's, and an fp8 one raises
+   ``HostPlaneDtypeError``; ``DeviceMeshNet`` with 8 ranks as rows
    of one CUDA tensor, every (src, dst) pair bitwise the row copy and
    every request complete; the fp8 codec resolving with torch, also in a
    process where ``ml_dtypes`` cannot be imported, a seeded frame's sha256
@@ -183,7 +184,8 @@ Phases, each timed, any failure exits non-zero:
    8), a ``rank_mesh(8, group=WORLD)`` whose rank axis is the process
    boundary, each process holding its row on the card and passing only
    it; once at the reference's shape (8 fp32 a rank, rank r's row r + 1)
-   and once at full width (64 MiB fp32 a rank, seeded rows). The calls
+   and once at full width (64 MiB fp32 a rank, seeded rows), both cases
+   in one fleet (``--cases``, one start of the 8 processes). The calls
    are every 1-D (verb, algo) pair (``mp_worker.RANK_CALLS``: the
    allreduce fused, ring, ring_bidir, tree, khd at the radix ladder's
    digits and at 2,2,2, dtree, ptree, ktree, avg, max and a ragged
@@ -227,16 +229,40 @@ Phases, each timed, any failure exits non-zero:
    headline paths (phases 8 and 9), its ``chaos_launches`` those of the
    healed fleets' ``DEVICE-LOCAL`` (phase 12), its ``across_launches``
    those across processes in phase 14 (every rank's, both cases; rows
-   1-5 must have some, the local folds have no form across processes).
+   1-5 must have some, the local folds have no form across processes),
+   its ``cli_across_launches`` rank 0's in phase 16's CLI sweeps;
+16. bench_mesh, after phase 14 and before the kernels line: the bench
+   CLIs across processes, each launched as a launcher launches it
+   (``runtime.multiprocess.run_cli``: the reference's
+   ``COORDINATOR_ADDRESS``, ``WORLD_SIZE`` and ``RANK`` in each process's
+   environment), each process one rank of ``rank_mesh(N, group=WORLD)``.
+   On one card, ``bench_allreduce`` and ``bench_alltoall`` as 2
+   processes each, the two fleets at once, ``--sizes 4K,1M --algos fused,ring,cuda_ring --repeats 2
+   --iters 3 --check-plain``: every rank exits 0, every point of rank 0's
+   ``--out`` is checked, with ``extra.link == "host-loopback"`` (gloo
+   staged through pinned memory), and each ``cuda_ring`` point launched
+   its kernel across processes and is bitwise its kernels' plain versions
+   on every rank (an agreed check: one rank's difference fails them all).
+   ``python3 chip_smoke.py --bench-mesh`` runs the probe and this phase
+   alone; on a machine with several GPUs (the 4-card run), it runs
+   ``bench_allreduce``, ``bench_reducescatter``, ``bench_allgather`` and
+   ``bench_alltoall`` as 4 processes, a GPU each, ``--preset ring8
+   --sizes 4K,1G --dtypes float32 --algos fused,ring,ring_bidir,cuda_ring``
+   (``extra.link == "nvlink"``), ``bench_allreduce`` once more under
+   torchrun (its agent hosts the store), and the headline across the 4
+   processes: one scored line from rank 0 against 0.9 x 450 GB/s, no leg
+   or candidate failed, the alltoall row written.
 
 ``python3 chip_smoke.py --host-plane`` runs the probe and phase 11 alone,
 ``--chaos`` the probe and phase 12 alone, ``--hierarchical`` the probe and
-phase 13 alone, ``--rank-mesh`` the probe and phase 14 alone.
+phase 13 alone, ``--rank-mesh`` the probe and phase 14 alone,
+``--bench-mesh`` the probe and phase 16 alone.
 The last line is ``{"ok": true, "device": {...}}``. With ranks sharing one
 GPU, every bus bandwidth printed here is an HBM number, not NVLink.
 This script imports nothing of JAX or of the JAX package.
 """
 
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -1288,11 +1314,20 @@ def front_door_worker(rank: int, world: int, port: int) -> int:
         res["staging_GBps"] = {"d2h": x.nbytes / min(d2h) / 1e9,
                                "h2d": x.nbytes / min(h2d) / 1e9}
         res["staging_stats"] = dist.staging_stats()
+        # bf16 folds as the reference's ml_dtypes arrays do: the CUDA
+        # tensor's result is a bf16 tensor on the card, bitwise the CPU one's
+        xb = seeded(rank, 1 << 20).to(torch.bfloat16)
+        got, want = pg.all_reduce(xb), pg.all_reduce(xb.cpu())
+        if not (got.device == dev and got.dtype == torch.bfloat16
+                and torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))):
+            raise AssertionError(f"rank {rank}: a bf16 CUDA tensor's fold is not "
+                                 f"the CPU tensor's")
+        res["bf16"] = "folded, bitwise the CPU tensor's"
         try:
-            pg.all_reduce(torch.ones(16, dtype=torch.bfloat16, device=dev))
-            raise AssertionError("a bf16 CUDA tensor entered the host plane")
+            pg.all_reduce(torch.ones(16, dtype=torch.float8_e4m3fn, device=dev))
+            raise AssertionError("an fp8 CUDA tensor entered the host plane")
         except dist.HostPlaneDtypeError as e:
-            res["bf16"] = str(e).split(":")[0]
+            res["fp8"] = str(e).split(":")[0]
         pg.barrier()
     finally:
         pg.destroy()
@@ -1413,7 +1448,7 @@ def host_plane_phase(smi: str) -> dict:
                                           for w in workers), 3)
                           for verb in ("all_reduce", "all_gather", "all_to_all",
                                        "broadcast")},
-        "bf16": workers[0]["bf16"]}
+        "bf16": workers[0]["bf16"], "fp8": workers[0]["fp8"]}
     print(f"front door ({smi}; {cpu}): " + json.dumps(res["front_door"]), flush=True)
     secs["front_door"] = time.perf_counter() - t0
 
@@ -1763,7 +1798,7 @@ def rank_mesh_phase(smi: str) -> dict:
     from rocnrdma_tpu_torch.ops import _build
     from rocnrdma_tpu_torch.runtime.mp_worker import (RANK_CALLS, rank_launches,
                                                       rank_refused)
-    from rocnrdma_tpu_torch.runtime.multiprocess import run_workers
+    from rocnrdma_tpu_torch.runtime.multiprocess import WorkerResult, run_workers
 
     gpus = torch.cuda.device_count()
     n = 8 if gpus < 2 else min(gpus, 8)
@@ -1771,17 +1806,29 @@ def rank_mesh_phase(smi: str) -> dict:
     res = {"smi": smi, "gpus": gpus, "processes": n, "across_launches": {}}
     full = {}
     _build.build()  # the kernels, once, before the workers load them
-    for label, size, seed, only in RANK_CASES + ((RANK_HEADLINE,) if gpus >= 2 else ()):
+    # the two cases in one fleet (one start of 8 processes); with a GPU a
+    # process, the headline case in a fleet of its own (its calls differ)
+    fleets = [RANK_CASES] + ([(RANK_HEADLINE,)] if gpus >= 2 else [])
+    runs = []
+    for cases in fleets:
         t0 = time.perf_counter()
         rs = run_workers(n, "rank-mesh", timeout_s=300.0, platform="auto",
-                         size=size, seed=seed, calls=only)
+                         calls=cases[0][3], cases=",".join(
+                             f"{size}:{'-' if seed is None else seed}"
+                             for _, size, seed, _ in cases))
         secs = time.perf_counter() - t0
         for r in rs:
             if r.returncode != 0 or f"OK rank={r.process_id}/{n} rank-mesh" \
                     not in r.stdout:
-                raise AssertionError(f"rank-mesh {label} rank {r.process_id}: exit "
-                                     f"{r.returncode}\n{r.stdout[-3000:]}\n"
+                raise AssertionError(f"rank-mesh {cases[0][0]} rank {r.process_id}: "
+                                     f"exit {r.returncode}\n{r.stdout[-3000:]}\n"
                                      f"{r.stderr[-4000:]}")
+        for i, case in enumerate(cases):
+            # each case's lines: after its RANKCASE line
+            part = [WorkerResult(r.process_id, r.returncode,
+                                 r.stdout.split("RANKCASE ")[i + 1], r.stderr) for r in rs]
+            runs.append((case, part, secs))
+    for (label, size, seed, only), rs, secs in runs:
         ran = only.split(",") if only else list(RANK_CALLS)
         names = set(ran) - rank_refused(n, size)
         launches = rank_launches(names, n, size)
@@ -1836,7 +1883,8 @@ def rank_mesh_phase(smi: str) -> dict:
                  "bytes_per_rank": [r["cross"]["bytes"] for r in ranks],
                  **{f"{way}_GBps": [min(v), max(v)] if None not in v else None
                     for way, v in gbps.items()}}
-        res[label] = {"rank_bytes": size * 4, "seed": seed, "seconds": round(secs, 1),
+        res[label] = {"rank_bytes": size * 4, "seed": seed,
+                      "fleet_seconds": round(secs, 1),
                       "cross": cross, "ms": calls, "launches_per_rank": launches}
         if gpus >= 2 and size * 4 >= MiB:
             res[label]["nvlink_bound_ms"] = {
@@ -1867,6 +1915,170 @@ def rank_mesh_phase(smi: str) -> dict:
     with open(os.path.join(OUT_DIR, "rank_mesh.json"), "w") as f:
         json.dump({"summary": res, "ranks": full}, f)
     return res
+
+
+# phase 16: the bench CLIs across processes, run as a launcher runs them
+# (bench, collective); one card: 2 processes, 4 KiB and 1 MiB a rank; with
+# several GPUs (--bench-mesh), a GPU a process at 4 KiB and 1 GiB fp32
+CLI_ONE_CARD = (("bench_allreduce", "allreduce"), ("bench_alltoall", "alltoall"))
+CLI_MESH = CLI_ONE_CARD[:1] + (("bench_reducescatter", "reducescatter"),
+                               ("bench_allgather", "allgather"), CLI_ONE_CARD[1])
+
+
+def cli_fleet(n: int, bench: str, argv: list, link: str, timeout_s: float = 600.0) -> list:
+    """``bench`` as ``n`` processes (``run_cli``, the launcher's environment),
+    ``--check-plain``: every rank exits 0, every record of rank 0's
+    ``--out`` is checked, on ``link`` across ``n`` processes, and each
+    ``cuda_ring`` record launched a kernel across processes and is bitwise
+    its kernels' plain versions on every rank. Returns the records."""
+    from rocnrdma_tpu_torch.runtime.multiprocess import run_cli
+
+    out = os.path.join(OUT_DIR, "cli", f"{bench}_{n}.jsonl")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    if os.path.exists(out):
+        os.remove(out)  # the records must come from this run
+    rs = run_cli(n, f"rocnrdma_tpu_torch.bench.{bench}",
+                 argv + ["--out", out, "--check-plain"], timeout_s=timeout_s)
+    for r in rs:
+        if r.returncode != 0:
+            raise AssertionError(f"{bench} x {n} rank {r.process_id}: exit "
+                                 f"{r.returncode}\n{r.stdout[-3000:]}\n{r.stderr[-4000:]}")
+    if any("busbw GB/s" in r.stdout for r in rs[1:]):
+        raise AssertionError(f"{bench} x {n}: a rank other than 0 printed the table")
+    with open(out) as fp:
+        recs = [json.loads(line) for line in fp.read().splitlines()]
+    for rec in recs:
+        ex = rec["extra"]
+        what = f"{bench} x {n} {rec['algo']} {rec['size_bytes']} B"
+        if not ex["checked"] or ex["link"] != link or ex["processes"] != n:
+            raise AssertionError(f"{what}: checked {ex['checked']}, link {ex['link']}, "
+                                 f"processes {ex['processes']}; want {link}, {n}")
+        if rec["algo"] == "cuda_ring":
+            across = {k: v for k, v in ex.get("launches", {}).items()
+                      if k.endswith("_across")}
+            if not across or min(across.values()) < 1 or ex.get("plain_max_abs_err") != 0:
+                raise AssertionError(f"{what}: launches {ex.get('launches')}, against "
+                                     f"the plain versions {ex.get('plain_max_abs_err')}")
+    return recs
+
+
+def _cli_rows(recs: list) -> dict:
+    """{algo: {size: [us, busbw GB/s, peak GiB]}} of a CLI's records."""
+    out = {}
+    for rec in recs:
+        out.setdefault(rec["algo"], {})[rec["size_bytes"]] = [
+            round(rec["mean_s"] * 1e6, 1), round(rec["busbw_GBps"], 2),
+            round(rec["extra"].get("peak_mem_bytes", 0) / 2**30, 2)]
+    return out
+
+
+def bench_mesh_phase(smi: str) -> dict:
+    """The bench CLIs and the headline across processes (module docstring,
+    phase 16). Returns each CLI's rows, rank 0's launches across processes
+    per kernel, and with several GPUs the headline's scored line."""
+    from rocnrdma_tpu_torch.ops import _build
+
+    gpus = torch.cuda.device_count()
+    _build.build()  # the kernels, once, before the processes load them
+    smi = f"{smi.splitlines()[0]} x {gpus}"  # nvidia-smi prints a line a GPU
+    res = {"smi": smi, "gpus": gpus, "launches": {}, "seconds": {}}
+    if gpus < 2:
+        n, link, clis = 2, "host-loopback", CLI_ONE_CARD
+        argv = ["--sizes", "4K,1M", "--algos", "fused,ring,cuda_ring",
+                "--repeats", "2", "--iters", "3"]
+    else:
+        n, link, clis = min(gpus, 4), "nvlink", CLI_MESH
+        argv = ["--preset", "ring8", "--sizes", "4K,1G", "--dtypes", "float32",
+                "--algos", "fused,ring,ring_bidir,cuda_ring", "--repeats", "3",
+                "--iters", "5"]
+    res["processes"] = n
+
+    def fleet(bench):
+        t0 = time.perf_counter()
+        recs = cli_fleet(n, bench, argv, link)
+        return recs, round(time.perf_counter() - t0, 1)
+
+    if gpus < 2:
+        # on one card the two fleets share it at once (their times are
+        # time-sliced HBM numbers either way): one fleet start fewer
+        with concurrent.futures.ThreadPoolExecutor(len(clis)) as pool:
+            runs = list(pool.map(fleet, [bench for bench, _ in clis]))
+    else:  # each fleet takes every GPU
+        runs = [fleet(bench) for bench, _ in clis]
+    for (bench, collective), (recs, secs) in zip(clis, runs):
+        res["seconds"][bench] = secs
+        ran = {r["algo"] for r in recs}
+        if "cuda_ring" not in ran or "fused" not in ran:
+            raise AssertionError(f"{bench} x {n}: ran {sorted(ran)}")
+        for rec in recs:
+            for k, v in rec["extra"].get("launches", {}).items():
+                res["launches"][k] = res["launches"].get(k, 0) + v
+        res[bench] = _cli_rows(recs)
+        print(f"{bench} across {n} processes ({link}; {smi}) [us, busbw GB/s, peak "
+              f"GiB] by algo and bytes: " + json.dumps(res[bench]), flush=True)
+    if gpus >= 2:
+        res["torchrun"] = torchrun_check(n)
+        res["headline"] = headline_across(n, smi)
+    return res
+
+
+def torchrun_check(n: int) -> dict:
+    """``bench_allreduce`` launched by torchrun (its agent hosts the store):
+    every rank exits 0, rank 0's records are checked across n processes."""
+    from rocnrdma_tpu_torch.runtime.multiprocess import reserve_port
+
+    out = os.path.join(OUT_DIR, "cli", "torchrun.jsonl")
+    if os.path.exists(out):
+        os.remove(out)
+    port, sock = reserve_port()
+    sock.close()
+    r = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(n),
+         "--master-port", str(port), "-m", "rocnrdma_tpu_torch.bench.bench_allreduce",
+         "--sizes", "4K", "--algos", "fused,cuda_ring", "--repeats", "2", "--iters", "3",
+         "--out", out], capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    if r.returncode != 0:
+        raise AssertionError(f"torchrun bench_allreduce: exit {r.returncode}\n"
+                             f"{r.stdout[-3000:]}\n{r.stderr[-4000:]}")
+    with open(out) as fp:
+        recs = [json.loads(line) for line in fp.read().splitlines()]
+    if ({x["algo"] for x in recs} != {"fused", "cuda_ring"}
+            or any(x["extra"]["processes"] != n or not x["extra"]["checked"]
+                   for x in recs)):
+        raise AssertionError(f"torchrun bench_allreduce: records {recs}")
+    print(f"torchrun bench_allreduce x {n}: " + json.dumps(_cli_rows(recs)), flush=True)
+    return _cli_rows(recs)
+
+
+def headline_across(n: int, smi: str) -> dict:
+    """The headline across n processes, a GPU each: rank 0 prints one
+    scored line, against 0.9 x NVLink's datasheet rate each way; no leg or
+    candidate failed; the alltoall row written."""
+    from rocnrdma_tpu_torch.runtime.multiprocess import run_cli
+
+    a2a = os.path.join(OUT_DIR, "alltoall_algbw_across.json")
+    if os.path.exists(a2a):
+        os.remove(a2a)
+    rs = run_cli(n, "rocnrdma_tpu_torch.bench.headline", ["--out", a2a], timeout_s=900)
+    for r in rs:
+        if r.returncode != 0 or any("failed" in ln for ln in r.stderr.splitlines()
+                                    if ln.startswith("#")):
+            raise AssertionError(f"headline x {n} rank {r.process_id}: exit "
+                                 f"{r.returncode}\n{r.stdout[-3000:]}\n{r.stderr[-4000:]}")
+    lines = [[ln for ln in r.stdout.splitlines() if ln.startswith("{")] for r in rs]
+    if len(lines[0]) != 1 or any(lines[1:]):
+        raise AssertionError(f"headline x {n}: scored lines per rank {lines}")
+    row = json.loads(lines[0][0])
+    if (row["processes"] != n or row["ranks_per_card"] != 1 or row["link"] != "nvlink"
+            or row["bound_GBps"] != 450.0 or not 0 < row["value"] < float("inf")):
+        raise AssertionError(f"headline x {n}: bad scored line {row}")
+    notes = [ln for ln in rs[0].stderr.splitlines() if ln.startswith("#")]
+    with open(a2a) as fp:
+        a2a_row = json.load(fp)
+    print(f"headline across {n} processes ({smi}): {json.dumps(row)}", flush=True)
+    print("\n".join(notes), flush=True)
+    return {"line": row, "alltoall": a2a_row, "notes": notes}
 
 
 def main() -> int:
@@ -1914,6 +2126,11 @@ def main() -> int:
         with phase("rank_mesh"):
             ranks = rank_mesh_phase(smi)
         print(f"rank_mesh ({smi}): " + json.dumps(ranks))
+        return 0
+    if sys.argv[1:] == ["--bench-mesh"]:  # phase 16 alone, no kernels line
+        with phase("bench_mesh"):
+            mesh = bench_mesh_phase(smi)
+        print(f"bench_mesh ({smi}): " + json.dumps(mesh))
         return 0
 
     with phase("build"):
@@ -2037,6 +2254,8 @@ def main() -> int:
         hier = hierarchical_phase(smi)
     with phase("rank_mesh"):
         ranks = rank_mesh_phase(smi)
+    with phase("bench_mesh"):
+        mesh = bench_mesh_phase(smi)
     workload_launches = {}
     for counts_ in list(work["launches"].values()) + [
             v for k, v in head.items() if k.startswith("launches")]:
@@ -2182,11 +2401,14 @@ def main() -> int:
     print(f"chaos_heal ({smi}): " + json.dumps(chaos))
     print(f"hierarchical ({smi}): " + json.dumps(hier))
     print(f"rank_mesh ({smi}): " + json.dumps(ranks))
+    print(f"bench_mesh ({smi}): " + json.dumps(mesh))
     for kern in kernels:
         kern["workload_launches"] = workload_launches[kern["name"]]
         kern["chaos_launches"] = chaos["launches"].get(kern["name"], 0)
         # phase 14's launches across processes (none for the local folds)
         kern["across_launches"] = ranks["across_launches"].get(kern["name"] + "_across", 0)
+        # phase 16's: rank 0's launches across processes in the CLIs' sweeps
+        kern["cli_across_launches"] = mesh["launches"].get(kern["name"] + "_across", 0)
         if kern["route"] == "cuda" and "combine" not in kern["name"]                 and kern["across_launches"] < 1:
             raise AssertionError(f"{kern['name']}: no launch across processes in phase 14")
     print(smi)

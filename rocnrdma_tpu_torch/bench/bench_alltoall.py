@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import sys
 
-from rocnrdma_tpu_torch.bench import runner
+from rocnrdma_tpu_torch.bench import cli_common, runner
 
 
 def main(argv=None) -> int:
@@ -30,4 +30,4 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(cli_common.main(main))

@@ -41,7 +41,26 @@ same XLA fusion, which here would be a pass of its own. The alltoall algbw
 (``metrics.scored_algbw_row``) is written to ``--out`` (default
 ``rocnrdma_tpu_torch/results/alltoall_algbw.json``).
 
-**Both: the MFU leg** (stderr), the one-expert MoE layer
+**N processes, a GPU each (a launcher's environment,
+``bench/cli_common.py``): the allreduce across processes**, the
+counterpart of ``bench.py``'s multi-chip branch. Each process is one rank
+of ``rank_mesh(N, group=WORLD)``; busbw per rank at 1 GiB fp32 (256 MiB
+if no candidate survives), best by median of ``fused`` (NCCL),
+``ring_bidir``, ``khd`` and ``cuda_ring``, the ring kernel across
+processes in place (``ring_cuda.hbm_ring_allreduce_across``, the arm's
+tiles); ``khd2d`` only where the spanning 2-D mesh holds the balanced
+factor (one slice a process), else skipped with a stderr line. Each chain
+is timed across the fleet (``timing.marginal_trials(span=)``: a barrier
+before each chain, the maximum over the ranks). Rank 0 prints the scored
+line, ``"ranks_per_card": 1`` and ``"processes": N``, against 0.9 x
+NVLink's datasheet rate each way (``hw.CHIPS`` link / 2: 450 GB/s on an
+H100; busbw counts one direction), which the line names as a datasheet
+figure. Where the processes share a GPU (gloo staged through the host)
+the line says ``"link": "host-loopback"`` and is scored against the
+one-card HBM bound. The alltoall row is taken across processes too; then
+the group is torn down and rank 0 alone runs the MFU leg.
+
+**Every branch: the MFU leg** (stderr), the one-expert MoE layer
 (``moe_topk_step`` with ``ffn_expert``): bf16, T=4096, d=2048, ffn=8192 on
 the card (fp32 256/256/512 on the CPU), forward at 4 T d ffn FLOPs and a
 train step (forward, ``torch.autograd.grad`` on the two expert weights,
@@ -67,14 +86,15 @@ from rocnrdma_tpu_torch import metrics as M
 from rocnrdma_tpu_torch.bench import cli_common
 from rocnrdma_tpu_torch.bench.bench_local import make_combine_chain
 from rocnrdma_tpu_torch.bench.fold_ladder import ADDEND_BUDGET, ladder_op_elems
-from rocnrdma_tpu_torch.bench.timing import (device_s, enqueue_s, marginal_s_per_op,
-                                             marginal_trials)
+from rocnrdma_tpu_torch.bench.timing import (device_s, enqueue_s, failed_ranks,
+                                             marginal_s_per_op, marginal_trials)
 from rocnrdma_tpu_torch.ops import ring_cuda
 from rocnrdma_tpu_torch.runtime import rank_mesh
 from rocnrdma_tpu_torch.transport import Transport
 from rocnrdma_tpu_torch.transport.api import cuda_ring_tile_rows
 
 _CPU_FALLBACK_HBM_GBPS = 50.0  # keeps vs_baseline finite on the CPU
+_CPU_FALLBACK_LINK_GBPS = 5.0  # the same, for the line across processes
 RESULTS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                            "results")
 
@@ -104,12 +124,108 @@ def _balanced_factor(m: int):
 
 # -- N ranks on one card ------------------------------------------------------
 
+def _inplace_tile_rows(y: torch.Tensor, n: int) -> int:
+    """The in-place kernel's ``tile_rows`` for n ranks of rows like ``y``:
+    the ``cuda_ring`` arm's tiles, and where its chunk fits one tile, the
+    tile is the chunk."""
+    tr = cuda_ring_tile_rows(y, "allreduce", n)
+    return -(-(-(-y[0].numel() // n)) // ring_cuda.LANES) if tr is None else tr
+
+
 def _cuda_ring_inplace(y: torch.Tensor) -> torch.Tensor:
-    tr = cuda_ring_tile_rows(y)
-    if tr is None:  # the chunk fits one tile: the tile is the chunk
-        n = y.shape[0]
-        tr = -(-(-(-y[0].numel() // n)) // ring_cuda.LANES)
-    return ring_cuda.hbm_ring_allreduce(y, tile_rows=tr)
+    return ring_cuda.hbm_ring_allreduce(y, tile_rows=_inplace_tile_rows(y, y.shape[0]))
+
+
+def _chain(k: int, ar):
+    """``ar`` applied k times to a copy of its input, so an in-place arm
+    leaves the input intact (the copy is a fixed cost the marginal
+    cancels). The reference rescales each allreduce by 1/n inside the
+    same XLA fusion; here a rescale would be a pass of its own over the
+    buffers, so the chain does not rescale: the values grow n-fold an op
+    (8^32 at the deep chain, still finite in float32), which changes no
+    time on the card."""
+    def chain(x):
+        y = x.clone()
+        for _ in range(k):
+            y = ar(y)
+        return y
+    return chain
+
+
+def _write_row(row: dict, out_path: str) -> None:
+    try:
+        os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+        with open(out_path, "w") as fp:
+            json.dump(row, fp)
+    except OSError as e:  # a read-only checkout: the stderr line still reports
+        print(f"# could not write {out_path}: {e}", file=sys.stderr)
+
+
+def _agreed(failed: bool, span) -> list:
+    """The ranks where ``failed`` holds: across the processes of ``span``
+    agreed (``failed_ranks``), so every rank drops the same candidate and
+    falls back to the same size; without a span, this process's own."""
+    if span is None:
+        return [0] if failed else []
+    return failed_ranks(failed, span)
+
+
+def _best_of(run_leg, on_cpu: bool, alloc, span=None) -> tuple:
+    """``(seconds per candidate, elements a rank, x0)`` of the first size
+    (1 GiB a rank, then 256 MiB; 8 MiB on the CPU) at which a candidate
+    survives ``run_leg(x0)``, ``x0 = alloc(nbytes)``. A failure loses the
+    best-of, never the run; across the processes of ``span`` each size's
+    allocation is agreed (``_agreed``), as ``run_leg``'s candidates are.
+    A rank that fails inside a candidate's collectives leaves its peers
+    to the group's timeout; what fails before or after them is agreed."""
+    secs, elems, x0 = {}, 0, None
+    for nbytes in ([8 * M.MiB] if on_cpu else [M.GiB, 256 * M.MiB]):
+        elems = nbytes // 4
+        err, x0 = None, None
+        try:
+            x0 = alloc(nbytes)
+        except RuntimeError as e:  # e.g. the buffer itself did not fit
+            err = f"{type(e).__name__}: {str(e)[:160]}"
+        bad = _agreed(err is not None, span)
+        if bad:
+            print(f"# {nbytes >> 20} MiB/rank leg failed"
+                  + (f" on rank(s) {bad}" if span is not None else "")
+                  + (f": {err}" if err else ""), file=sys.stderr)
+        else:
+            secs = run_leg(x0)
+        if secs:
+            break
+        print(f"# {nbytes >> 20} MiB/rank: no surviving candidate, trying the "
+              f"next size", file=sys.stderr)
+    if not secs:
+        raise RuntimeError("every allreduce candidate failed")
+    return secs, elems, x0
+
+
+def _run_candidates(algos: dict, x0: torch.Tensor, depth: dict, span=None) -> dict:
+    """Each candidate's marginal trials; one that fails on any rank of
+    ``span`` is dropped on every rank (``_agreed``)."""
+    leg = {}
+    for name, ar in algos.items():
+        err = None
+        try:
+            trials = marginal_trials(functools.partial(_chain, ar=ar), (x0,),
+                                     **depth, span=span)
+        except (RuntimeError, ValueError) as e:  # loses the best-of, never the run
+            err = f"{type(e).__name__}: {str(e)[:200]}"
+        bad = _agreed(err is not None, span)
+        if bad:
+            print(f"# algo {name} failed"
+                  + (f" on rank(s) {bad}" if span is not None else "")
+                  + (f": {err}" if err else ""), file=sys.stderr)
+        else:
+            leg[name] = trials
+    return leg
+
+
+def _depth(on_cpu: bool) -> dict:
+    return dict(k1=2, k2=8 if on_cpu else 32, repeats=3 if on_cpu else 5,
+                trials=1 if on_cpu else 3)
 
 
 def multi_rank(n: int, device: torch.device, kind: str, on_cpu: bool,
@@ -126,51 +242,11 @@ def multi_rank(n: int, device: torch.device, kind: str, on_cpu: bool,
     if fac is not None:  # the 2-D mesh's flagship, over the same ranks
         algos["khd2d"] = lambda y: C.khd2d_allreduce(y, fac, bidir=True)
     algos["cuda_ring"] = _cuda_ring_inplace
-    depth = dict(k1=2, k2=8 if on_cpu else 32, repeats=3 if on_cpu else 5,
-                 trials=1 if on_cpu else 3)
+    depth = _depth(on_cpu)
 
-    def make_chain(k, ar):
-        # a chain starts from a copy, so the in-place arm leaves x intact
-        # (the copy is a fixed cost the marginal cancels). The reference
-        # rescales each allreduce by 1/n inside the same XLA fusion; here a
-        # rescale would be a pass of its own over all n buffers, so the
-        # chain does not rescale: the values grow n-fold an op (8^32 at the
-        # deep chain, still finite in float32), which changes no time on
-        # the card
-        def chain(x):
-            y = x.clone()
-            for _ in range(k):
-                y = ar(y)
-            return y
-        return chain
-
-    def run_leg(nbytes):
-        elems = nbytes // 4
-        x0 = _randn((n, elems), device, seed=0)
-        leg = {}
-        for name, ar in algos.items():
-            try:
-                leg[name] = marginal_trials(functools.partial(make_chain, ar=ar), (x0,),
-                                            **depth)
-            except (RuntimeError, ValueError) as e:  # loses the best-of, never the run
-                print(f"# algo {name} failed: {type(e).__name__}: {str(e)[:200]}",
-                      file=sys.stderr)
-        return leg, x0
-
-    secs, elems, x0 = {}, 0, None
-    for nbytes in ([8 * M.MiB] if on_cpu else [M.GiB, 256 * M.MiB]):
-        elems = nbytes // 4
-        try:
-            secs, x0 = run_leg(nbytes)
-        except RuntimeError as e:  # e.g. the buffer itself did not fit
-            print(f"# {nbytes >> 20} MiB/rank leg failed: {type(e).__name__}: "
-                  f"{str(e)[:160]}", file=sys.stderr)
-        if secs:
-            break
-        print(f"# {nbytes >> 20} MiB/rank: no surviving candidate, trying the "
-              f"next size", file=sys.stderr)
-    if not secs:
-        raise RuntimeError("every allreduce candidate failed")
+    secs, elems, x0 = _best_of(
+        lambda x0: _run_candidates(algos, x0, depth), on_cpu,
+        lambda nbytes: _randn((n, nbytes // 4), device, seed=0))
     winner = min(secs, key=lambda a: median(secs[a]))
     print(f"# allreduce @ {elems * 4 >> 20} MiB/rank, {n} ranks on one card: winner "
           f"{winner} ({', '.join(f'{a}={median(s) * 1e6:.0f}us med' for a, s in secs.items())})",
@@ -189,15 +265,80 @@ def multi_rank(n: int, device: torch.device, kind: str, on_cpu: bool,
     def alltoall_extra():
         def a2a(y):
             return C.fused_alltoall(y.reshape(n, n, -1)).reshape(y.shape)
-        tr = marginal_trials(functools.partial(make_chain, ar=a2a), (x0,), **depth)
+        tr = marginal_trials(functools.partial(_chain, ar=a2a), (x0,), **depth)
         row = M.scored_algbw_row(tr, elems * 4, n, "fused", on_cpu)
         row.update(ranks_per_card=n, link="hbm-loopback", device=kind)
-        try:
-            os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
-            with open(out_path, "w") as fp:
-                json.dump(row, fp)
-        except OSError as e:  # a read-only checkout: the stderr line still reports
-            print(f"# could not write {out_path}: {e}", file=sys.stderr)
+        _write_row(row, out_path)
+        return "# alltoall scored artifact: " + json.dumps(row)
+    extras.append(alltoall_extra)
+    return out
+
+
+# -- N processes, one rank each -------------------------------------------------
+
+NVLINK_SOURCE = "datasheet: NVLink 4, 900 GB/s a GPU, 450 GB/s each way (not measured)"
+
+
+def across_processes(topo, kind: str, on_cpu: bool, hbm_bw: float, extras: list,
+                     out_path: str) -> dict:
+    """The scored allreduce busbw line of the fleet's ranks, one a process
+    (printed by rank 0); appends the alltoall leg across processes to
+    ``extras``."""
+    n = topo.n_processes
+    t = Transport(rank_mesh(n, topo.device, group=torch.distributed.group.WORLD))
+    span = t.span
+    algos = {a: t.jit_fn("allreduce", a) for a in ("fused", "ring_bidir", "khd")}
+    fac = _balanced_factor(n)
+    if fac is not None:
+        # a spanning 2-D mesh is one slice a process: it holds the factor
+        # (s, p) only as s processes of p ranks, and a process here holds one
+        print(f"# algo khd2d skipped: the spanning 2-D mesh is one slice a "
+              f"process; the balanced factor {fac[0]}x{fac[1]} of {n} ranks needs "
+              f"{fac[0]} processes of {fac[1]} ranks, and each of the {n} holds one",
+              file=sys.stderr)
+
+    def inplace(y):
+        return ring_cuda.hbm_ring_allreduce_across(y, span, _inplace_tile_rows(y, n))
+    algos["cuda_ring"] = inplace
+    depth = _depth(on_cpu)
+
+    secs, elems, x0 = _best_of(
+        lambda x0: _run_candidates(algos, x0, depth, span), on_cpu,
+        lambda nbytes: _randn((1, nbytes // 4), topo.device, seed=span.index), span)
+    winner = min(secs, key=lambda a: median(secs[a]))
+    if span.index == 0:
+        print(f"# allreduce @ {elems * 4 >> 20} MiB/rank, {n} processes: winner "
+              f"{winner} ({', '.join(f'{a}={median(s) * 1e6:.0f}us med' for a, s in secs.items())})",
+              file=sys.stderr)
+    wt = sorted(M.busbw_GBps("allreduce", n, elems * 4, s) for s in secs[winner])
+    value = median(wt)
+    chip = hw.chip_for(kind)
+    out = {"metric": "allreduce_busbw_GBps_per_chip", "value": round(value, 3),
+           "unit": "GB/s", "algo": winner, "stat": "median-of-trials",
+           "spread": [round(wt[0], 3), round(wt[-1], 3)],
+           "ranks_per_card": span.per_card, "processes": n, "device": kind}
+    if span.staged:  # the processes share a GPU: its HBM carries every byte
+        target = 0.9 * hbm_bw * (n - 1) / n ** 2
+        out.update(link="host-loopback")
+    else:
+        each_way = chip.link_GBps / 2 if chip else _CPU_FALLBACK_LINK_GBPS
+        target = 0.9 * each_way
+        out.update(link="nvlink" if topo.platform == "gpu" else "cpu-loopback",
+                   bound_GBps=each_way,
+                   bound_source=NVLINK_SOURCE if chip else "placeholder (no datasheet row)")
+    out["vs_baseline"] = round(value / target, 4)
+
+    def alltoall_extra():
+        c = elems // n
+        a2a = t.jit_fn("alltoall", "fused")
+        tr = marginal_trials(functools.partial(_chain, ar=a2a),
+                             (x0[:, :n * c].reshape(1, n, c),), **depth, span=span)
+        row = M.scored_algbw_row(tr, n * c * 4, n, "fused", on_cpu)
+        row.update(ranks_per_card=span.per_card, processes=n, link=out["link"],
+                   device=kind)
+        if span.index != 0:
+            return None
+        _write_row(row, out_path)
         return "# alltoall scored artifact: " + json.dumps(row)
     extras.append(alltoall_extra)
     return out
@@ -433,28 +574,46 @@ def main(argv=None) -> int:
                         "rocnrdma_tpu_torch/results/alltoall_algbw.json)")
     args = p.parse_args(argv)
 
+    across = cli_common.join(args.platform)
     n = args.fake_devices or 1
-    topo = cli_common.setup_backend(n, args.platform)
+    topo = cli_common.setup_backend(args.fake_devices if across else n, args.platform,
+                                   across=True)
     device, kind, on_cpu = topo.device, topo.device_name, topo.is_oracle
     chip = hw.chip_for(kind)
     hbm_bw = chip.hbm_GBps if chip else _CPU_FALLBACK_HBM_GBPS
+    out_path = args.out or os.path.join(RESULTS_DIR, "alltoall_algbw.json")
+    lead = cli_common.is_lead()
     extras = []
-    if n >= 2:
-        out = multi_rank(n, device, kind, on_cpu, hbm_bw, extras,
-                         args.out or os.path.join(RESULTS_DIR, "alltoall_algbw.json"))
+    if across:
+        out = across_processes(topo, kind, on_cpu, hbm_bw, extras, out_path)
+    elif n >= 2:
+        out = multi_rank(n, device, kind, on_cpu, hbm_bw, extras, out_path)
     else:
         out = one_rank(device, kind, on_cpu, hbm_bw)
     # the scored line first: a run cut during the extras keeps it
-    print(json.dumps(out), flush=True)
-    extras.append(lambda: mfu_leg(on_cpu, device, kind))
+    if lead:
+        print(json.dumps(out), flush=True)
     for extra in extras:
         try:
-            print(extra(), file=sys.stderr, flush=True)
+            line = extra()
+            if line:
+                print(line, file=sys.stderr, flush=True)
         except (RuntimeError, ValueError) as e:  # an extra never costs the headline
+            print(f"# extra leg failed: {type(e).__name__}: {str(e)[:200]}",
+                  file=sys.stderr)
+    if across:
+        # the MFU leg is one rank's: the group goes first, so no peer
+        # waits on rank 0 through it
+        from rocnrdma_tpu_torch.runtime.init import shutdown_runtime
+        shutdown_runtime()
+    if lead:
+        try:
+            print(mfu_leg(on_cpu, device, kind), file=sys.stderr, flush=True)
+        except (RuntimeError, ValueError) as e:
             print(f"# extra leg failed: {type(e).__name__}: {str(e)[:200]}",
                   file=sys.stderr)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(cli_common.main(main))

@@ -4,7 +4,10 @@
 A preset fixes the topology and sweep; CLI flags override fields. A preset
 scales down to what the backend hosts unless ``--strict-preset``: on one
 card with ``--fake-devices 8``, ``tree64`` runs 8 ranks at 1 GiB (64 ranks
-of 1 GiB do not fit in 80 GB) and ``multislice`` a ``2x4`` mesh.
+of 1 GiB do not fit in 80 GB) and ``multislice`` a ``2x4`` mesh. Across
+processes it scales to the fleet's ranks, one a process: ``ring8`` runs 4
+ranks on 4 GPUs, a tree preset the largest power of two, and a 2-D preset
+one slice a process of at most ``PER_PROCESS`` ranks.
 """
 
 from __future__ import annotations
@@ -12,6 +15,11 @@ from __future__ import annotations
 import dataclasses
 
 from rocnrdma_tpu_torch.metrics import GiB, KiB, MiB
+
+
+# the ranks a process holds of a 2-D preset across processes: the slice
+# the one-card scaling gives (multislice on 8 ranks of one GPU is 2x4)
+PER_PROCESS = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,15 +33,22 @@ class Preset:
     algos: tuple
     check: bool = True          # verify vs numpy before timing
 
-    def scaled_to(self, n_devices: int, max_bytes: int) -> "Preset":
-        """Shrink to what the current backend can host."""
+    def scaled_to(self, n_devices: int, max_bytes: int,
+                  processes: int | None = None) -> "Preset":
+        """Shrink to what the current backend can host: ``n_devices`` ranks,
+        or across ``processes`` processes (a process group's; None: one
+        process) the world's ranks, one a process, and a 2-D mesh of one
+        slice a process."""
         n = min(self.n_ranks, n_devices)
         # keep power-of-two rank counts for tree presets
         if "tree" in self.algos:
             while n & (n - 1):
                 n -= 1
         mesh2d = self.mesh2d
-        if mesh2d is not None:
+        if mesh2d is not None and processes:
+            mesh2d = (processes, min(mesh2d[1], PER_PROCESS))
+            n = processes * mesh2d[1]
+        elif mesh2d is not None:
             s = min(mesh2d[0], max(2, n_devices // max(1, mesh2d[1])))
             per = n_devices // s
             if per < 1:

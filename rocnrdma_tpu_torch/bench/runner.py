@@ -40,8 +40,33 @@ Differences:
   part of a record's identity.
 - On the GPU each record carries ``extra["peak_mem_bytes"]``, the
   ``torch.cuda.max_memory_allocated`` of its check and timed calls, input
-  and expected result included.
+  and expected result included, and ``extra["launches"]``, the kernel
+  launches of its point (``ops.launch_counts``) where there were any.
 - ``--profile DIR`` writes a ``torch.profiler`` Chrome trace.
+- ``--check-plain`` (the port's own flag) also holds every ``cuda_ring``
+  point bitwise to its kernels' plain PyTorch versions on the whole input
+  (``extra["plain_max_abs_err"]``), each rank its own rows, with one more
+  call after its peak memory and launches are read: the plain result is
+  made before the point's arms and only this rank's rows are kept, on the
+  host, so no record's ``peak_mem_bytes`` holds it.
+
+Across processes (a launcher's environment, ``cli_common``): the CLI runs
+as N processes, each one rank of ``rank_mesh(N, group=WORLD)`` (or one
+slice of ``slice_mesh(N, I, group=WORLD)``). Every process builds the
+same global input from ``default_rng(0)`` and keeps its rows; each rank
+checks its rows against its rows of the expected result, and the verdict
+is agreed across the fleet (one ``all_reduce`` of the failed ranks on the
+mesh's cross group), so one rank's failed check fails every rank, naming
+the ranks that failed. ``--paranoid`` compares each rank's own bytes, the
+verdict agreed alike. Each point is timed across the fleet
+(``timing.time_fn(span=)``: a barrier before each repeat, the maximum
+over the ranks), and ``peak_mem_bytes`` is the maximum over the ranks.
+Only rank 0 reads ``--out`` for ``--resume`` (it broadcasts the done
+points), prints the records and the table and writes ``--out``; the
+other ranks print to stderr only. ``extra["processes"]`` is N and
+``extra["link"]`` is ``"nvlink"`` where the cross leg is NCCL with a GPU
+a process, ``"host-loopback"`` where the processes share a GPU (gloo
+staged through pinned memory), ``"cpu-loopback"`` on the CPU.
 """
 
 from __future__ import annotations
@@ -49,6 +74,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import math
 import os
 import sys
 
@@ -58,9 +84,9 @@ import torch
 from rocnrdma_tpu_torch import metrics as M
 from rocnrdma_tpu_torch.bench import cli_common
 from rocnrdma_tpu_torch.bench import presets as P
-from rocnrdma_tpu_torch.bench.timing import time_fn
+from rocnrdma_tpu_torch.bench.timing import failed_ranks, fleet_max, time_fn
 from rocnrdma_tpu_torch.collectives.reduce_op import REDUCE_OPS
-from rocnrdma_tpu_torch.runtime import PLATFORMS, rank_mesh, slice_mesh
+from rocnrdma_tpu_torch.runtime import PLATFORMS
 from rocnrdma_tpu_torch.transport import ALGOS, Transport, supports
 
 _UNITS = {"": 1, "K": M.KiB, "M": M.MiB, "G": M.GiB}
@@ -124,6 +150,9 @@ def make_parser(bench_name: str, collective: str) -> argparse.ArgumentParser:
                         "results (nondeterminism/race detector)")
     p.add_argument("--profile", type=str, default=None, metavar="DIR",
                    help="write a torch.profiler Chrome trace of the sweep")
+    p.add_argument("--check-plain", action="store_true",
+                   help="hold each cuda_ring point bitwise to its kernels' "
+                        "plain PyTorch versions on the whole input")
     return p
 
 
@@ -200,14 +229,18 @@ def _shape_and_bytes(collective: str, n: int, size_bytes: int, dtype: str):
 
 def _build_input(t: Transport, collective: str, size_bytes: int, dtype: str):
     """(tensor on the mesh device, the same values as float32 numpy, bytes).
-    The tensor's leading dims are the mesh shape; the numpy array is
-    rank-major with one leading rank dim."""
+    The tensor's leading dims are the mesh shape (this process's rows where
+    the mesh spans processes); the numpy array is every rank's, rank-major
+    with one leading rank dim."""
     shape, actual = _shape_and_bytes(collective, t.n_ranks, size_bytes, dtype)
     x_np = np.random.default_rng(0).standard_normal(
         size=tuple(t.mesh.shape) + shape[1:], dtype=np.float32)
     x = t.shard(x_np, DTYPES[dtype])
     if DTYPES[dtype] != torch.float32:
-        x_np = x.float().cpu().numpy()  # the values the ranks actually hold
+        # the values the ranks actually hold: the cast rounds to nearest
+        # even on the host as on the card
+        held = x if t.span is None else torch.from_numpy(x_np).to(DTYPES[dtype])
+        x_np = held.float().cpu().numpy()
     return x, x_np.reshape(shape), actual
 
 
@@ -277,11 +310,13 @@ def _rounding_bound(x_np: np.ndarray, op: str, dtype: str,
 
 def _check(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float,
            what: str, bound: torch.Tensor | None = None,
-           ranks: int | None = None) -> None:
+           ranks: int | None = None, first: int = 0) -> None:
     """``got`` (n, ...) against ``want``, on the device: one expected row
     per rank (n, E), or one row (E,) every rank must hold. An element
     passes within ``atol + rtol*|want|`` or within the rounding ``bound``;
-    ``rtol = atol = 0`` with no bound asks for exact equality."""
+    ``rtol = atol = 0`` with no bound asks for exact equality. ``first``:
+    the rank of ``got``'s first row (this process's first rank where the
+    mesh spans processes; ``want`` and ``bound`` are then its rows)."""
     rows = got.reshape(ranks or got.shape[0], -1)
     want = want.reshape(-1, rows.shape[1])
     if bound is not None:
@@ -300,7 +335,7 @@ def _check(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float,
         r, _, i = off[0]
         raise AssertionError(
             f"{what}: {sum(c for _, c, _ in off)} element(s) off; first rank "
-            f"{r} elem {i}: got {float(rows[r, i])}, want "
+            f"{first + r} elem {i}: got {float(rows[r, i])}, want "
             f"{float(want[r % want.shape[0], i])} (rtol={rtol}, atol={atol})")
 
 
@@ -329,27 +364,77 @@ def _profiler(out_dir: str | None, device: torch.device):
             os.path.join(out_dir, "trace.json")))
 
 
+def _agree(span, err: str | None, what: str) -> None:
+    """Raise on every rank of ``span`` when any rank's check failed
+    (``err``: this rank's failure, or None), naming the ranks that failed:
+    one ``all_reduce`` MAX of a flag a rank on the mesh's cross group.
+    Without a span, raise ``err`` itself."""
+    if span is None:
+        if err is not None:
+            raise AssertionError(err)
+        return
+    bad = failed_ranks(err is not None, span)
+    if bad:
+        raise AssertionError(
+            f"{what}: the check failed on rank(s) {bad} of {span.size}"
+            + (f"; here: {err}" if err else ""))
+
+
+def _mine(rows: np.ndarray | None, first: int, count: int):
+    """This process's rows ``[first, first + count)`` of a per-rank array
+    (one row a rank), or the array itself where every rank holds its one
+    row (or there is none)."""
+    if rows is None or rows.ndim < 2 or rows.shape[0] == 1:
+        return rows
+    return rows[first:first + count]
+
+
+def _plain(collective: str, full: torch.Tensor) -> torch.Tensor:
+    """The ``cuda_ring`` arm's result on every rank's rows ``full`` (n, ...)
+    from its kernels' plain PyTorch versions, with the arm's tiles."""
+    from rocnrdma_tpu_torch.ops import alltoall_cuda, ring_cuda
+    from rocnrdma_tpu_torch.transport.api import cuda_ring_tile_rows
+
+    if collective == "alltoall":
+        return alltoall_cuda.alltoall_plain(full)
+    verb = {"reducescatter": "reduce_scatter"}.get(collective, collective)
+    tile_rows = cuda_ring_tile_rows(full, verb)
+    if collective == "allreduce":
+        return (ring_cuda.ring_allreduce_plain(full) if tile_rows is None
+                else ring_cuda.hbm_ring_allreduce_plain(full.clone(), tile_rows))
+    if collective == "reducescatter":
+        return ring_cuda.ring_reduce_scatter_plain(full, tile_rows)
+    return ring_cuda.ring_allgather_plain(full, tile_rows)
+
+
 def run_sweep(bench_name: str, collective: str, args) -> list:
     pre = resolve_preset(args, collective)
-    topo = cli_common.setup_backend(args.fake_devices, args.platform, pre.n_ranks)
+    topo = cli_common.setup_backend(args.fake_devices, args.platform, pre.n_ranks,
+                                     across=True)
+    across = cli_common.joined()
+    if across and args.mesh2d:  # named before any scaling
+        cli_common.check_slices(*pre.mesh2d, topo)
 
     max_bytes = parse_size(args.max_bytes) if args.max_bytes else (
         64 * M.MiB if topo.is_oracle else 4 * M.GiB)
     if not args.strict_preset:
-        scaled = pre.scaled_to(topo.n_devices, max_bytes)
+        scaled = pre.scaled_to(topo.n_devices, max_bytes,
+                               topo.n_processes if across else None)
         if scaled != pre:
             print(f"# preset {pre.name!r} scaled to backend: ranks {pre.n_ranks}->"
                   f"{scaled.n_ranks}, mesh2d {pre.mesh2d}->{scaled.mesh2d}, "
                   f"{len(scaled.sizes)} size(s)", file=sys.stderr)
         pre = scaled
-    if pre.n_ranks > topo.n_devices:
+    if not across and pre.n_ranks > topo.n_devices:
         raise SystemExit(f"preset needs {pre.n_ranks} ranks; backend has "
                          f"{topo.n_devices} devices (use --fake-devices or drop "
                          f"--strict-preset)")
 
-    mesh = (slice_mesh(*pre.mesh2d, topo.device) if pre.mesh2d
-            else rank_mesh(pre.n_ranks, topo.device))
-    t = Transport(mesh)
+    t = Transport(cli_common.mesh_for(pre.mesh2d, pre.n_ranks, topo))
+    span = t.span
+    lead = cli_common.is_lead()
+    rows = math.prod(t.mesh.local_shape)  # the ranks this process holds
+    first = 0 if span is None else span.index * rows
     algos = algos_for(collective, pre.algos, t.is_2d)
     if set(algos) != set(pre.algos):
         print(f"# algos for {collective} on this mesh: {algos} "
@@ -366,8 +451,17 @@ def run_sweep(bench_name: str, collective: str, args) -> list:
     op = knobs.get("op", "sum")
     extra = {"device": topo.device_name}
     if pre.n_ranks > 1:
-        extra["link"] = "hbm-loopback" if topo.platform == "gpu" else "cpu-loopback"
+        if topo.platform != "gpu":
+            extra["link"] = "cpu-loopback"
+        elif span is None:
+            extra["link"] = "hbm-loopback"
+        else:  # a GPU a process over NCCL, or processes sharing one GPU
+            extra["link"] = "host-loopback" if span.staged else "nvlink"
+    if span is not None:
+        extra["processes"] = span.size
     on_gpu = topo.device.type == "cuda"
+    if on_gpu:
+        from rocnrdma_tpu_torch import ops
 
     def hier_knobs(algo: str) -> dict:
         # --cross-dtype / --intra-algo apply only where they exist (the
@@ -381,8 +475,13 @@ def run_sweep(bench_name: str, collective: str, args) -> list:
     # sendrecv on a 2-D mesh) fails before any input is built
     fns = {a: t.jit_fn(_OP[collective], a, **knobs, **hier_knobs(a)) for a in algos}
 
-    done = M.load_completed(args.out) if (args.out and args.resume) else set()
-    out_fp = open(args.out, "a") if args.out else None
+    done = M.load_completed(args.out) if (args.out and args.resume and lead) else set()
+    if span is not None and args.resume:
+        box = [done]  # rank 0 read the file; every rank skips the same points
+        torch.distributed.broadcast_object_list(box, src=span.peers[0],
+                                                group=span.cross_group)
+        done = box[0]
+    out_fp = open(args.out, "a") if (args.out and lead) else None
     records = []
     try:
         with _profiler(args.profile, topo.device):
@@ -400,16 +499,26 @@ def run_sweep(bench_name: str, collective: str, args) -> list:
                     want = None
                     bounds: dict = {}  # wire dtype -> rounding bound on the device
                     if pre.check:
-                        want = torch.from_numpy(_expected(
+                        want = torch.from_numpy(_mine(_expected(
                             collective, x_np, op, knobs.get("root", 0),
-                            knobs.get("shift", 1))).to(t.device)
+                            knobs.get("shift", 1)), first, rows)).to(t.device)
                         for algo in algos:
                             wire = hier_knobs(algo).get("cross_dtype")
                             if wire not in bounds:
-                                b = _rounding_bound(x_np, op, dtype, collective,
-                                                    knobs.get("root", 0), wire)
+                                b = _mine(_rounding_bound(x_np, op, dtype, collective,
+                                                          knobs.get("root", 0), wire),
+                                          first, rows)
                                 bounds[wire] = (None if b is None
                                                 else torch.from_numpy(b).to(t.device))
+                    plain = None
+                    if args.check_plain and "cuda_ring" in algos:
+                        # this rank's rows of the plain result, kept on the
+                        # host: no arm's peak memory holds the n-rank result
+                        full = torch.from_numpy(x_np.reshape(
+                            (pre.n_ranks,) + x.shape[len(t.mesh.local_shape):]))
+                        plain = _plain(collective, full.to(t.device).to(DTYPES[dtype]))
+                        plain = plain.reshape(pre.n_ranks, -1)[first:first + rows].cpu()
+                        del full
                     del x_np
                     for algo in algos:
                         xk = hier_knobs(algo)
@@ -423,17 +532,19 @@ def run_sweep(bench_name: str, collective: str, args) -> list:
                                   file=sys.stderr)
                             continue
                         fn = fns[algo]
+                        what = f"{collective}/{algo} {dtype} {actual} B"
                         if on_gpu:
                             torch.cuda.reset_peak_memory_stats(t.device)
+                            launched = ops.launch_counts()
+                        rec_extra = dict(extra)
                         r1 = None
                         if args.paranoid:
                             # same input, same schedule: a bit difference is a
                             # race or a nondeterministic reduction order
                             r1, r2 = fn(x), fn(x)
-                            if not torch.equal(r1, r2):
-                                raise AssertionError(
-                                    f"paranoid: {collective}/{algo} nondeterministic "
-                                    f"at {actual} B")
+                            _agree(span, None if torch.equal(r1, r2) else
+                                   f"paranoid: {collective}/{algo} nondeterministic "
+                                   f"at {actual} B", what)
                         if pre.check:
                             got = r1 if r1 is not None else fn(x)
                             if collective not in _REDUCING:
@@ -442,17 +553,37 @@ def run_sweep(bench_name: str, collective: str, args) -> list:
                                 rtol, atol = 5e-2, 5e-2
                             else:
                                 rtol, atol = 1e-4, 1e-5
-                            _check(got, want, rtol, atol,
-                                   f"{collective}/{algo} {dtype} {actual} B",
-                                   bounds.get(xk.get("cross_dtype")), t.n_ranks)
+                            err = None
+                            try:
+                                _check(got, want, rtol, atol, what,
+                                       bounds.get(xk.get("cross_dtype")), rows, first)
+                            except AssertionError as e:
+                                err = str(e)
+                            _agree(span, err, what)
                             del got
                         r1 = None
                         tm = time_fn(fn, x, warmup=args.warmup, repeats=args.repeats,
-                                     calls_per_repeat=args.iters)
-                        rec_extra = dict(extra)
+                                     calls_per_repeat=args.iters, span=span)
                         if on_gpu:
-                            rec_extra["peak_mem_bytes"] = torch.cuda.max_memory_allocated(
-                                t.device)
+                            peak = torch.cuda.max_memory_allocated(t.device)
+                            rec_extra["peak_mem_bytes"] = (
+                                peak if span is None else int(fleet_max([peak], span)[0]))
+                            now = ops.launch_counts()
+                            ran = {k: now[k] - launched[k] for k in now
+                                   if now[k] > launched[k]}
+                            if ran:
+                                rec_extra["launches"] = ran
+                        if plain is not None and algo == "cuda_ring":
+                            # after the peak and the launches are read: one
+                            # more call, held to the plain rows
+                            got = fn(x).reshape(rows, -1)
+                            want_plain = plain.to(t.device)
+                            diff = float((got.float() - want_plain.float()).abs().max())
+                            rec_extra["plain_max_abs_err"] = diff
+                            _agree(span, None if torch.equal(got, want_plain) else
+                                   f"{what}: not bitwise its kernels' plain versions "
+                                   f"(max abs err {diff})", what)
+                            del got, want_plain
                         rec = M.BenchRecord.measure(
                             bench_name, collective, algo, pre.n_ranks, actual, dtype,
                             tm.mean_s, platform=topo.platform, preset=pre.name,
@@ -462,9 +593,10 @@ def run_sweep(bench_name: str, collective: str, args) -> list:
                         records.append(rec)
                         if out_fp:
                             rec.write(out_fp)
-                    del x, want, bounds
+                    del x, want, bounds, plain
     finally:
         if out_fp:
             out_fp.close()
-    print(M.format_table(records))
+    if lead:
+        print(M.format_table(records))
     return records

@@ -12,6 +12,14 @@ recorded on the current stream around the calls, read after
 ``torch.cuda.synchronize()``; when the host cannot keep the card fed, the
 span includes the card's idle time, which is what a caller waits. On the
 CPU a span is ``time.perf_counter``.
+
+Across processes (``span=``, the ``ProcessSpan`` of a mesh whose leading
+axis spans processes), each span opens after a barrier on the span's
+cross group, outside the timed window, and each span's time is the
+maximum over the ranks: one ``all_reduce`` MAX of every span after the
+last one, so every rank reports the same numbers. nccl-tests averages
+over ranks by default; the maximum is kept here because a collective is
+done only when its slowest rank is, and that is what the job waits.
 """
 
 from __future__ import annotations
@@ -54,6 +62,42 @@ def span_s(fn, device: torch.device) -> float:
     return time.perf_counter() - t0
 
 
+def _fleet_device(span) -> torch.device:
+    """Where a tensor on the span's cross group lives: the card for NCCL,
+    else the host."""
+    if span.backend == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def fleet_barrier(span) -> None:
+    """Every rank of ``span`` has reached this point: an ``all_reduce`` of
+    one element on its cross group, finished before the return."""
+    t = torch.zeros(1, device=_fleet_device(span))
+    torch.distributed.all_reduce(t, group=span.cross_group)
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+
+
+def fleet_max(values: list, span) -> list:
+    """Each of ``values`` (the same count on every rank) as its maximum
+    over the ranks of ``span``: one ``all_reduce`` MAX on its cross group."""
+    t = torch.tensor([float(v) for v in values], dtype=torch.float64,
+                     device=_fleet_device(span))
+    torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX,
+                                 group=span.cross_group)
+    return t.cpu().tolist()
+
+
+def failed_ranks(failed: bool, span) -> list:
+    """The ranks of ``span`` where ``failed`` holds, the same list on every
+    rank: one ``fleet_max`` of a flag a rank, so a fleet agrees a step's
+    outcome before it moves on."""
+    flags = fleet_max([float(failed and i == span.index) for i in range(span.size)],
+                      span)
+    return [span.peers[i] for i, f in enumerate(flags) if f]
+
+
 def _device_of(args) -> torch.device:
     for a in args:
         if isinstance(a, torch.Tensor):
@@ -62,9 +106,9 @@ def _device_of(args) -> torch.device:
 
 
 def time_fn(fn, *args, warmup: int = 2, repeats: int = 5,
-            calls_per_repeat: int = 10) -> Timing:
+            calls_per_repeat: int = 10, span=None) -> Timing:
     """Time ``fn(*args)`` per the rules above, on the device of the first
-    tensor argument."""
+    tensor argument; across the processes of ``span`` when given."""
     device = _device_of(args)
 
     def batch(k):
@@ -74,32 +118,46 @@ def time_fn(fn, *args, warmup: int = 2, repeats: int = 5,
         return run
 
     span_s(batch(max(1, warmup)), device)  # at least one untimed call
-    spans = [span_s(batch(calls_per_repeat), device) / calls_per_repeat
-             for _ in range(repeats)]
+    spans = []
+    for _ in range(repeats):
+        if span is not None:
+            fleet_barrier(span)
+        spans.append(span_s(batch(calls_per_repeat), device) / calls_per_repeat)
+    if span is not None:
+        spans = fleet_max(spans, span)
     return Timing(mean_s=trimmed_mean(spans), min_s=min(spans), max_s=max(spans),
                   repeats=repeats, calls_per_repeat=calls_per_repeat)
 
 
 def marginal_trials(make_chain, x0, k1: int, k2: int, repeats: int,
-                    trials: int = 3) -> list[float]:
+                    trials: int = 3, span=None) -> list[float]:
     """Per-trial marginal seconds per op: ``make_chain(k)`` returns a
     callable running the op k times; each pair's marginal is
     ``(t(k2) - t(k1)) / (k2 - k1)``, which cancels the fixed per-chain
     overhead. The two depths are timed in back-to-back pairs so both sample
     the same state of the machine; per trial the marginal is the median
     over pairs. A trial with no positive marginal contributes the floor
-    ``min t(k2) / k2``."""
+    ``min t(k2) / k2``. Across the processes of ``span`` each chain's time
+    is the maximum over the ranks, as in ``time_fn``."""
     f1, f2 = make_chain(k1), make_chain(k2)
     device = _device_of(x0)
     span_s(lambda: f1(*x0), device)  # warm
     span_s(lambda: f2(*x0), device)
+    spans = []
+    for _ in range(trials * repeats):
+        for f in (f1, f2):
+            if span is not None:
+                fleet_barrier(span)
+            spans.append(span_s(lambda: f(*x0), device))
+    if span is not None:
+        spans = fleet_max(spans, span)
+    pairs = iter(zip(spans[::2], spans[1::2]))
     out = []
     t2_min = float("inf")
     for _ in range(trials):
         pair_marginals = []
         for _ in range(repeats):
-            t1 = span_s(lambda: f1(*x0), device)
-            t2 = span_s(lambda: f2(*x0), device)
+            t1, t2 = next(pairs)
             t2_min = min(t2_min, t2)
             m = (t2 - t1) / (k2 - k1)
             if m > 0:

@@ -31,9 +31,10 @@ state, metrics, checkpoint shards) and for machines with no GPU at all.
 Tensors: every verb that takes an array also takes a ``torch.Tensor`` on
 the CPU or the card and returns tensors on that device, in that dtype
 (the tensor front door at the end of this module). A CUDA tensor is
-staged through pinned host memory; a dtype with no numpy counterpart
-(``torch.bfloat16``, fp8) raises :class:`HostPlaneDtypeError`. Importing
-this module loads no torch::
+staged through pinned host memory. A ``torch.bfloat16`` tensor rides as
+its bits and folds as the reference's ``ml_dtypes`` arrays fold (widened
+to float32 an op, rounded to nearest even); fp8 raises
+:class:`HostPlaneDtypeError`. Importing this module loads no torch::
 
     x = torch.randn(1 << 20, device="cuda")
     y = pg.all_reduce(x)                       # a CUDA tensor
@@ -5205,9 +5206,11 @@ def join_process_group(store_handle: str | None = None,
 
 
 class HostPlaneDtypeError(TypeError):
-    """A tensor whose dtype has no numpy dtype (``torch.bfloat16``, the
-    fp8 dtypes) reached the host plane, which folds numpy arrays. It is
-    refused, never cast: cast it yourself (``x.float()``)."""
+    """A tensor whose dtype the host plane cannot carry (the fp8 dtypes:
+    numpy has none, and torch's cast is not the reference's ``ml_dtypes``
+    rounding) reached the front door. It is refused, never cast: cast it
+    yourself (``x.float()``). ``torch.bfloat16`` rides as
+    ``plugin.BF16``, folded as ``ml_dtypes`` folds it."""
 
 
 # idle pinned staging buffers kept per size
@@ -5262,6 +5265,8 @@ def staging_stats() -> dict:
 
 
 def _numpy_dtype(torch, dtype, verb=None, device=None):
+    if dtype == torch.bfloat16:
+        return plugin.BF16
     try:
         return torch.empty(0, dtype=dtype).numpy().dtype
     except TypeError as e:
@@ -5273,6 +5278,22 @@ def _numpy_dtype(torch, dtype, verb=None, device=None):
             f"{dtype} has no numpy dtype, and the host plane folds numpy "
             f"arrays: a {dtype} tensor is refused, not cast (cast it "
             f"first, e.g. x.float())") from e
+
+
+def _host_array(torch, t, dtype):
+    """The numpy array over host tensor ``t``'s memory, in the host plane's
+    ``dtype`` for it (a bf16 tensor's bits as ``plugin.BF16``)."""
+    if dtype == plugin.BF16:
+        return t.view(torch.int16).numpy().view(plugin.BF16)
+    return t.numpy()
+
+
+def _tensor_of(torch, arr):
+    """The tensor over numpy ``arr``'s memory (``plugin.BF16`` as
+    ``torch.bfloat16``)."""
+    if arr.dtype == plugin.BF16:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 class _Door:
@@ -5319,7 +5340,7 @@ class _Door:
             dtype = _numpy_dtype(torch, obj.dtype, self.verb, obj.device)
             t = obj.detach().contiguous()
             if t.device.type != "cuda":
-                return t.numpy()
+                return _host_array(torch, t, dtype)
             nbytes = t.numel() * t.element_size()
             if nbytes == 0:
                 return np.empty(tuple(t.shape), dtype)
@@ -5329,7 +5350,7 @@ class _Door:
             host = lease[0][:nbytes].view(t.dtype).view(t.shape)
             host.copy_(t)  # blocking: the host plane reads the buffer next
             _STAGING.count("d2h", nbytes, time.perf_counter() - t0)
-            return host.numpy()
+            return _host_array(torch, host, dtype)
         if isinstance(obj, list):
             return [self.stage(o) for o in obj]
         if isinstance(obj, tuple):
@@ -5340,8 +5361,8 @@ class _Door:
         torch = self.torch
         arr = np.ascontiguousarray(arr)
         if device.type != "cuda":
-            return torch.from_numpy(arr if arr.flags.writeable else arr.copy())
-        dtype = torch.from_numpy(np.empty(0, arr.dtype)).dtype
+            return _tensor_of(torch, arr if arr.flags.writeable else arr.copy())
+        dtype = _tensor_of(torch, np.empty(0, arr.dtype)).dtype
         out = torch.empty(arr.shape, dtype=dtype, device=device)
         if arr.nbytes == 0:
             return out

@@ -54,6 +54,14 @@ log = logging.getLogger("rocnrdma_tpu_torch")
 # the launchers' environments: the reference's, and torchrun's
 _COORDINATOR_ENV = "COORDINATOR_ADDRESS"
 _TORCHRUN_ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE")
+# torchrun's c10d agent already hosts a store at MASTER_PORT; its workers
+# dial it, under a prefix per restart attempt
+_AGENT_STORE_ENV = "TORCHELASTIC_USE_AGENT_STORE"
+
+
+def _agent_store() -> bool:
+    """Does a launcher's agent host the rendezvous store (torchrun)?"""
+    return os.environ.get(_AGENT_STORE_ENV, "").lower() == "true"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +102,15 @@ def _from_env(coordinator, num_processes, process_id):
     if process_id is None and os.environ.get("RANK"):
         process_id = int(os.environ["RANK"])
     return coordinator, num_processes, process_id
+
+
+def launcher_env() -> tuple | None:
+    """``(coordinator, world size, rank)`` that a launcher's environment
+    names (any of them None where it names none), or None where no
+    launcher's environment is present."""
+    if not _should_init_distributed(None, None):
+        return None
+    return _from_env(None, None, None)
 
 
 def backend_for(device: torch.device) -> str:
@@ -165,10 +182,13 @@ def _listen(host: str, port: int) -> int:
 
 
 def _join(coordinator: str, world: int, rank: int, is_host: bool,
-          backend: str, timeout_s: float) -> None:
+          backend: str, timeout_s: float, agent: bool = False) -> None:
     """Build the generation's ``TCPStore`` (hosted by ``is_host`` on a
     socket it bound, dialled by the rest after the preflight) and join the
-    default process group on it, all inside ``timeout_s``."""
+    default process group on it, all inside ``timeout_s``. Where
+    ``agent`` (torchrun's agent hosts the store at the coordinator), every
+    rank dials it, under the attempt's prefix as torchrun's own workers
+    do."""
     dist = torch.distributed
     deadline = time.monotonic() + timeout_s
     host, port = coordinator.rsplit(":", 1)
@@ -182,6 +202,9 @@ def _join(coordinator: str, world: int, rank: int, is_host: bool,
     # member at its first collective, not here)
     store = dist.TCPStore(host, int(port), world, is_master=is_host,
                           timeout=left(), master_listen_fd=fd)
+    if agent:
+        attempt = os.environ.get("TORCHELASTIC_RESTART_COUNT", "0")
+        store = dist.PrefixStore(f"/worker/attempt_{attempt}", store)
     _STORE["store"] = store
     dist.init_process_group(backend, store=store, world_size=world,
                             rank=rank, timeout=left())
@@ -196,10 +219,12 @@ def init_runtime(coordinator: str | None = None,
     launcher's environment asks for one) and probe the topology.
 
     ``coordinator``: ``host:port`` of the rendezvous store, which rank 0
-    binds. ``platform``: ``auto`` (the card, raising without one; backend
-    ``nccl``, each process on GPU ``LOCAL_RANK`` or ``process_id`` modulo
-    the GPUs) or ``cpu`` (``gloo``). ``timeout_s`` bounds the preflight and
-    the init together."""
+    binds, or under torchrun's agent (``TORCHELASTIC_USE_AGENT_STORE``)
+    the agent's store, which every rank dials. ``platform``: ``auto``
+    (the card, raising without one; backend ``nccl``, each process on GPU
+    ``LOCAL_RANK`` or ``process_id`` modulo the GPUs) or ``cpu``
+    (``gloo``). ``timeout_s`` bounds the preflight and the init
+    together."""
     device = resolve_device(platform)
     distributed, backend = False, None
     world, rank = 1, 0
@@ -212,8 +237,9 @@ def init_runtime(coordinator: str | None = None,
                 raise ValueError("the process group needs a coordinator, a "
                                  "world size and a rank")
             _set_cuda_device(device, process_id)
-            _join(coordinator, num_processes, process_id, process_id == 0,
-                  backend, timeout_s)
+            agent = _agent_store()
+            _join(coordinator, num_processes, process_id,
+                  process_id == 0 and not agent, backend, timeout_s, agent)
         except Exception as e:  # re-raise with the address for diagnosability
             _FLIGHT.record("device-init-abort", error=type(e).__name__)
             raise RuntimeError(

@@ -54,7 +54,8 @@ class Topology:
     """What the runtime learned about the machine."""
 
     platform: str        # "gpu" | "cpu"
-    n_devices: int       # ranks the backend can host (fake devices count)
+    n_devices: int       # ranks the backend can host: fake devices count;
+    #                      under a process group, the world's ranks (one a process)
     device_name: str
     device: torch.device
     n_processes: int = 1     # the process group's world size (1 without one)
@@ -69,7 +70,9 @@ class Topology:
 def detect_topology(platform: str = "auto",
                     fake_devices: int | None = None) -> Topology:
     """Probe the backend. ``fake_devices``: host that many ranks on the one
-    physical device (``--fake-devices N``)."""
+    physical device (``--fake-devices N``). Under a process group the
+    backend hosts the world's ranks, one a process, whatever this
+    process's ``torch.cuda.device_count()``."""
     device = resolve_device(platform)
     if device.type == "cuda":
         name = torch.cuda.get_device_name(device)
@@ -79,9 +82,11 @@ def detect_topology(platform: str = "auto",
         name, real, plat = "cpu", 1, "cpu"
     dist = torch.distributed
     up = dist.is_available() and dist.is_initialized()
-    return Topology(platform=plat, n_devices=fake_devices or real,
+    world = dist.get_world_size() if up else 1
+    return Topology(platform=plat,
+                    n_devices=fake_devices or (world if up else real),
                     device_name=name, device=device,
-                    n_processes=dist.get_world_size() if up else 1,
+                    n_processes=world,
                     process_index=dist.get_rank() if up else 0)
 
 

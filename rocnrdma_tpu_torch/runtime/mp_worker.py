@@ -102,7 +102,10 @@ on every row (``_rank_plains``). It prints ``RANKTIMES``, ``RANKERRS``,
 ``RANKCROSS``, on the CPU ``RANKDIGEST``, the ``cuda_ring`` calls' max
 abs err against the plain versions (``RANKPLAINERRS``), the kernels'
 launches across processes (``RANKLAUNCHES``: on the card each call's
-launches, on the CPU none), and ``OK rank=i/n rank-mesh``.
+launches, on the CPU none), and ``OK rank=i/n rank-mesh``. ``--cases
+SIZE:SEED,...`` runs several such cases in one process group (default:
+the one of ``--size`` and ``--seed``), each one's lines after a
+``RANKCASE SIZE:SEED`` line.
 
 ``hang`` forks a grandchild and blocks far past any deadline; the harness
 must reap the WHOLE process group.
@@ -2054,8 +2057,32 @@ def _rank_plains(full, n: int) -> dict:
     return {name: (lambda f=f: f(rank_inputs(full, n))) for name, f in specs.items()}
 
 
+def rank_cases(spec: str) -> list:
+    """``--cases``' ``SIZE:SEED,...`` (a seed ``-``: none) as
+    ``[(size, seed), ...]``."""
+    out = []
+    for case in spec.split(","):
+        size, seed = case.split(":")
+        out.append((int(size), None if seed == "-" else int(seed)))
+    return out
+
+
 def _rank_mesh_main(args, rank: int, n: int, device) -> int:
-    """The ``rank-mesh`` task (module docstring)."""
+    """The ``rank-mesh`` task (module docstring): each of ``--cases`` in
+    turn (default: the one case of ``--size`` and ``--seed``), its lines
+    after a ``RANKCASE size:seed`` line, in one process group."""
+    cases = (rank_cases(args.cases) if args.cases
+             else [(args.size or RANK_REF_SIZE, args.seed)])
+    for size, seed in cases:
+        print(f"RANKCASE {size}:{'-' if seed is None else seed}", flush=True)
+        _rank_mesh_case(args, rank, n, device, size, seed)
+    print(f"OK rank={rank}/{n} rank-mesh", flush=True)
+    return 0
+
+
+def _rank_mesh_case(args, rank: int, n: int, device, size: int, seed) -> None:
+    """One case of the ``rank-mesh`` task: ``size`` elements a rank, rows
+    from ``seed``."""
     import json
 
     import numpy as np
@@ -2065,12 +2092,11 @@ def _rank_mesh_main(args, rank: int, n: int, device) -> int:
     from rocnrdma_tpu_torch.runtime.mesh import rank_mesh
     from rocnrdma_tpu_torch.transport import Transport
 
-    size = args.size or RANK_REF_SIZE
     ops.reset_launch_counts()
     mesh = rank_mesh(n, device, group=torch.distributed.group.WORLD)
     t = Transport(mesh)
-    mine = torch.from_numpy(rank_rows(n, size, args.seed, [rank])).to(device)
-    full_np = rank_rows(n, size, args.seed, range(n))
+    mine = torch.from_numpy(rank_rows(n, size, seed, [rank])).to(device)
+    full_np = rank_rows(n, size, seed, range(n))
     full = torch.from_numpy(full_np).to(device)
     one = Transport(rank_mesh(n, device))
 
@@ -2109,8 +2135,6 @@ def _rank_mesh_main(args, rank: int, n: int, device) -> int:
     print("RANKLAUNCHES " + json.dumps(launched), flush=True)
     if res["refused"]:
         print("RANKREFUSED " + json.dumps(res["refused"]), flush=True)
-    print(f"OK rank={rank}/{n} rank-mesh", flush=True)
-    return 0
 
 
 def main(argv=None) -> int:
@@ -2197,6 +2221,10 @@ def main(argv=None) -> int:
     p.add_argument("--calls", default=None,
                    help="rank-mesh: a comma list of RANK_CALLS to run "
                         "(default: every one)")
+    p.add_argument("--cases", default=None,
+                   help="rank-mesh: SIZE:SEED,... (seed '-': none), each case "
+                        "in turn in one process group, in place of "
+                        "--size/--seed")
     p.add_argument("--platform", choices=("auto", "cpu"), default="auto",
                    help="the device plane: auto (NCCL on the card, "
                         "raising without one) or cpu (gloo)")

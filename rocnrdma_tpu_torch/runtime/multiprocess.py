@@ -13,6 +13,12 @@ the reference's seeded, replayable faults.
 Also the fault-injection hook: ``task="fault"`` makes one rank die before
 the rendezvous, and the survivors must abort with a named error inside the
 deadline instead of hanging.
+
+``run_cli`` runs a program's CLI (``python -m module argv``) as a fleet of
+N processes the way a launcher does: each process gets the reference's
+launcher environment (``COORDINATOR_ADDRESS``, ``WORLD_SIZE``, ``RANK``
+and ``LOCAL_RANK``), and the CLI joins the process group through
+``init_runtime`` itself (``bench/cli_common.py``).
 """
 
 from __future__ import annotations
@@ -127,6 +133,7 @@ def run_workers(n: int, task: str, timeout_s: float = 120.0,
                 kill_store_op: int | None = None,
                 per_slice: int | None = None,
                 calls: str | None = None,
+                cases: str | None = None,
                 _retry_left: int = 1) -> list[WorkerResult]:
     """Spawn ``n`` worker processes running ``task``; wait for all.
 
@@ -146,7 +153,8 @@ def run_workers(n: int, task: str, timeout_s: float = 120.0,
     ``kill-and-heal`` variants) and ``store_death``/``kill_store_op``
     (``kill-the-store``) are the reference's; ``per_slice``: the ranks each
     process holds in ``hierarchical`` (default 2); ``calls``: the comma list
-    of ``rank-mesh`` calls to run (default all). The rendezvous ports are
+    of ``rank-mesh`` calls to run (default all); ``cases``: its
+    ``SIZE:SEED,...`` cases, run in turn in one fleet. The rendezvous ports are
     held reserved until the instant before the spawn, and a run that still
     loses the bind race is retried once with fresh ports."""
     from rocnrdma_tpu_torch.runtime.mp_worker import DEVICE_TASKS, TASKS
@@ -168,7 +176,8 @@ def run_workers(n: int, task: str, timeout_s: float = 120.0,
                       ("--die-at-promotion", die_at_promotion),
                       ("--codec", codec), ("--store-death", store_death),
                       ("--kill-store-op", kill_store_op),
-                      ("--per-slice", per_slice), ("--calls", calls)):
+                      ("--per-slice", per_slice), ("--calls", calls),
+                      ("--cases", cases)):
         if val is not None:
             extra += [flag, str(val)]
     for flag, on in (("--device-heal-fail", device_heal_fail),
@@ -195,6 +204,20 @@ def run_workers(n: int, task: str, timeout_s: float = 120.0,
              "--process-id", str(i), "--task", task] + extra,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             env=env, cwd=_ROOT, start_new_session=True))
+    results = _wait_fleet(procs, deadline)
+    if _retry_left > 0 and _bind_collision(results):
+        return run_workers(n, task, timeout_s, fault_rank, seed, size,
+                           platform, rounds, kill_ranks, kill_ops, spares,
+                           join, grow_round, die_at_promotion,
+                           device_heal_fail, lanes, coalesce, codec, hier,
+                           store_death, kill_store_op, per_slice, calls, cases,
+                           _retry_left=_retry_left - 1)
+    return results
+
+
+def _wait_fleet(procs: list, deadline: float) -> list[WorkerResult]:
+    """Collect every process of a fleet; one past ``deadline`` has its
+    whole process group killed and is reported with returncode -9."""
     results = []
     for i, p in enumerate(procs):
         try:
@@ -205,11 +228,39 @@ def run_workers(n: int, task: str, timeout_s: float = 120.0,
             out, err = _reap(p)
             results.append(WorkerResult(i, -9, out or "",
                                         (err or "") + "\n[HARNESS] timeout"))
+    return results
+
+
+def run_cli(n: int, module: str, argv: list, platform: str = "auto",
+            timeout_s: float = 300.0, env: dict | None = None,
+            _retry_left: int = 1) -> list[WorkerResult]:
+    """Run ``python -m module *argv --platform platform`` as ``n``
+    processes, rank i with the launcher's environment of rank i of n (a
+    coordinator port held reserved until the instant before the spawn),
+    and wait for all of them under ONE deadline for the fleet,
+    ``timeout_s``: a process that outlives it has its whole process group
+    killed and is reported with returncode -9. ``platform``: ``auto`` (a
+    process a GPU while there are enough, else sharing them) or ``cpu``
+    (gloo). ``env``: more variables for every process. A run that loses
+    the port's bind race is retried once with a fresh port."""
+    port, res = reserve_port()
+    base = dict(os.environ)
+    base["PYTHONPATH"] = _ROOT + os.pathsep + base.get("PYTHONPATH", "")
+    base.update(env or {})
+    args = list(argv) + (["--platform", platform]
+                         if "--platform" not in argv else [])
+    res.close()  # rank 0 binds the port next
+    deadline = time.monotonic() + timeout_s
+    procs = []
+    for i in range(n):
+        penv = dict(base, COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                    WORLD_SIZE=str(n), RANK=str(i), LOCAL_RANK=str(i))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", module] + args, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=penv, cwd=_ROOT,
+            start_new_session=True))
+    results = _wait_fleet(procs, deadline)
     if _retry_left > 0 and _bind_collision(results):
-        return run_workers(n, task, timeout_s, fault_rank, seed, size,
-                           platform, rounds, kill_ranks, kill_ops, spares,
-                           join, grow_round, die_at_promotion,
-                           device_heal_fail, lanes, coalesce, codec, hier,
-                           store_death, kill_store_op, per_slice, calls,
-                           _retry_left=_retry_left - 1)
+        return run_cli(n, module, argv, platform, timeout_s, env,
+                       _retry_left=_retry_left - 1)
     return results

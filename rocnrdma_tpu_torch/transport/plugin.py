@@ -2150,8 +2150,59 @@ def ring_allreduce_over_net(net, send_comm, recv_comm, local: np.ndarray,
     return x.reshape(np.shape(local))
 
 
-_NET_REDUCE_OPS = {"sum": np.add, "prod": np.multiply,
-                   "max": np.maximum, "min": np.minimum}
+# bfloat16 frames. numpy has no bfloat16, so the host plane carries a
+# bf16 buffer as this one-field structured dtype of its bits: it moves,
+# lands and compares as any other 2-byte dtype, and the ufuncs refuse it,
+# so only the folds below read it. Each fold widens both operands to
+# float32, applies the op and rounds back to nearest even (a NaN to its
+# quiet NaN of the same sign), as ml_dtypes' bfloat16 ufuncs do; max and
+# min pick an operand's bits as they do (a NaN first operand, or the
+# first where it wins strictly, else the second).
+BF16 = np.dtype([("bf16", "<u2")])
+
+
+def bf16_widen(a: np.ndarray) -> np.ndarray:
+    """float32 values of a ``BF16`` array."""
+    return (a.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+
+
+def bf16_round(f: np.ndarray) -> np.ndarray:
+    """The ``BF16`` bits nearest float32 ``f``, ties to even."""
+    u = f.view(np.uint32)
+    bits = ((u + np.uint32(0x7FFF) + ((u >> 16) & 1)) >> 16).astype(np.uint16)
+    nan = np.isnan(f)
+    if nan.any():
+        bits[nan] = np.where(np.signbit(f[nan]), 0xFFC0, 0x7FC0)
+    return bits.view(BF16)
+
+
+class _Fold:
+    """A reduce op of the host plane: ``ufunc(a, b, out=)`` on numpy
+    dtypes, the widened-and-rounded op on ``BF16`` frames; ``pick``
+    (max/min): the comparison that keeps the first operand's bits."""
+
+    def __init__(self, ufunc, pick=None):
+        self.ufunc, self.pick = ufunc, pick
+
+    def __call__(self, a, b, out=None):
+        if a.dtype != BF16:
+            return self.ufunc(a, b, out=out)
+        fa, fb = bf16_widen(a), bf16_widen(b)
+        if self.pick is None:
+            with np.errstate(over="ignore", invalid="ignore"):
+                bits = bf16_round(self.ufunc(fa, fb))
+        else:
+            first = np.isnan(fa) | self.pick(fa, fb)
+            bits = np.where(first, a.view(np.uint16), b.view(np.uint16)).view(BF16)
+        if out is None:
+            return bits
+        out[...] = bits
+        return out
+
+
+_NET_REDUCE_OPS = {"sum": _Fold(np.add), "prod": _Fold(np.multiply),
+                   "max": _Fold(np.maximum, np.greater),
+                   "min": _Fold(np.minimum, np.less)}
 
 
 def _stream_reduce_scatter(wire: "_RingWire", chunk, rank: int, n: int,

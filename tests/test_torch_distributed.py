@@ -365,9 +365,12 @@ def test_front_door_ragged_channel_and_async_verbs():
 
 
 def test_front_door_refuses_dtypes_without_numpy_and_never_casts():
+    # bf16 folds now (below); fp8 stays refused: torch's cast saturates at
+    # +-448 where ml_dtypes' gives NaN past +-464, so it is not the
+    # reference's rounding
     def drive(pg, r):
         errs = []
-        for dt in (torch.bfloat16, torch.float8_e4m3fn):
+        for dt in (torch.float8_e4m3fn,):
             x = torch.ones(64, dtype=dt)
             for call in (lambda: pg.all_reduce(x), lambda: pg.all_gather(x),
                          lambda: pg.recv(x, (r - 1) % 2),
@@ -379,8 +382,39 @@ def test_front_door_refuses_dtypes_without_numpy_and_never_casts():
         return errs, pg.all_reduce(torch.full((8,), float(r + 1)))
     outs = run_group([PD] * 2, drive, plane="shm", group="bf16")
     for errs, total in outs:
-        assert len(errs) == 8 and isinstance(PD.HostPlaneDtypeError("x"), TypeError)
+        assert len(errs) == 4 and isinstance(PD.HostPlaneDtypeError("x"), TypeError)
         assert torch.equal(total, torch.full((8,), 3.0))
+
+
+def _bf16_calls(pg, x):
+    return [pg.all_reduce(x), pg.all_reduce(x, op="prod"), pg.all_reduce(x, op="max"),
+            pg.all_reduce(x, op="min"), pg.reduce_scatter(x), pg.all_gather(x)]
+
+
+@pytest.mark.parametrize("plane", ["shm", "tcp"])
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_front_door_folds_bf16_bitwise_as_ml_dtypes_folds_it(plane, n):
+    """bf16 tensors (CPU) through the port's front door, each rank's every
+    result bitwise the reference's on the same values as ml_dtypes
+    bfloat16 arrays: the sum, prod, max and min allreduce, reduce_scatter
+    and all_gather, with ties, signed zeros and an inf among the values."""
+    ml = pytest.importorskip("ml_dtypes")
+
+    def data(r):
+        x = _x(np.float32, r, salt=9)
+        x[:4] = (0.0, -0.0, np.inf, 1.0 + 2.0 ** -8)  # a tie of bf16's rounding
+        return x.astype(ml.bfloat16)
+
+    ref = run_group([RD] * n, lambda pg, r: _bf16_calls(pg, data(r)), plane=plane,
+                    group=f"bf16r{n}")
+    got = run_group([PD] * n, lambda pg, r: _bf16_calls(
+        pg, torch.from_numpy(data(r).view(np.int16)).view(torch.bfloat16)),
+        plane=plane, group=f"bf16p{n}")
+    for r in range(n):
+        for want, have in zip(ref[r], got[r]):
+            assert isinstance(have, torch.Tensor) and have.dtype == torch.bfloat16
+            np.testing.assert_array_equal(have.view(torch.int16).numpy(),
+                                          np.asarray(want).view(np.int16))
 
 
 def test_numpy_in_numpy_out_is_untouched():

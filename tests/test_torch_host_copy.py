@@ -27,6 +27,7 @@ PORT = os.path.join(REPO, "rocnrdma_tpu_torch")
 _FRONT_DOOR = ("HostPlaneDtypeError", "_STAGING_KEEP", "_Staging.*", "_STAGING",
                "staging_stats", "_numpy_dtype", "_Door.*", "_TensorHandle.*",
                "_holds_tensor", "_front_door", "_front_door_batch",
+               "_host_array", "_tensor_of",
                "_ARRAY_VERBS", "_TEMPLATE_VERBS", "_ASYNC_VERBS",
                "_install_front_door", "stmt _install_front_door()")
 _SMOKE_FLOORS = ("SMOKE_FLOORS", "SMOKE_COALESCE_SPEEDUP", "SMOKE_CODEC_X",
@@ -57,6 +58,12 @@ REPLACED = {
     ("distributed.py", "_P2P_POSTED_LOCK"): "added with _P2P_POSTED",
     ("distributed.py", "_posted_p2p_recvs"): "added: a group's posted p2p "
         "receives, which its sends and waits on any thread test",
+    **{("transport/plugin.py", d): "added: bf16 frames carried as their bits "
+       "(BF16) and folded widened to float32, rounded to nearest even, as "
+       "ml_dtypes folds them; the card's machine has no ml_dtypes"
+       for d in ("BF16", "bf16_widen", "bf16_round", "_Fold.*")},
+    ("transport/plugin.py", "_NET_REDUCE_OPS"): "each op a _Fold: the numpy "
+        "ufunc, or on BF16 frames the fold ml_dtypes' bfloat16 ufunc does",
     ("transport/codec.py", "_F8_PIECE"): "added: torch converts fp8 in pieces "
         "at its parallel grain, on one thread",
     ("transport/codec.py", "Fp8E4M3Codec.*"): "torch.float8_e4m3fn in place "
