@@ -132,9 +132,9 @@ Phases, each timed, any failure exits non-zero:
    all_gather, all_to_all, broadcast and send/recv at 4 KiB, 1 MiB and
    64 MiB fp32 over tcp, each result a CUDA tensor on the input's device,
    bitwise the call on the numpy arrays ``.cpu()`` gives; the staging
-   GB/s each way at 64 MiB beside the call's total; a bf16 CUDA tensor's
-   all_reduce bitwise the CPU tensor's, and an fp8 one raises
-   ``HostPlaneDtypeError``; ``DeviceMeshNet`` with 8 ranks as rows
+   GB/s each way at 64 MiB beside the call's total; a bf16, an e4m3fn and
+   an e5m2 CUDA tensor's all_reduce bitwise the CPU tensor's, and an
+   e4m3fnuz one raises ``HostPlaneDtypeError``; ``DeviceMeshNet`` with 8 ranks as rows
    of one CUDA tensor, every (src, dst) pair bitwise the row copy and
    every request complete; the fp8 codec resolving with torch, also in a
    process where ``ml_dtypes`` cannot be imported, a seeded frame's sha256
@@ -230,7 +230,8 @@ Phases, each timed, any failure exits non-zero:
    healed fleets' ``DEVICE-LOCAL`` (phase 12), its ``across_launches``
    those across processes in phase 14 (every rank's, both cases; rows
    1-5 must have some, the local folds have no form across processes),
-   its ``cli_across_launches`` rank 0's in phase 16's CLI sweeps;
+   its ``cli_across_launches`` rank 0's in phase 16's CLI sweeps, its
+   ``workload_across_launches`` rank 0's in phase 16's workload CLIs;
 16. bench_mesh, after phase 14 and before the kernels line: the bench
    CLIs across processes, each launched as a launcher launches it
    (``runtime.multiprocess.run_cli``: the reference's
@@ -252,6 +253,25 @@ Phases, each timed, any failure exits non-zero:
    torchrun (its agent hosts the store), and the headline across the 4
    processes: one scored line from rank 0 against 0.9 x 450 GB/s, no leg
    or candidate failed, the alltoall row written.
+   The workload CLIs across processes, each launched through ``run_cli``
+   as its own fleet. On one card, 2 processes over gloo staged through
+   pinned memory, four fleets at a time: ``moe --routing uniform`` and
+   ``--routing topk`` with ``fused``, ``ring`` and ``cuda_ring``;
+   ``ddp_replay --scale 1024 --bucket-mb 1024`` (34 buckets) and
+   ``fsdp_replay --scale 4096`` (102 calls a step), both ``--modes
+   sequential,jit_fused --repeats 2``, with ``fused`` and ``cuda_ring``;
+   ``overlap`` with ``fused``. With several GPUs, a GPU a process over
+   NCCL (``extra.link == "nvlink"``), one fleet at a time at full width:
+   ``moe --model mixtral-8x7b --routing topk --tokens 4096`` (4 experts,
+   one a rank) with ``fused`` and ``cuda_ring``; ``ddp_replay`` and
+   ``fsdp_replay`` on the whole Llama-3-8B trace at ``--scale 16``, every
+   mode, with ``fused`` and ``cuda_ring``; ``overlap`` at its defaults.
+   Every rank exits 0; rank 0's records are on the fleet's link across
+   its processes with finite times; each ``cuda_ring`` run is
+   ``--check-plain`` (every result bitwise its kernels' plain versions
+   on every rank, an agreed check) and launched its kernels across
+   processes; each run's ms a step printed beside the card's name and
+   power limit.
 
 ``python3 chip_smoke.py --host-plane`` runs the probe and phase 11 alone,
 ``--chaos`` the probe and phase 12 alone, ``--hierarchical`` the probe and
@@ -1323,11 +1343,22 @@ def front_door_worker(rank: int, world: int, port: int) -> int:
             raise AssertionError(f"rank {rank}: a bf16 CUDA tensor's fold is not "
                                  f"the CPU tensor's")
         res["bf16"] = "folded, bitwise the CPU tensor's"
+        # so do e4m3fn and e5m2 (their bits, never torch's saturating cast
+        # on the way back); the fnuz formats stay refused
+        for fp8 in (torch.float8_e4m3fn, torch.float8_e5m2):
+            x8 = (seeded(rank, 1 << 16) * 64).to(fp8)
+            got, want = pg.all_reduce(x8), pg.all_reduce(x8.cpu())
+            if not (got.device == dev and got.dtype == fp8
+                    and torch.equal(got.cpu().view(torch.uint8), want.view(torch.uint8))):
+                raise AssertionError(f"rank {rank}: a {fp8} CUDA tensor's fold is not "
+                                     f"the CPU tensor's")
         try:
-            pg.all_reduce(torch.ones(16, dtype=torch.float8_e4m3fn, device=dev))
-            raise AssertionError("an fp8 CUDA tensor entered the host plane")
+            pg.all_reduce(torch.zeros(16, dtype=torch.uint8, device=dev).view(
+                torch.float8_e4m3fnuz))
+            raise AssertionError("an fnuz fp8 CUDA tensor entered the host plane")
         except dist.HostPlaneDtypeError as e:
-            res["fp8"] = str(e).split(":")[0]
+            res["fp8"] = "e4m3fn, e5m2 folded bitwise the CPU tensor's; fnuz: " + \
+                str(e).split(":")[0]
         pg.barrier()
     finally:
         pg.destroy()
@@ -1931,22 +1962,8 @@ def cli_fleet(n: int, bench: str, argv: list, link: str, timeout_s: float = 600.
     ``--out`` is checked, on ``link`` across ``n`` processes, and each
     ``cuda_ring`` record launched a kernel across processes and is bitwise
     its kernels' plain versions on every rank. Returns the records."""
-    from rocnrdma_tpu_torch.runtime.multiprocess import run_cli
-
-    out = os.path.join(OUT_DIR, "cli", f"{bench}_{n}.jsonl")
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    if os.path.exists(out):
-        os.remove(out)  # the records must come from this run
-    rs = run_cli(n, f"rocnrdma_tpu_torch.bench.{bench}",
-                 argv + ["--out", out, "--check-plain"], timeout_s=timeout_s)
-    for r in rs:
-        if r.returncode != 0:
-            raise AssertionError(f"{bench} x {n} rank {r.process_id}: exit "
-                                 f"{r.returncode}\n{r.stdout[-3000:]}\n{r.stderr[-4000:]}")
-    if any("busbw GB/s" in r.stdout for r in rs[1:]):
-        raise AssertionError(f"{bench} x {n}: a rank other than 0 printed the table")
-    with open(out) as fp:
-        recs = [json.loads(line) for line in fp.read().splitlines()]
+    recs = fleet_records(n, f"bench.{bench}", argv + ["--check-plain"],
+                         os.path.join("cli", f"{bench}_{n}.jsonl"), timeout_s)
     for rec in recs:
         ex = rec["extra"]
         what = f"{bench} x {n} {rec['algo']} {rec['size_bytes']} B"
@@ -1962,6 +1979,90 @@ def cli_fleet(n: int, bench: str, argv: list, link: str, timeout_s: float = 600.
     return recs
 
 
+# the workload CLIs across processes: (tag, module, argv, the kernels a
+# cuda_ring run must launch across processes); one card: 2 processes over
+# gloo staged, kept short (a cuda_ring call across time-sliced contexts
+# costs ~34 ms); several GPUs: a GPU a process over NCCL at full width
+_WL_SHORT = ["--repeats", "2", "--iters", "3"]
+_REPLAY_SHORT = ["--modes", "sequential,jit_fused", "--repeats", "2"]
+WL_ONE_CARD = tuple(
+    (f"moe_{routing}_{algo}", "moe", ["--routing", routing, "--algo", algo] + _WL_SHORT,
+     ("alltoall",)) for routing in ("uniform", "topk") for algo in ("fused", "ring", "cuda_ring")
+) + tuple(
+    (f"{wl}_{algo}", wl, argv + ["--algo", algo] + _REPLAY_SHORT, need)
+    for wl, argv, need in (
+        ("ddp_replay", ["--scale", "1024", "--bucket-mb", "1024"], ("ring_allreduce",)),
+        ("fsdp_replay", ["--scale", "4096"], ("ring_reduce_scatter", "ring_allgather")))
+    for algo in ("fused", "cuda_ring")
+) + (("overlap_fused", "overlap", ["--algo", "fused"] + _WL_SHORT, ()),)
+WL_MESH = tuple(
+    (f"moe_mixtral_{algo}", "moe", ["--model", "mixtral-8x7b", "--routing", "topk",
+                                    "--tokens", "4096", "--algo", algo], ("alltoall",))
+    for algo in ("fused", "cuda_ring")
+) + tuple(
+    (f"{wl}_{algo}", wl, ["--scale", "16", "--algo", algo, "--repeats", "3"], need)
+    for wl, need in (("ddp_replay", ("ring_allreduce",)),
+                     ("fsdp_replay", ("ring_reduce_scatter", "ring_allgather")))
+    for algo in ("fused", "cuda_ring")
+) + (("overlap_fused", "overlap", [], ()),)
+
+
+def fleet_records(n: int, module: str, argv: list, out: str, timeout_s: float) -> list:
+    """``rocnrdma_tpu_torch.<module>`` as ``n`` processes (``run_cli``, the
+    launcher's environment) writing ``--out`` under ``OUT_DIR`` (``out``):
+    every rank exits 0 and only rank 0 printed a table. Returns rank 0's
+    records, all from this run."""
+    from rocnrdma_tpu_torch.runtime.multiprocess import run_cli
+
+    out = os.path.abspath(os.path.join(OUT_DIR, out))
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    if os.path.exists(out):
+        os.remove(out)  # the records must come from this run
+    rs = run_cli(n, f"rocnrdma_tpu_torch.{module}", argv + ["--out", out],
+                 timeout_s=timeout_s)
+    for r in rs:
+        if r.returncode != 0:
+            raise AssertionError(f"{module} x {n} rank {r.process_id}: exit "
+                                 f"{r.returncode}\n{r.stdout[-3000:]}\n{r.stderr[-4000:]}")
+    if any("busbw GB/s" in r.stdout for r in rs[1:]):
+        raise AssertionError(f"{module} x {n}: a rank other than 0 printed the table")
+    with open(out) as fp:
+        return [json.loads(line) for line in fp.read().splitlines()]
+
+
+def workload_fleet(n: int, tag: str, module: str, argv: list, need: tuple, link: str,
+                   timeout_s: float = 900.0) -> list:
+    """The workload CLI ``module`` as ``n`` processes (``fleet_records``):
+    rank 0's records are on ``link`` across ``n`` processes, with finite
+    positive times; a ``cuda_ring`` run is ``--check-plain`` (its results
+    bitwise its kernels' plain versions on every rank, agreed across the
+    fleet, else every rank exits non-zero) and launched each kernel of
+    ``need`` across processes. Returns the records."""
+    cuda_ring = "cuda_ring" in argv
+    recs = fleet_records(n, f"workloads.{module}",
+                         argv + (["--check-plain"] if cuda_ring else []),
+                         os.path.join("workloads", f"{tag}_{n}.jsonl"), timeout_s)
+    if not recs:
+        raise AssertionError(f"{tag} x {n}: rank 0 wrote no record")
+    for rec in recs:
+        ex = rec["extra"]
+        what = f"{tag} x {n} {ex.get('mode', '')}"
+        if (ex.get("link") != link or ex.get("processes") != n
+                or not 0 < rec["mean_s"] < float("inf")):
+            raise AssertionError(f"{what}: link {ex.get('link')}, processes "
+                                 f"{ex.get('processes')}, mean_s {rec['mean_s']}; "
+                                 f"want {link}, {n}")
+        launched = ex.get("launches", {})
+        if cuda_ring:
+            if ex.get("plain_max_abs_err") != 0 or any(
+                    launched.get(k + "_across", 0) < 1 for k in need):
+                raise AssertionError(f"{what}: launches {launched}, against the plain "
+                                     f"versions {ex.get('plain_max_abs_err')}")
+        elif launched:
+            raise AssertionError(f"{what}: the {rec['algo']} arm launched {launched}")
+    return recs
+
+
 def _cli_rows(recs: list) -> dict:
     """{algo: {size: [us, busbw GB/s, peak GiB]}} of a CLI's records."""
     out = {}
@@ -1973,9 +2074,10 @@ def _cli_rows(recs: list) -> dict:
 
 
 def bench_mesh_phase(smi: str) -> dict:
-    """The bench CLIs and the headline across processes (module docstring,
-    phase 16). Returns each CLI's rows, rank 0's launches across processes
-    per kernel, and with several GPUs the headline's scored line."""
+    """The bench CLIs, the workload CLIs and the headline across processes
+    (module docstring, phase 16). Returns each CLI's rows and each workload's ms a step, rank 0's
+    launches across processes per kernel in each, and with several GPUs
+    the headline's scored line."""
     from rocnrdma_tpu_torch.ops import _build
 
     gpus = torch.cuda.device_count()
@@ -2016,10 +2118,53 @@ def bench_mesh_phase(smi: str) -> dict:
         res[bench] = _cli_rows(recs)
         print(f"{bench} across {n} processes ({link}; {smi}) [us, busbw GB/s, peak "
               f"GiB] by algo and bytes: " + json.dumps(res[bench]), flush=True)
+    res["workloads"], res["workload_launches"] = workloads_across(n, link, gpus, smi)
     if gpus >= 2:
         res["torchrun"] = torchrun_check(n)
         res["headline"] = headline_across(n, smi)
     return res
+
+
+def workloads_across(n: int, link: str, gpus: int, smi: str) -> tuple:
+    """The workload CLIs across ``n`` processes (module docstring, phase 16):
+    ``WL_ONE_CARD`` on one card, four fleets at a time (the replays'
+    cuda_ring runs first, their time-sliced calls take longest, the other
+    cuda_ring runs last, so that few contexts spin on the card at once),
+    ``WL_MESH`` one fleet at a time with several GPUs. Returns each run's ms
+    a step (per mode for the replays) and rank 0's launches across
+    processes per kernel."""
+    runs = WL_ONE_CARD if gpus < 2 else WL_MESH
+
+    def first(run):
+        return 0 if "cuda_ring" not in run[2] else (-1 if "replay" in run[1] else 1)
+
+    def fleet(run):
+        tag, module, argv, need = run
+        t0 = time.perf_counter()
+        recs = workload_fleet(n, tag, module, argv, need, link)
+        return recs, round(time.perf_counter() - t0, 1)
+
+    if gpus < 2:
+        order = sorted(runs, key=first)
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            done = dict(zip([r[0] for r in order], pool.map(fleet, order)))
+    else:
+        done = {r[0]: fleet(r) for r in runs}
+    steps, launches = {}, {}
+    for tag, _, _, _ in runs:
+        recs, secs = done[tag]
+        for rec in recs:
+            for k, v in rec["extra"].get("launches", {}).items():
+                launches[k] = launches.get(k, 0) + v
+        steps[tag] = {"seconds": secs, "ms": {
+            rec["extra"].get("mode", "step"): round(rec["extra"].get(
+                "step_ms", rec["mean_s"] * 1e3), 3) for rec in recs}}
+        print(f"{tag} across {n} processes ({link}; {smi}): ms a step "
+              f"{json.dumps(steps[tag]['ms'])}, fleet {secs} s", flush=True)
+    print(f"workloads across {n} processes, rank 0's launches across processes: "
+          f"{json.dumps({k: v for k, v in launches.items() if k.endswith('_across')})}",
+          flush=True)
+    return steps, launches
 
 
 def torchrun_check(n: int) -> dict:
@@ -2127,7 +2272,7 @@ def main() -> int:
             ranks = rank_mesh_phase(smi)
         print(f"rank_mesh ({smi}): " + json.dumps(ranks))
         return 0
-    if sys.argv[1:] == ["--bench-mesh"]:  # phase 16 alone, no kernels line
+    if sys.argv[1:] == ["--bench-mesh"]:  # phase 16 alone
         with phase("bench_mesh"):
             mesh = bench_mesh_phase(smi)
         print(f"bench_mesh ({smi}): " + json.dumps(mesh))
@@ -2409,6 +2554,9 @@ def main() -> int:
         kern["across_launches"] = ranks["across_launches"].get(kern["name"] + "_across", 0)
         # phase 16's: rank 0's launches across processes in the CLIs' sweeps
         kern["cli_across_launches"] = mesh["launches"].get(kern["name"] + "_across", 0)
+        # and in the workload CLIs' runs
+        kern["workload_across_launches"] = mesh["workload_launches"].get(
+            kern["name"] + "_across", 0)
         if kern["route"] == "cuda" and "combine" not in kern["name"]                 and kern["across_launches"] < 1:
             raise AssertionError(f"{kern['name']}: no launch across processes in phase 14")
     print(smi)

@@ -10,18 +10,20 @@ names a 2-D ``('slice', 'intra')`` mesh of S slices of I ranks.
 Across processes: where a launcher's environment names a coordinator
 (the reference's ``COORDINATOR_ADDRESS`` with ``WORLD_SIZE`` and
 ``RANK``, or torchrun's ``MASTER_ADDR``/``MASTER_PORT``/``WORLD_SIZE``/
-``RANK``), ``setup_backend(across=True)`` (the sweep runner and the headline, the
-CLIs ported across processes) joins the process group first, through
-``runtime.init_runtime``, as the reference's joins the coordination
-service; an environment that cannot be joined raises with the
-coordinator named, and nothing carries on in one process. Each process
-is then one rank of the fleet: the 1-D mesh is ``rank_mesh(world,
-group=WORLD)``, a ``--mesh2d SxI`` is ``slice_mesh(S, I, group=WORLD)``
-where S is the world size (a slice of I ranks a process), and
-``--fake-devices`` is refused. Every other CLI runs in one process and
-refuses a launcher's fleet by name (``refuse_fleet``) rather than run N
-copies of itself. ``main`` runs a CLI and tears the group down at its
-exit, the kernels' IPC workspace first.
+``RANK``), ``setup_backend(across=True)`` (the sweep runner, the headline
+and the workload CLIs, the CLIs ported across processes) joins the
+process group first, through ``runtime.init_runtime``, as the
+reference's joins the coordination service; an environment that cannot
+be joined raises with the coordinator named, and nothing carries on in
+one process. Each process is then one rank of the fleet: the 1-D mesh is
+``rank_mesh(world, group=WORLD)``, a ``--mesh2d SxI`` is ``slice_mesh(S,
+I, group=WORLD)`` where S is the world size (a slice of I ranks a
+process), and ``--fake-devices`` is refused. Every other CLI (the tools:
+``trace``, ``first_contact``, the tuner, ``bench_local``,
+``fold_ladder``, ``mfu_profile``) runs in one process and refuses a
+launcher's fleet by name (``refuse_fleet``) rather than run N copies of
+itself. ``main`` runs a CLI and tears the group down at its exit, the
+kernels' IPC workspace first.
 """
 
 from __future__ import annotations
@@ -59,8 +61,8 @@ def join(platform: str) -> bool:
 
 def refuse_fleet() -> None:
     """Refuse a launcher's fleet of more than one process for a CLI that
-    runs in one process only (the workload CLIs and the tools are not
-    ported across processes yet: ROADMAP Queue 1), naming the launcher's
+    runs in one process only (the tools are not ported across processes
+    yet: ROADMAP Queue 1), naming the launcher's
     world size: N copies of a one-process program would each run the
     whole mesh and write the same ``--out``."""
     from rocnrdma_tpu_torch.runtime.init import launcher_env
@@ -135,11 +137,35 @@ def mesh_for(mesh2d: tuple | None, n_ranks: int, topo: Topology) -> RankMesh:
 def build_mesh(mesh2d: str | None, ranks: int | None, topo: Topology) -> RankMesh:
     """The mesh a workload CLI runs over, on ``topo``'s device: 2-D when
     asked, else a 1-D ring of ``ranks`` (default: every rank the backend
-    hosts), capped at those. One process's mesh: the workload CLIs do not
-    run across processes yet (``setup_backend`` refuses their fleet)."""
+    hosts), capped at those in one process. Under a process group the
+    mesh spans its processes by ``mesh_for``'s rules: ``--ranks`` other
+    than the world size and a ``--mesh2d SxI`` whose S is not are
+    refused, both numbers named."""
+    if joined():
+        return mesh_for(parse_mesh2d(mesh2d) if mesh2d else None,
+                        ranks or topo.n_processes, topo)
     if mesh2d:
         return slice_mesh(*parse_mesh2d(mesh2d), topo.device)
     return rank_mesh(min(ranks or topo.n_devices, topo.n_devices), topo.device)
+
+
+def link_extra(topo, span, n_ranks: int) -> dict:
+    """A record's ``link`` where it has more than one rank: ``cpu-loopback``
+    on the CPU, ``hbm-loopback`` with the ranks on one GPU in one process,
+    and across processes ``nvlink`` (NCCL, a GPU a process) or
+    ``host-loopback`` (processes sharing a GPU, gloo staged); across
+    processes also ``processes``, their count."""
+    extra = {}
+    if n_ranks > 1:
+        if topo.platform != "gpu":
+            extra["link"] = "cpu-loopback"
+        elif span is None:
+            extra["link"] = "hbm-loopback"
+        else:
+            extra["link"] = "host-loopback" if span.staged else "nvlink"
+    if span is not None:
+        extra["processes"] = span.size
+    return extra
 
 
 def is_lead() -> bool:

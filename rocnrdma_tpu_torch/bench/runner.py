@@ -82,9 +82,10 @@ import numpy as np
 import torch
 
 from rocnrdma_tpu_torch import metrics as M
+from rocnrdma_tpu_torch import ops
 from rocnrdma_tpu_torch.bench import cli_common
 from rocnrdma_tpu_torch.bench import presets as P
-from rocnrdma_tpu_torch.bench.timing import failed_ranks, fleet_max, time_fn
+from rocnrdma_tpu_torch.bench.timing import agree, fleet_max, time_fn
 from rocnrdma_tpu_torch.collectives.reduce_op import REDUCE_OPS
 from rocnrdma_tpu_torch.runtime import PLATFORMS
 from rocnrdma_tpu_torch.transport import ALGOS, Transport, supports
@@ -364,22 +365,6 @@ def _profiler(out_dir: str | None, device: torch.device):
             os.path.join(out_dir, "trace.json")))
 
 
-def _agree(span, err: str | None, what: str) -> None:
-    """Raise on every rank of ``span`` when any rank's check failed
-    (``err``: this rank's failure, or None), naming the ranks that failed:
-    one ``all_reduce`` MAX of a flag a rank on the mesh's cross group.
-    Without a span, raise ``err`` itself."""
-    if span is None:
-        if err is not None:
-            raise AssertionError(err)
-        return
-    bad = failed_ranks(err is not None, span)
-    if bad:
-        raise AssertionError(
-            f"{what}: the check failed on rank(s) {bad} of {span.size}"
-            + (f"; here: {err}" if err else ""))
-
-
 def _mine(rows: np.ndarray | None, first: int, count: int):
     """This process's rows ``[first, first + count)`` of a per-rank array
     (one row a rank), or the array itself where every rank holds its one
@@ -387,24 +372,6 @@ def _mine(rows: np.ndarray | None, first: int, count: int):
     if rows is None or rows.ndim < 2 or rows.shape[0] == 1:
         return rows
     return rows[first:first + count]
-
-
-def _plain(collective: str, full: torch.Tensor) -> torch.Tensor:
-    """The ``cuda_ring`` arm's result on every rank's rows ``full`` (n, ...)
-    from its kernels' plain PyTorch versions, with the arm's tiles."""
-    from rocnrdma_tpu_torch.ops import alltoall_cuda, ring_cuda
-    from rocnrdma_tpu_torch.transport.api import cuda_ring_tile_rows
-
-    if collective == "alltoall":
-        return alltoall_cuda.alltoall_plain(full)
-    verb = {"reducescatter": "reduce_scatter"}.get(collective, collective)
-    tile_rows = cuda_ring_tile_rows(full, verb)
-    if collective == "allreduce":
-        return (ring_cuda.ring_allreduce_plain(full) if tile_rows is None
-                else ring_cuda.hbm_ring_allreduce_plain(full.clone(), tile_rows))
-    if collective == "reducescatter":
-        return ring_cuda.ring_reduce_scatter_plain(full, tile_rows)
-    return ring_cuda.ring_allgather_plain(full, tile_rows)
 
 
 def run_sweep(bench_name: str, collective: str, args) -> list:
@@ -449,19 +416,8 @@ def run_sweep(bench_name: str, collective: str, args) -> list:
     if collective == "sendrecv" and args.shift != 1:
         knobs["shift"] = args.shift
     op = knobs.get("op", "sum")
-    extra = {"device": topo.device_name}
-    if pre.n_ranks > 1:
-        if topo.platform != "gpu":
-            extra["link"] = "cpu-loopback"
-        elif span is None:
-            extra["link"] = "hbm-loopback"
-        else:  # a GPU a process over NCCL, or processes sharing one GPU
-            extra["link"] = "host-loopback" if span.staged else "nvlink"
-    if span is not None:
-        extra["processes"] = span.size
+    extra = {"device": topo.device_name, **cli_common.link_extra(topo, span, pre.n_ranks)}
     on_gpu = topo.device.type == "cuda"
-    if on_gpu:
-        from rocnrdma_tpu_torch import ops
 
     def hier_knobs(algo: str) -> dict:
         # --cross-dtype / --intra-algo apply only where they exist (the
@@ -516,7 +472,7 @@ def run_sweep(bench_name: str, collective: str, args) -> list:
                         # host: no arm's peak memory holds the n-rank result
                         full = torch.from_numpy(x_np.reshape(
                             (pre.n_ranks,) + x.shape[len(t.mesh.local_shape):]))
-                        plain = _plain(collective, full.to(t.device).to(DTYPES[dtype]))
+                        plain = ops.cuda_ring_plain(collective, full.to(t.device).to(DTYPES[dtype]))
                         plain = plain.reshape(pre.n_ranks, -1)[first:first + rows].cpu()
                         del full
                     del x_np
@@ -542,7 +498,7 @@ def run_sweep(bench_name: str, collective: str, args) -> list:
                             # same input, same schedule: a bit difference is a
                             # race or a nondeterministic reduction order
                             r1, r2 = fn(x), fn(x)
-                            _agree(span, None if torch.equal(r1, r2) else
+                            agree(span, None if torch.equal(r1, r2) else
                                    f"paranoid: {collective}/{algo} nondeterministic "
                                    f"at {actual} B", what)
                         if pre.check:
@@ -559,7 +515,7 @@ def run_sweep(bench_name: str, collective: str, args) -> list:
                                        bounds.get(xk.get("cross_dtype")), rows, first)
                             except AssertionError as e:
                                 err = str(e)
-                            _agree(span, err, what)
+                            agree(span, err, what)
                             del got
                         r1 = None
                         tm = time_fn(fn, x, warmup=args.warmup, repeats=args.repeats,
@@ -580,7 +536,7 @@ def run_sweep(bench_name: str, collective: str, args) -> list:
                             want_plain = plain.to(t.device)
                             diff = float((got.float() - want_plain.float()).abs().max())
                             rec_extra["plain_max_abs_err"] = diff
-                            _agree(span, None if torch.equal(got, want_plain) else
+                            agree(span, None if torch.equal(got, want_plain) else
                                    f"{what}: not bitwise its kernels' plain versions "
                                    f"(max abs err {diff})", what)
                             del got, want_plain

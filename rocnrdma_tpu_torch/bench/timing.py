@@ -79,14 +79,23 @@ def fleet_barrier(span) -> None:
         torch.cuda.synchronize(t.device)
 
 
+def _fleet_reduce(values: list, span, op) -> list:
+    t = torch.tensor([float(v) for v in values], dtype=torch.float64,
+                     device=_fleet_device(span))
+    torch.distributed.all_reduce(t, op=op, group=span.cross_group)
+    return t.cpu().tolist()
+
+
 def fleet_max(values: list, span) -> list:
     """Each of ``values`` (the same count on every rank) as its maximum
     over the ranks of ``span``: one ``all_reduce`` MAX on its cross group."""
-    t = torch.tensor([float(v) for v in values], dtype=torch.float64,
-                     device=_fleet_device(span))
-    torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX,
-                                 group=span.cross_group)
-    return t.cpu().tolist()
+    return _fleet_reduce(values, span, torch.distributed.ReduceOp.MAX)
+
+
+def fleet_sum(values: list, span) -> list:
+    """Each of ``values`` (the same count on every rank) as its sum over
+    the ranks of ``span``: one ``all_reduce`` SUM on its cross group."""
+    return _fleet_reduce(values, span, torch.distributed.ReduceOp.SUM)
 
 
 def failed_ranks(failed: bool, span) -> list:
@@ -96,6 +105,21 @@ def failed_ranks(failed: bool, span) -> list:
     flags = fleet_max([float(failed and i == span.index) for i in range(span.size)],
                       span)
     return [span.peers[i] for i, f in enumerate(flags) if f]
+
+
+def agree(span, err: str | None, what: str) -> None:
+    """Raise on every rank of ``span`` when any rank's check failed
+    (``err``: this rank's failure, or None), naming the ranks that failed
+    (``failed_ranks``). Without a span, raise ``err`` itself."""
+    if span is None:
+        if err is not None:
+            raise AssertionError(err)
+        return
+    bad = failed_ranks(err is not None, span)
+    if bad:
+        raise AssertionError(
+            f"{what}: the check failed on rank(s) {bad} of {span.size}"
+            + (f"; here: {err}" if err else ""))
 
 
 def _device_of(args) -> torch.device:

@@ -31,9 +31,10 @@ state, metrics, checkpoint shards) and for machines with no GPU at all.
 Tensors: every verb that takes an array also takes a ``torch.Tensor`` on
 the CPU or the card and returns tensors on that device, in that dtype
 (the tensor front door at the end of this module). A CUDA tensor is
-staged through pinned host memory. A ``torch.bfloat16`` tensor rides as
-its bits and folds as the reference's ``ml_dtypes`` arrays fold (widened
-to float32 an op, rounded to nearest even); fp8 raises
+staged through pinned host memory. A ``torch.bfloat16``,
+``torch.float8_e4m3fn`` or ``torch.float8_e5m2`` tensor rides as its bits
+and folds as the reference's ``ml_dtypes`` arrays fold (widened to float32
+an op, rounded to nearest even); the fnuz fp8 dtypes raise
 :class:`HostPlaneDtypeError`. Importing this module loads no torch::
 
     x = torch.randn(1 << 20, device="cuda")
@@ -5206,11 +5207,16 @@ def join_process_group(store_handle: str | None = None,
 
 
 class HostPlaneDtypeError(TypeError):
-    """A tensor whose dtype the host plane cannot carry (the fp8 dtypes:
-    numpy has none, and torch's cast is not the reference's ``ml_dtypes``
-    rounding) reached the front door. It is refused, never cast: cast it
-    yourself (``x.float()``). ``torch.bfloat16`` rides as
-    ``plugin.BF16``, folded as ``ml_dtypes`` folds it."""
+    """A tensor whose dtype the host plane cannot carry (numpy has none,
+    and the host plane has no fold of its own for it: the fnuz fp8 dtypes,
+    ``torch.float8_e4m3fnuz`` and ``torch.float8_e5m2fnuz``) reached the
+    front door. It is refused, with the call's ``front-door-abort`` flight
+    event, never cast: cast it yourself (``x.float()``).
+    ``torch.bfloat16``, ``torch.float8_e4m3fn`` and ``torch.float8_e5m2``
+    ride as their bits (``plugin.BF16``, ``plugin.F8E4M3``,
+    ``plugin.F8E5M2``), folded as ``ml_dtypes`` folds them; never through
+    torch's fp8 cast, which saturates at +-448 where ``ml_dtypes`` gives
+    NaN past +-464."""
 
 
 # idle pinned staging buffers kept per size
@@ -5264,9 +5270,18 @@ def staging_stats() -> dict:
     return dict(_STAGING.stats)
 
 
+def _bit_dtypes(torch) -> dict:
+    """torch dtype -> (the host plane's bit dtype for it, the torch and
+    numpy integer dtypes of its size): the dtypes numpy has not."""
+    return {torch.bfloat16: (plugin.BF16, torch.int16, np.int16),
+            torch.float8_e4m3fn: (plugin.F8E4M3, torch.uint8, np.uint8),
+            torch.float8_e5m2: (plugin.F8E5M2, torch.uint8, np.uint8)}
+
+
 def _numpy_dtype(torch, dtype, verb=None, device=None):
-    if dtype == torch.bfloat16:
-        return plugin.BF16
+    bits = _bit_dtypes(torch).get(dtype)
+    if bits is not None:
+        return bits[0]
     try:
         return torch.empty(0, dtype=dtype).numpy().dtype
     except TypeError as e:
@@ -5282,17 +5297,19 @@ def _numpy_dtype(torch, dtype, verb=None, device=None):
 
 def _host_array(torch, t, dtype):
     """The numpy array over host tensor ``t``'s memory, in the host plane's
-    ``dtype`` for it (a bf16 tensor's bits as ``plugin.BF16``)."""
-    if dtype == plugin.BF16:
-        return t.view(torch.int16).numpy().view(plugin.BF16)
+    ``dtype`` for it (a bf16 or fp8 tensor's bits as its bit dtype)."""
+    bits = _bit_dtypes(torch).get(t.dtype)
+    if bits is not None:
+        return t.view(bits[1]).numpy().view(dtype)
     return t.numpy()
 
 
 def _tensor_of(torch, arr):
-    """The tensor over numpy ``arr``'s memory (``plugin.BF16`` as
-    ``torch.bfloat16``)."""
-    if arr.dtype == plugin.BF16:
-        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    """The tensor over numpy ``arr``'s memory (a bit dtype as its torch
+    dtype: ``plugin.BF16`` as ``torch.bfloat16``, and so on)."""
+    for tdt, (host, tint, nint) in _bit_dtypes(torch).items():
+        if arr.dtype == host:
+            return torch.from_numpy(arr.view(nint)).view(tdt)
     return torch.from_numpy(arr)
 
 

@@ -3,6 +3,8 @@ CUDA sources in ``ops/csrc/`` (``ops/_build.py`` compiles them at first
 use) and one Triton kernel (``ops/local_triton.py``, compiled at first
 launch). Importing this package builds and loads nothing."""
 
+import torch
+
 from rocnrdma_tpu_torch.ops import alltoall_cuda, local_cuda, local_triton, ring_cuda
 from rocnrdma_tpu_torch.ops.alltoall_cuda import (  # noqa: F401
     alltoall,
@@ -21,6 +23,24 @@ from rocnrdma_tpu_torch.ops.ring_cuda import (  # noqa: F401
     ring_reduce_scatter,
     ring_reduce_scatter_plain,
 )
+
+def cuda_ring_plain(collective: str, full: torch.Tensor) -> torch.Tensor:
+    """The ``cuda_ring`` arm's result on every rank's rows ``full`` (n, ...)
+    from its kernels' plain PyTorch versions, with the arm's tiles
+    (``collective``: the runner's name, ``reducescatter`` among them)."""
+    from rocnrdma_tpu_torch.transport.api import cuda_ring_tile_rows
+
+    if collective == "alltoall":
+        return alltoall_cuda.alltoall_plain(full)
+    verb = {"reducescatter": "reduce_scatter"}.get(collective, collective)
+    tile_rows = cuda_ring_tile_rows(full, verb)
+    if collective == "allreduce":
+        return (ring_cuda.ring_allreduce_plain(full) if tile_rows is None
+                else ring_cuda.hbm_ring_allreduce_plain(full.clone(), tile_rows))
+    if collective == "reducescatter":
+        return ring_cuda.ring_reduce_scatter_plain(full, tile_rows)
+    return ring_cuda.ring_allgather_plain(full, tile_rows)
+
 
 _COUNTERS = (local_cuda.LAUNCHES, ring_cuda.LAUNCHES, alltoall_cuda.LAUNCHES,
              local_triton.LAUNCHES)

@@ -200,7 +200,9 @@ class Coalescer:
             raise ValueError(f"unknown async verb {verb!r}; "
                              f"know {sorted(_FUSE)}")
         arr = np.asarray(x)
-        key = (verb, arr.dtype.str, op)
+        # a bit dtype's fields name its format (plugin.F8E4M3 and F8E5M2
+        # are both |V1): buckets never mix two formats
+        key = (verb, arr.dtype.str + "".join(arr.dtype.names or ()), op)
         with self._lock:
             b = self._pending.get(key)
             if b is None:

@@ -2150,15 +2150,17 @@ def ring_allreduce_over_net(net, send_comm, recv_comm, local: np.ndarray,
     return x.reshape(np.shape(local))
 
 
-# bfloat16 frames. numpy has no bfloat16, so the host plane carries a
-# bf16 buffer as this one-field structured dtype of its bits: it moves,
-# lands and compares as any other 2-byte dtype, and the ufuncs refuse it,
-# so only the folds below read it. Each fold widens both operands to
-# float32, applies the op and rounds back to nearest even (a NaN to its
-# quiet NaN of the same sign), as ml_dtypes' bfloat16 ufuncs do; max and
-# min pick an operand's bits as they do (a NaN first operand, or the
-# first where it wins strictly, else the second).
+# bfloat16 and fp8 frames. numpy has neither, so the host plane carries
+# such a buffer as a one-field structured dtype of its bits (BF16, F8E4M3,
+# F8E5M2): it moves, lands and compares as any other dtype of its size,
+# and the ufuncs refuse it, so only the folds below read it. Each fold
+# widens both operands to float32, applies the op and rounds back to
+# nearest even, as ml_dtypes' ufuncs do; max and min pick an operand's
+# bits as they do (a NaN first operand, or the first where it wins
+# strictly, else the second).
 BF16 = np.dtype([("bf16", "<u2")])
+F8E4M3 = np.dtype([("f8e4m3fn", "u1")])
+F8E5M2 = np.dtype([("f8e5m2", "u1")])
 
 
 def bf16_widen(a: np.ndarray) -> np.ndarray:
@@ -2176,27 +2178,95 @@ def bf16_round(f: np.ndarray) -> np.ndarray:
     return bits.view(BF16)
 
 
+class _F8:
+    """One fp8 format as ml_dtypes defines it: ``mant`` mantissa bits,
+    exponent bias ``bias``, the largest finite magnitude at code ``top``.
+    Code ``top + 1`` is what a magnitude past the largest finite one rounds
+    to: e4m3fn's NaN (it has no infinity), e5m2's infinity. ``nan``: the
+    quiet NaN's code (its sign bit is the value's)."""
+
+    def __init__(self, dtype, mant: int, bias: int, top: int, nan: int):
+        self.dtype, self.top, self.nan = dtype, top, nan
+        code = np.arange(128)
+        e, m = code >> mant, (code & ((1 << mant) - 1)).astype(np.float64)
+        mag = np.where(e == 0, m * 2.0 ** (1 - bias - mant),
+                       (1 + m / (1 << mant)) * 2.0 ** (e - bias))
+        mag[top + 1:] = np.nan
+        if nan != top + 1:
+            mag[top + 1] = np.inf  # e5m2: the infinity below its NaNs
+        # the 256-entry widen table, the sign bit's half negated
+        self.table = np.concatenate([mag, -mag]).astype(np.float32)
+        # rounding: the midpoints between codes 0..top+1, where code
+        # top+1 sits one step of the top binade past the largest value
+        steps = np.append(mag[:top + 1], 2 * mag[top] - mag[top - 1])
+        self.mids = ((steps[:-1] + steps[1:]) / 2).astype(np.float32)
+
+    def widen(self, a: np.ndarray) -> np.ndarray:
+        """float32 values of an array of this format."""
+        return self.table[a.view(np.uint8)]
+
+    def round(self, f: np.ndarray) -> np.ndarray:
+        """The bits nearest float32 ``f``, ties to even, as ml_dtypes'
+        cast: past the top midpoint to code top+1, a NaN to the quiet
+        NaN of its sign."""
+        f = np.asarray(f, np.float32)
+        a = np.abs(f)
+        i = np.searchsorted(self.mids, a)
+        tie = self.mids[np.minimum(i, len(self.mids) - 1)] == a
+        code = np.minimum(i + (tie & (i % 2 == 1)), self.top + 1).astype(np.uint8)
+        code[np.isnan(f)] = self.nan
+        code |= np.signbit(f).astype(np.uint8) << 7
+        return code.view(self.dtype)
+
+
+_F8_FORMATS = {F8E4M3: _F8(F8E4M3, 3, 7, 0x7E, 0x7F),
+               F8E5M2: _F8(F8E5M2, 2, 15, 0x7B, 0x7E)}
+
+
+def f8_widen(a: np.ndarray) -> np.ndarray:
+    """float32 values of an ``F8E4M3`` or ``F8E5M2`` array."""
+    return _F8_FORMATS[a.dtype].widen(a)
+
+
+def f8_round(f: np.ndarray, dtype) -> np.ndarray:
+    """The ``dtype`` (``F8E4M3`` or ``F8E5M2``) bits nearest float32 ``f``."""
+    return _F8_FORMATS[dtype].round(f)
+
+
+# the bit dtypes: dtype -> (widen, round to this dtype, unsigned view)
+_NARROW = {BF16: (bf16_widen, bf16_round, np.uint16),
+           **{d: (fmt.widen, fmt.round, np.uint8) for d, fmt in _F8_FORMATS.items()}}
+
+
 class _Fold:
     """A reduce op of the host plane: ``ufunc(a, b, out=)`` on numpy
-    dtypes, the widened-and-rounded op on ``BF16`` frames; ``pick``
-    (max/min): the comparison that keeps the first operand's bits."""
+    dtypes, the widened-and-rounded op on ``BF16``, ``F8E4M3`` and
+    ``F8E5M2`` frames; ``pick`` (max/min): the comparison that keeps the
+    first operand's bits."""
 
     def __init__(self, ufunc, pick=None):
         self.ufunc, self.pick = ufunc, pick
 
     def __call__(self, a, b, out=None):
-        if a.dtype != BF16:
+        narrow = _NARROW.get(a.dtype)
+        if narrow is None:
             return self.ufunc(a, b, out=out)
-        fa, fb = bf16_widen(a), bf16_widen(b)
+        widen, round_, bits = narrow
+        fa, fb = widen(a), widen(b)
         if self.pick is None:
             with np.errstate(over="ignore", invalid="ignore"):
-                bits = bf16_round(self.ufunc(fa, fb))
+                f = self.ufunc(fa, fb)
+            if self.ufunc is np.add and bits is np.uint8:
+                # ml_dtypes' fp8 add: a sum with a NaN operand is the
+                # first operand where it is a NaN, else a positive NaN
+                f = np.where(np.isnan(fa), fa, np.where(np.isnan(fb), np.float32(np.nan), f))
+            folded = round_(f)
         else:
             first = np.isnan(fa) | self.pick(fa, fb)
-            bits = np.where(first, a.view(np.uint16), b.view(np.uint16)).view(BF16)
+            folded = np.where(first, a.view(bits), b.view(bits)).view(a.dtype)
         if out is None:
-            return bits
-        out[...] = bits
+            return folded
+        out[...] = folded
         return out
 
 

@@ -17,23 +17,36 @@ bucket values are the reference's (numpy draws); on the card they are
 made on the card, ~16 GiB at ``--scale 16`` that host draws would take
 tens of seconds to make and copy.
 
+Across processes (a launcher's environment, ``cli_common``), each
+process is one rank of ``rank_mesh(N, group=WORLD)``: every bucket is
+drawn whole, as one process draws it, one bucket at a time, and each
+rank keeps its row, so rank r replays row r of the one-process run. Each
+repeat starts after a barrier and each step time is the maximum over the
+ranks; rank 0 alone prints and writes ``--out``. ``--check-plain`` holds
+every ``cuda_ring`` result of every mode to its kernels' plain versions
+on the whole buckets, bitwise, agreed across the fleet.
+
 Usage::
 
     python -m rocnrdma_tpu_torch.workloads.ddp_replay --fake-devices 8 --scale 1024 \\
         --platform cpu
     python -m rocnrdma_tpu_torch.workloads.ddp_replay --fake-devices 8 --scale 16 \\
         --algo cuda_ring
+    torchrun --nproc-per-node 4 -m rocnrdma_tpu_torch.workloads.ddp_replay \\
+        --scale 16 --algo cuda_ring --check-plain
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import sys
 
 import numpy as np
 import torch
 
 from rocnrdma_tpu_torch import metrics as M
+from rocnrdma_tpu_torch import ops
 from rocnrdma_tpu_torch.bench import cli_common
 from rocnrdma_tpu_torch.bench.runner import DTYPES
 from rocnrdma_tpu_torch.transport import Transport
@@ -43,17 +56,42 @@ from rocnrdma_tpu_torch.workloads.llama_trace import LLAMA3_8B, Trace, generate_
 MODES = ("sequential", "overlap", "jit_fused")
 
 
-def normal_source(t: Transport, dtype: str):
-    """``draw(shape)``: standard-normal values on ``t``'s device as
-    ``dtype``, seeded. On the CPU the reference's draws (numpy
+def whole_source(t: Transport, dtype: str):
+    """``draw(shape)``: a whole rank-major buffer (every rank's rows,
+    leading dims the mesh shape) of standard-normal values on ``t``'s
+    device as ``dtype``, seeded. On the CPU the reference's draws (numpy
     ``default_rng(0)``, in call order); on the card a seeded generator on
     the card."""
     tdt = DTYPES[dtype]
     if t.device.type == "cpu":
         rng = np.random.default_rng(0)
-        return lambda shape: t.shard(rng.standard_normal(size=shape, dtype=np.float32), tdt)
+        return lambda shape: torch.from_numpy(
+            rng.standard_normal(size=shape, dtype=np.float32)).to(tdt)
     gen = torch.Generator(device=t.device).manual_seed(0)
     return lambda shape: torch.randn(shape, generator=gen, device=t.device).to(tdt)
+
+
+def normal_source(t: Transport, dtype: str):
+    """``draw(shape)``: ``whole_source``'s buffer of the whole ``shape`` as
+    ``t`` holds it: the whole on one process, this process's rows (not a
+    view of the whole, which is freed) on a mesh that spans processes."""
+    whole = whole_source(t, dtype)
+    if t.span is None:
+        return whole
+    return lambda shape: t.shard(whole(shape)).clone()
+
+
+def plain_rows(t: Transport, dtype: str, draws) -> list:
+    """This process's rows of the ``cuda_ring`` result on each buffer
+    ``whole_source`` draws, in its order: ``draws`` is (runner collective,
+    whole shape) a buffer. Each from its kernels' plain versions on the
+    whole buffer, one buffer at a time, kept on the host, flat a rank."""
+    whole = whole_source(t, dtype)
+    rows = math.prod(t.mesh.local_shape)
+    first = 0 if t.span is None else t.span.index * rows
+    n = t.n_ranks
+    return [ops.cuda_ring_plain(collective, whole(shape)).reshape(n, -1)[first:first + rows]
+            .cpu() for collective, shape in draws]
 
 
 def _bucket_arrays(t: Transport, trace: Trace, scale: int, dtype: str) -> list:
@@ -66,7 +104,8 @@ def _bucket_arrays(t: Transport, trace: Trace, scale: int, dtype: str) -> list:
 
 def replay(t: Transport, bufs: list, algo: str, mode: str, repeats: int = 5,
            window: int = 0, cross_dtype=None, out: list | None = None) -> float:
-    """Seconds for one full-trace replay (trimmed mean over repeats).
+    """Seconds for one full-trace replay (trimmed mean over repeats; across
+    processes each repeat's maximum over the ranks).
 
     ``window`` bounds the waits in ``overlap`` mode (0 = unbounded).
     ``cross_dtype``: the cross-slice wire dtype of the hierarchical
@@ -75,15 +114,15 @@ def replay(t: Transport, bufs: list, algo: str, mode: str, repeats: int = 5,
     fn = t.jit_fn("allreduce", algo, cross_dtype=cross_dtype)
     if mode == "jit_fused":
         return _replay.timed_fused(lambda xs: [fn(x) for x in xs], (bufs,), repeats,
-                                   t.device, out)
+                                   t.device, out, t.span)
     for b in bufs:  # warm every bucket shape
         fn(b)
     _replay._sync(t.device)
     thunks = [lambda x=b: fn(x) for b in bufs]
     if mode == "sequential":
-        return _replay.timed_sequential(thunks, repeats, t.device, out)
+        return _replay.timed_sequential(thunks, repeats, t.device, out, t.span)
     if mode == "overlap":
-        return _replay.timed_overlap(thunks, repeats, window, t.device, out)
+        return _replay.timed_overlap(thunks, repeats, window, t.device, out, t.span)
     raise ValueError(f"unknown mode {mode!r}")
 
 
@@ -108,6 +147,9 @@ def main(argv=None) -> int:
     p.add_argument("--fake-devices", type=int, default=None)
     p.add_argument("--platform", choices=("auto", "cpu"), default="auto")
     p.add_argument("--out", default=None, help="JSONL output path")
+    p.add_argument("--check-plain", action="store_true",
+                   help="--algo cuda_ring: hold every mode's results to the "
+                        "kernels' plain versions, bitwise")
     p.add_argument("--trace-out", default=None, help="write the trace JSON and exit")
     args = p.parse_args(argv)
 
@@ -123,20 +165,30 @@ def main(argv=None) -> int:
         if mode not in MODES:
             raise SystemExit(f"unknown mode {mode!r}; know {MODES}")
 
-    topo = cli_common.setup_backend(args.fake_devices, args.platform, args.ranks)
+    topo = cli_common.setup_backend(args.fake_devices, args.platform, args.ranks,
+                                    across=True)
     t = Transport(cli_common.build_mesh(args.mesh2d, args.ranks, topo))
+    lead = cli_common.is_lead()
     bufs = _bucket_arrays(t, trace, args.scale, args.dtype)
     nlead = len(t.mesh.shape)
     scaled_bytes = sum(int(np.prod(b.shape[nlead:])) * b.element_size() for b in bufs)
-    print(f"# {trace.model}: {len(bufs)} buckets, "
-          f"{trace.total_bytes / M.GiB:.2f} GiB full / "
-          f"{scaled_bytes / M.MiB:.1f} MiB at scale {args.scale}, "
-          f"{t.n_ranks} ranks, algo={args.algo}", file=sys.stderr)
+    if lead:
+        print(f"# {trace.model}: {len(bufs)} buckets, "
+              f"{trace.total_bytes / M.GiB:.2f} GiB full / "
+              f"{scaled_bytes / M.MiB:.1f} MiB at scale {args.scale}, "
+              f"{t.n_ranks} ranks, algo={args.algo}", file=sys.stderr)
+    plain = None
+    if args.check_plain and args.algo == "cuda_ring":
+        whole = tuple(t.mesh.shape)
+        plain = plain_rows(t, args.dtype,
+                           [("allreduce", whole + b.shape[nlead:]) for b in bufs])
 
     window = args.window if args.window is not None else _replay.default_window(topo)
-    means = {mode: replay(t, bufs, args.algo, mode, repeats=args.repeats,
-                          window=window, cross_dtype=args.cross_dtype)
-             for mode in modes}
+    means, extras = _replay.run_modes(
+        t, modes, lambda mode, out: replay(t, bufs, args.algo, mode, repeats=args.repeats,
+                                           window=window, cross_dtype=args.cross_dtype,
+                                           out=out),
+        plain, f"ddp_replay {args.algo}")
     # speedups only against a measured sequential run
     base = means.get("sequential")
 
@@ -144,12 +196,15 @@ def main(argv=None) -> int:
     for mode in modes:
         extra = dict(mode=mode, n_buckets=len(bufs), scale=args.scale,
                      full_bytes=trace.total_bytes, cross_dtype=args.cross_dtype,
-                     device=topo.device_name)
+                     device=topo.device_name, **cli_common.link_extra(topo, t.span, t.n_ranks),
+                     **extras[mode])
         if base is not None:
             extra["speedup_vs_sequential"] = base / means[mode]
         records.append(M.BenchRecord.measure(
             "ddp_replay", "allreduce", args.algo, t.n_ranks, scaled_bytes,
             args.dtype, means[mode], platform=topo.platform, **extra))
+    if not lead:
+        return 0
     if args.out:
         with open(args.out, "a") as fp:
             for rec in records:
@@ -163,4 +218,4 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(cli_common.main(main))

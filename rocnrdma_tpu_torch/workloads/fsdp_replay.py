@@ -17,12 +17,21 @@ needs a rank buffer of whole 128-lane chunks (``n * 128`` elements); with
 elements, the padding a caller of the kernel adds. Every other algo keeps
 the reference's shard sizes (and on the CPU its values).
 
+Across processes (a launcher's environment) each process is one rank, as
+``ddp_replay`` says: every shard and gradient buffer is drawn whole, one
+at a time, each rank keeping its row; step times are the maximum over the
+ranks; rank 0 alone prints and writes ``--out``; ``--check-plain`` holds
+every ``cuda_ring`` allgather and reduce-scatter to its kernels' plain
+versions, bitwise, agreed across the fleet.
+
 Usage::
 
     python -m rocnrdma_tpu_torch.workloads.fsdp_replay --fake-devices 8 --scale 4096 \\
         --platform cpu
     python -m rocnrdma_tpu_torch.workloads.fsdp_replay --fake-devices 8 --scale 16 \\
         --algo cuda_ring
+    torchrun --nproc-per-node 4 -m rocnrdma_tpu_torch.workloads.fsdp_replay \\
+        --scale 16 --algo cuda_ring --check-plain
 """
 
 from __future__ import annotations
@@ -37,7 +46,7 @@ from rocnrdma_tpu_torch.bench import cli_common
 from rocnrdma_tpu_torch.bench.runner import DTYPES
 from rocnrdma_tpu_torch.transport import Transport
 from rocnrdma_tpu_torch.workloads import _replay
-from rocnrdma_tpu_torch.workloads.ddp_replay import normal_source
+from rocnrdma_tpu_torch.workloads.ddp_replay import normal_source, plain_rows
 from rocnrdma_tpu_torch.workloads.llama_trace import LLAMA3_8B, ModelSpec, _numel
 
 MODES = ("sequential", "overlap", "jit_fused")
@@ -68,11 +77,27 @@ def _unit_arrays(t: Transport, units, scale: int, dtype: str, grain: int = 1):
     n = t.n_ranks
     draw = normal_source(t, dtype)
     shards, fulls = [], []
-    for _, numel in units:
-        per = -(-max(1, numel // scale // n) // grain) * grain
+    for per in _shard_elems(units, scale, n, grain):
         shards.append(draw(lead + (per,)))
         fulls.append(draw(lead + (n * per,)))
     return shards, fulls
+
+
+def _shard_elems(units, scale: int, n: int, grain: int) -> list:
+    """Each unit's shard elements: ``max(1, numel // scale // n)`` rounded
+    up to a multiple of ``grain``."""
+    return [-(-max(1, numel // scale // n) // grain) * grain for _, numel in units]
+
+
+def _plain_rows(t: Transport, units, scale: int, dtype: str, grain: int) -> list:
+    """``step_plan``'s results from the kernels' plain versions, this
+    process's rows (``ddp_replay.plain_rows`` over ``_unit_arrays``' draws)."""
+    lead, n = tuple(t.mesh.shape), t.n_ranks
+    draws = []
+    for per in _shard_elems(units, scale, n, grain):
+        draws += [("allgather", lead + (per,)), ("reducescatter", lead + (n * per,))]
+    rows = plain_rows(t, dtype, draws)
+    return [rows[2 * i + (kind == "rs")] for kind, i in step_plan(len(units))]
 
 
 def step_plan(n_units: int) -> list[tuple[str, int]]:
@@ -98,16 +123,16 @@ def replay(t: Transport, shards, fulls, algo: str, mode: str,
     if mode == "jit_fused":
         def fn(sh, fl):
             return [ag(sh[i]) if k == "ag" else rs(fl[i]) for k, i in plan]
-        return _replay.timed_fused(fn, (shards, fulls), repeats, t.device, out)
+        return _replay.timed_fused(fn, (shards, fulls), repeats, t.device, out, t.span)
 
     for kind, i in sorted(set(plan)):  # warm every (verb, unit shape) pair
         issue(kind, i)
     _replay._sync(t.device)
     thunks = [lambda k=kind, j=i: issue(k, j) for kind, i in plan]
     if mode == "sequential":
-        return _replay.timed_sequential(thunks, repeats, t.device, out)
+        return _replay.timed_sequential(thunks, repeats, t.device, out, t.span)
     if mode == "overlap":
-        return _replay.timed_overlap(thunks, repeats, window, t.device, out)
+        return _replay.timed_overlap(thunks, repeats, window, t.device, out, t.span)
     raise ValueError(f"unknown mode {mode!r}")
 
 
@@ -129,14 +154,19 @@ def main(argv=None) -> int:
     p.add_argument("--fake-devices", type=int, default=None)
     p.add_argument("--platform", choices=("auto", "cpu"), default="auto")
     p.add_argument("--out", default=None, help="JSONL output path")
+    p.add_argument("--check-plain", action="store_true",
+                   help="--algo cuda_ring: hold every mode's results to the "
+                        "kernels' plain versions, bitwise")
     args = p.parse_args(argv)
     modes = args.modes.split(",")
     for mode in modes:
         if mode not in MODES:
             raise SystemExit(f"unknown mode {mode!r}; know {MODES}")
 
-    topo = cli_common.setup_backend(args.fake_devices, args.platform, args.ranks)
+    topo = cli_common.setup_backend(args.fake_devices, args.platform, args.ranks,
+                                    across=True)
     t = Transport(cli_common.build_mesh(args.mesh2d, args.ranks, topo))
+    lead = cli_common.is_lead()
     units = flat_units(LLAMA3_8B)
     grain = CUDA_RING_GRAIN if args.algo == "cuda_ring" else 1
     shards, fulls = _unit_arrays(t, units, args.scale, args.dtype, grain)
@@ -146,27 +176,35 @@ def main(argv=None) -> int:
     full_step_bytes = 3 * full_param_bytes
     nlead = len(t.mesh.shape)
     scaled_bytes = sum(int(np.prod(f.shape[nlead:])) * f.element_size() for f in fulls)
-    print(f"# {LLAMA3_8B.name} FSDP: {len(units)} wrap units, "
-          f"{full_param_bytes / M.GiB:.2f} GiB params "
-          f"({full_step_bytes / M.GiB:.2f} GiB step traffic) / "
-          f"{scaled_bytes / M.MiB:.1f} MiB at scale {args.scale}, "
-          f"{t.n_ranks} ranks, algo={args.algo}", file=sys.stderr)
+    if lead:
+        print(f"# {LLAMA3_8B.name} FSDP: {len(units)} wrap units, "
+              f"{full_param_bytes / M.GiB:.2f} GiB params "
+              f"({full_step_bytes / M.GiB:.2f} GiB step traffic) / "
+              f"{scaled_bytes / M.MiB:.1f} MiB at scale {args.scale}, "
+              f"{t.n_ranks} ranks, algo={args.algo}", file=sys.stderr)
+    plain = None
+    if args.check_plain and args.algo == "cuda_ring":
+        plain = _plain_rows(t, units, args.scale, args.dtype, grain)
 
     window = args.window if args.window is not None else _replay.default_window(topo)
-    means = {mode: replay(t, shards, fulls, args.algo, mode, repeats=args.repeats,
-                          window=window)
-             for mode in modes}
+    means, extras = _replay.run_modes(
+        t, modes, lambda mode, out: replay(t, shards, fulls, args.algo, mode,
+                                           repeats=args.repeats, window=window, out=out),
+        plain, f"fsdp_replay {args.algo}")
     base = means.get("sequential")
 
     records = []
     for mode in modes:
         extra = dict(mode=mode, n_units=len(units), scale=args.scale,
-                     full_bytes=full_step_bytes, pattern="fsdp", device=topo.device_name)
+                     full_bytes=full_step_bytes, pattern="fsdp", device=topo.device_name,
+                     **cli_common.link_extra(topo, t.span, t.n_ranks), **extras[mode])
         if base is not None:
             extra["speedup_vs_sequential"] = base / means[mode]
         records.append(M.BenchRecord.measure(
             "fsdp_replay", "fsdp", args.algo, t.n_ranks, 3 * scaled_bytes,
             args.dtype, means[mode], platform=topo.platform, **extra))
+    if not lead:
+        return 0
     if args.out:
         with open(args.out, "a") as fp:
             for rec in records:
@@ -180,4 +218,4 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(cli_common.main(main))

@@ -13,18 +13,30 @@ axis (``workloads/routing.py``); only the alltoalls cross ranks, through
 ``Transport.alltoall``. The dispatch ``(ranks..., E, cap, d)`` enters the
 alltoall as the view ``(ranks..., E, cap*d)``.
 
+Across processes (a launcher's environment, ``cli_common``), each
+process is one rank and one expert of ``rank_mesh(N, group=WORLD)``: the
+inputs are drawn whole from ``default_rng(0)`` as one process draws them
+and each rank keeps its row, which routes as that row of the whole. The
+checks are agreed (one rank's failure fails every rank, naming it), each
+repeat starts after a barrier and the step time is the maximum over the
+ranks; rank 0 alone prints and writes ``--out``. ``--check-plain`` holds
+a ``cuda_ring`` layer's output to the same layer over every rank's rows
+with the alltoall kernel's plain version, bitwise.
+
 Usage::
 
     python -m rocnrdma_tpu_torch.workloads.moe --fake-devices 8 --tokens 512 --d-model 256
     python -m rocnrdma_tpu_torch.workloads.moe --model mixtral-8x7b --routing topk \\
         --tokens 4096 --fake-devices 8 --algo cuda_ring
+    torchrun --nproc-per-node 4 -m rocnrdma_tpu_torch.workloads.moe \\
+        --model mixtral-8x7b --routing topk --tokens 4096 --algo cuda_ring --check-plain
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import sys
-import time
 
 import numpy as np
 import torch
@@ -32,7 +44,8 @@ import torch
 from rocnrdma_tpu_torch import metrics as M
 from rocnrdma_tpu_torch.bench import cli_common
 from rocnrdma_tpu_torch.bench.runner import DTYPES
-from rocnrdma_tpu_torch.bench.timing import trimmed_mean
+from rocnrdma_tpu_torch.bench.timing import agree, fleet_sum
+from rocnrdma_tpu_torch.ops import alltoall_cuda
 from rocnrdma_tpu_torch.transport import Transport
 from rocnrdma_tpu_torch.workloads import _replay
 from rocnrdma_tpu_torch.workloads import routing as R
@@ -49,8 +62,11 @@ def moe_step(t: Transport, algo: str, expert_compute: bool):
 
     Layout: x is ``(ranks..., n_experts, cap, d)``: chunk e holds the
     tokens this rank routes to expert e (capacity cap)."""
-    a2a = t.jit_fn("alltoall", algo)
+    return uniform_layer(t.jit_fn("alltoall", algo), expert_compute)
 
+
+def uniform_layer(a2a, expert_compute: bool):
+    """``moe_step``'s step over the alltoall ``a2a`` (rank-major in, out)."""
     def step(x):
         routed = _a2a_slots(a2a, x)      # dispatch: tokens to their expert
         if expert_compute:
@@ -83,7 +99,13 @@ def moe_topk_step(t: Transport, algo: str, expert_compute: bool,
     ``expert``: the transform of the dispatched ``(ranks..., E, cap, d)``
     slots (default: x2, for identity-style checks; ``ffn_expert(...)`` for
     matmul work)."""
-    a2a = t.jit_fn("alltoall", algo)
+    return topk_layer(t.jit_fn("alltoall", algo), expert_compute, n_experts, cap,
+                      top_k, expert)
+
+
+def topk_layer(a2a, expert_compute: bool, n_experts: int, cap: int, top_k: int,
+               expert=None):
+    """``moe_topk_step``'s layer over the alltoall ``a2a``."""
     if expert is None:
         def expert(v):
             return v * 2.0
@@ -134,6 +156,9 @@ def main(argv=None) -> int:
     p.add_argument("--fake-devices", type=int, default=None)
     p.add_argument("--platform", choices=("auto", "cpu"), default="auto")
     p.add_argument("--out", default=None)
+    p.add_argument("--check-plain", action="store_true",
+                   help="--algo cuda_ring: hold the layer's output to the same "
+                        "layer with the alltoall kernel's plain version, bitwise")
     args = p.parse_args(argv)
     spec = MOE_MODELS[args.model] if args.model else None
     if spec:
@@ -144,13 +169,18 @@ def main(argv=None) -> int:
             args.top_k = spec["top_k"]
         else:
             args.tokens *= spec["top_k"]  # uniform emulation of k dispatches
-        if args.ranks is None and args.mesh2d is None:
-            args.ranks = spec["n_experts"]  # the model's EP world
 
-    topo = cli_common.setup_backend(args.fake_devices, args.platform, args.ranks)
-    t = Transport(cli_common.build_mesh(args.mesh2d, args.ranks, topo))
-    n = t.n_ranks
-    if spec:
+    # under a launcher's fleet the mesh is the world's, one expert a rank;
+    # the model's expert count sets the ranks of one process's mesh only
+    model_ranks = spec["n_experts"] if spec and args.mesh2d is None else None
+    topo = cli_common.setup_backend(args.fake_devices, args.platform,
+                                    args.ranks or model_ranks, across=True)
+    t = Transport(cli_common.build_mesh(
+        args.mesh2d, args.ranks or (None if cli_common.joined() else model_ranks), topo))
+    n, span, lead = t.n_ranks, t.span, cli_common.is_lead()
+    rows = math.prod(t.mesh.local_shape)  # the ranks this process holds
+    first = 0 if span is None else span.index * rows
+    if spec and lead:
         print(f"# {args.model}: d_model={args.d_model}, top_k={spec['top_k']}, "
               f"running {n} experts (one per rank)", file=sys.stderr)
         if n != spec["n_experts"]:
@@ -159,14 +189,14 @@ def main(argv=None) -> int:
                   f"{n}-expert, not the named model's", file=sys.stderr)
 
     dtype = DTYPES[args.dtype]
-    lead = tuple(t.mesh.shape)
+    whole = tuple(t.mesh.shape)
     rng0 = np.random.default_rng(0)
 
     if args.routing == "topk":
         cap = R.expert_capacity(args.tokens, n, args.top_k, args.capacity_factor)
-        tok_np = rng0.standard_normal(size=lead + (args.tokens, args.d_model),
+        tok_np = rng0.standard_normal(size=whole + (args.tokens, args.d_model),
                                       dtype=np.float32)
-        log_np = rng0.standard_normal(size=lead + (args.tokens, n), dtype=np.float32)
+        log_np = rng0.standard_normal(size=whole + (args.tokens, n), dtype=np.float32)
         x = (t.shard(tok_np, dtype), t.shard(log_np))
         topk_step = moe_topk_step(t, args.algo, args.expert_compute, n, cap, args.top_k)
 
@@ -174,38 +204,58 @@ def main(argv=None) -> int:
             return topk_step(tokens, logits)[0]
 
         out0, keep = topk_step(*x)
-        stats = R.route_stats(keep)
-        print(f"# topk routing: top_k={args.top_k} capacity={cap} "
-              f"({args.capacity_factor}x): {stats['dropped']}/"
-              f"{stats['routed']} dropped ({100 * stats['drop_rate']:.1f}%)",
-              file=sys.stderr)
+        stats = fleet_route_stats(keep, span)
+        if lead:
+            print(f"# topk routing: top_k={args.top_k} capacity={cap} "
+                  f"({args.capacity_factor}x): {stats['dropped']}/"
+                  f"{stats['routed']} dropped ({100 * stats['drop_rate']:.1f}%)",
+                  file=sys.stderr)
         if not args.expert_compute and stats["dropped"] == 0:
             # no drops + identity experts: the gates sum to 1 per token, so
             # the layer output is the input, to the token dtype's precision
             tol = 1e-4 if dtype.itemsize >= 4 else 5e-2
-            np.testing.assert_allclose(out0.float().cpu().numpy(),
-                                       x[0].float().cpu().numpy(), rtol=tol, atol=tol)
+            agree(span, identity_error(out0, x[0], tol, tol), "moe topk identity")
         del out0, keep
+        whole_np = (tok_np, log_np)
+
+        def plain_layer(tokens, logits):
+            return topk_layer(alltoall_cuda.alltoall_plain, args.expert_compute, n, cap,
+                              args.top_k)(tokens, logits)[0]
     else:
         cap = max(1, args.tokens // n)  # uniform: tokens/rank/expert
-        x_np = rng0.standard_normal(size=lead + (n, cap, args.d_model), dtype=np.float32)
+        x_np = rng0.standard_normal(size=whole + (n, cap, args.d_model), dtype=np.float32)
         x = (t.shard(x_np, dtype),)
         step = moe_step(t, args.algo, args.expert_compute)
         # without compute, combine(dispatch(x)) is the identity
         if not args.expert_compute:
-            np.testing.assert_allclose(step(*x).float().cpu().numpy(),
-                                       x[0].float().cpu().numpy(), rtol=1e-5, atol=1e-6)
+            agree(span, identity_error(step(*x), x[0], 1e-5, 1e-6),
+                  "moe uniform identity")
+        whole_np = (x_np,)
+        plain_layer = uniform_layer(alltoall_cuda.alltoall_plain, args.expert_compute)
 
-    out = step(*x)
+    before = _replay.launch_counts(t.device)
+    step(*x)  # warm
     _replay._sync(t.device)
-    spans = []
-    for _ in range(args.repeats):
-        t0 = time.perf_counter()
+
+    def run():
         for _ in range(args.iters):
-            out = step(*x)
+            y = step(*x)
         _replay._sync(t.device)
-        spans.append((time.perf_counter() - t0) / args.iters)
-    mean_s = trimmed_mean(spans)
+        return [y]
+    last = []
+    mean_s = _replay.timed(run, args.repeats, last, span) / args.iters
+    extra = _replay.launched(t.device, before)
+    if args.check_plain and args.algo == "cuda_ring":
+        # the same layer over every rank's rows, its alltoall the kernel's
+        # plain version, on this device: this process's rows bitwise (the
+        # tokens in the sweep dtype, the logits float32, as ``x``)
+        want = plain_layer(*(torch.from_numpy(a).to(t.device).to(
+            dtype if i == 0 else torch.float32) for i, a in enumerate(whole_np)))
+        extra["plain_max_abs_err"] = _replay.check_plain(
+            t, last, [want.reshape(n, -1)[first:first + rows].cpu()],
+            f"moe {args.routing}/{args.algo}")
+        del want
+    del last, whole_np
 
     per_rank_bytes = n * cap * args.d_model * dtype.itemsize
     # uniform: the step is 2 bare alltoalls, so step/2 is alltoall time.
@@ -217,7 +267,10 @@ def main(argv=None) -> int:
         "moe", collective, args.algo, n, per_rank_bytes, args.dtype, sec,
         platform=topo.platform, tokens=args.tokens, d_model=args.d_model,
         capacity=cap, routing=args.routing, expert_compute=args.expert_compute,
-        step_ms=mean_s * 1e3, device=topo.device_name)
+        step_ms=mean_s * 1e3, device=topo.device_name,
+        **cli_common.link_extra(topo, span, n), **extra)
+    if not lead:
+        return 0
     if args.out:
         with open(args.out, "a") as fp:
             rec.write(fp)
@@ -226,5 +279,28 @@ def main(argv=None) -> int:
     return 0
 
 
+def identity_error(got: torch.Tensor, want: torch.Tensor, rtol: float,
+                   atol: float) -> str | None:
+    """Why ``got`` is not ``want`` within ``rtol``/``atol``, or None: the
+    layer's identity check, agreed across the fleet by its caller."""
+    try:
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                                   rtol=rtol, atol=atol)
+    except AssertionError as e:
+        return str(e)
+    return None
+
+
+def fleet_route_stats(keep: torch.Tensor, span) -> dict:
+    """``routing.route_stats`` over every rank's ``keep``: this process's
+    alone, or across processes the sums over the ranks of ``span``."""
+    stats = R.route_stats(keep)
+    if span is None:
+        return stats
+    routed, kept = (int(v) for v in fleet_sum([stats["routed"], stats["kept"]], span))
+    return {"routed": routed, "kept": kept, "dropped": routed - kept,
+            "drop_rate": (routed - kept) / routed if routed else 0.0}
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(cli_common.main(main))

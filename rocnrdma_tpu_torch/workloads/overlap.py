@@ -18,9 +18,18 @@ Overlap metric: ``overlap_frac = (Tc + Tm - Tboth) / min(Tc, Tm)``, the
 fraction of the shorter phase hidden under the longer (1.0 = fully
 hidden, 0 = serial, < 0 = combining hurt).
 
+Across processes (a launcher's environment, ``cli_common``), each process
+is one rank of ``rank_mesh(N, group=WORLD)`` holding its rows of the
+inputs drawn whole; the side stream runs the spanning ``fused`` (NCCL with
+a GPU a process, gloo staged through pinned memory on one card) or
+``ring`` allreduce. Each of the three times is its maximum over the ranks
+(a barrier before each repeat), and ``overlap_frac`` is computed from
+those; rank 0 alone prints and writes ``--out``.
+
 Usage::
 
     python -m rocnrdma_tpu_torch.workloads.overlap --fake-devices 8 --layers 4 --platform cpu
+    torchrun --nproc-per-node 4 -m rocnrdma_tpu_torch.workloads.overlap
 """
 
 from __future__ import annotations
@@ -104,9 +113,10 @@ def measure(t: Transport, layers: int, dim: int, batch: int, grad_elems: int,
             repeats: int = 5, iters: int = 3) -> dict:
     compute, comm, both = build_fns(t, algo)
     y, Ws, grads = example_inputs(t, layers, dim, batch, grad_elems, dtype)
-    tc = time_fn(compute, y, Ws, repeats=repeats, calls_per_repeat=iters).mean_s
-    tm = time_fn(comm, grads, repeats=repeats, calls_per_repeat=iters).mean_s
-    tb = time_fn(both, y, Ws, grads, repeats=repeats, calls_per_repeat=iters).mean_s
+    kw = dict(repeats=repeats, calls_per_repeat=iters, span=t.span)
+    tc = time_fn(compute, y, Ws, **kw).mean_s
+    tm = time_fn(comm, grads, **kw).mean_s
+    tb = time_fn(both, y, Ws, grads, **kw).mean_s
     overlap = (tc + tm - tb) / max(min(tc, tm), 1e-12)
     return {"compute_s": tc, "comm_s": tm, "both_s": tb, "overlap_frac": overlap}
 
@@ -132,7 +142,8 @@ def main(argv=None) -> int:
     p.add_argument("--out", default=None, help="JSONL output path")
     args = p.parse_args(argv)
 
-    topo = cli_common.setup_backend(args.fake_devices, args.platform, args.ranks)
+    topo = cli_common.setup_backend(args.fake_devices, args.platform, args.ranks,
+                                    across=True)
     t = Transport(cli_common.build_mesh(args.mesh2d, args.ranks, topo))
     itemsize = DTYPES[args.dtype].itemsize
     grad_elems = max(1, int(args.grad_kb * 1024) // itemsize)
@@ -144,7 +155,10 @@ def main(argv=None) -> int:
         "overlap", "allreduce", args.algo, t.n_ranks, grad_bytes, args.dtype,
         res["both_s"], platform=topo.platform, layers=args.layers, dim=args.dim,
         batch=args.batch, compute_s=res["compute_s"], comm_s=res["comm_s"],
-        overlap_frac=res["overlap_frac"], device=topo.device_name)
+        overlap_frac=res["overlap_frac"], device=topo.device_name,
+        **cli_common.link_extra(topo, t.span, t.n_ranks))
+    if not cli_common.is_lead():
+        return 0
     if args.out:
         with open(args.out, "a") as fp:
             rec.write(fp)
@@ -157,4 +171,4 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(cli_common.main(main))

@@ -31,7 +31,8 @@ input (``_build_input``: ``default_rng(0)``) for every explicit arm
 1e-5, atol 1e-6 for ``fused`` (torch's order of summation, not XLA's);
 the failed check fails every rank, naming rank 1, inside the deadline; only
 rank 0 prints results. Out of a fleet: a launcher's environment that
-cannot be joined makes a CLI exit non-zero naming the coordinator, and
+cannot be joined makes a CLI exit non-zero naming the coordinator (the
+workload CLIs, ported across processes since, raise naming it too), and
 the CLIs not ported across processes refuse a launcher's fleet. The JAX package does not run across processes here
 (``jax.distributed`` fails to initialize on this jax), so the fleet is
 held to its one-process outputs.
@@ -53,7 +54,7 @@ from rocnrdma_tpu import metrics as RM
 from rocnrdma_tpu import runtime as rt
 from rocnrdma_tpu.transport import Transport as RefTransport
 from rocnrdma_tpu_torch import metrics
-from rocnrdma_tpu_torch.bench import bench_allreduce, runner
+from rocnrdma_tpu_torch.bench import runner
 from rocnrdma_tpu_torch.runtime.multiprocess import run_cli
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -334,9 +335,7 @@ def test_an_unjoinable_coordinator_exits_non_zero_naming_it(tmp_path, module):
     assert r.stdout == "" and not (tmp_path / "out").exists()
 
 
-@pytest.mark.parametrize("module", ["workloads.moe", "workloads.ddp_replay",
-                                    "workloads.fsdp_replay", "workloads.overlap",
-                                    "first_contact", "bench.bench_local",
+@pytest.mark.parametrize("module", ["first_contact", "bench.bench_local",
                                     "bench.fold_ladder", "bench.mfu_profile"])
 def test_a_cli_not_ported_across_processes_refuses_a_fleet(monkeypatch, module):
     monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
@@ -349,9 +348,16 @@ def test_a_cli_not_ported_across_processes_refuses_a_fleet(monkeypatch, module):
         cli.main(["--platform", "cpu"])
 
 
-def test_an_unjoinable_launcher_environment_is_refused_naming_the_coordinator(monkeypatch):
+@pytest.mark.parametrize("module", ["bench.bench_allreduce", "workloads.moe",
+                                    "workloads.ddp_replay", "workloads.fsdp_replay",
+                                    "workloads.overlap"])
+def test_an_unjoinable_launcher_environment_is_refused_naming_the_coordinator(
+        monkeypatch, module):
+    """The CLIs ported across processes join a launcher's fleet: one whose
+    environment cannot be joined raises, the coordinator named."""
     monkeypatch.setenv("COORDINATOR_ADDRESS", "127.0.0.1:9")
     monkeypatch.setenv("WORLD_SIZE", "2")
     monkeypatch.delenv("RANK", raising=False)
+    cli = importlib.import_module("rocnrdma_tpu_torch." + module)
     with pytest.raises(RuntimeError, match=r"coordinator='127.0.0.1:9'"):
-        bench_allreduce.main(["--platform", "cpu", "--sizes", "4K"])
+        cli.main(["--platform", "cpu"])

@@ -469,7 +469,8 @@ def test_front_door_cuda_tensors_come_back_on_the_card(cuda_device):
         ch.flush(timeout_s=30.0)
         res["async"] = (fut.wait(30.0), pg.all_reduce(x[0].cpu().numpy()))
         with pytest.raises(dist.HostPlaneDtypeError):
-            pg.all_reduce(x.to(torch.bfloat16))
+            pg.all_reduce(torch.zeros(4, dtype=torch.uint8, device=x.device).view(
+                torch.float8_e4m3fnuz))
         with pytest.raises(ValueError, match="change device"):
             pg.batch_isend_irecv([("recv", torch.empty(4), (r - 1) % n),
                                   ("send", x, (r + 1) % n)])

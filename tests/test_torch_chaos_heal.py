@@ -7,6 +7,7 @@ timeline digests equal across the two packages.
 
 import json
 import re
+from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 
@@ -35,6 +36,30 @@ def _hung(results):
             f"rank {r.process_id} HUNG to the harness kill:\n{r.stderr}"
 
 
+def _both(n: int, task: str, **kw) -> tuple:
+    """The port's and the reference's fleets of ``task``, run at once:
+    each its own processes, store port and shared-memory segments, so
+    neither sees the other; the logs compared are seeded replays."""
+    with ThreadPoolExecutor(2) as pool:
+        port = pool.submit(PM.run_workers, n, task, **kw)
+        ref = pool.submit(RM.run_workers, n, task, **kw)
+        return port.result(), ref.result()
+
+
+def variants_held(variants: dict) -> dict:
+    """``_chaos.variant_equals_reference`` of each of ``variants`` (name ->
+    (variant, kill op, lines)), their fleets at once; each name's outcome:
+    None, or the exception its check raised."""
+    from _chaos import variant_equals_reference
+
+    with pytest.MonkeyPatch.context() as mp, ThreadPoolExecutor(len(variants)) as pool:
+        # the helper sets this too; set once before the threads start
+        mp.setenv("ROCNRDMA_FLIGHT_EVENTS", "32768")
+        runs = {k: pool.submit(variant_equals_reference, mp, *v)
+                for k, v in variants.items()}
+        return {k: f.exception() for k, f in runs.items()}
+
+
 def test_kill_and_heal_logs_equal_the_references():
     """4 ranks, rank 2 hard-killed at op 49 mid-allreduce: the port's
     survivors heal to epoch 1 on [0, 1, 3], finish every round bitwise, fence
@@ -44,8 +69,7 @@ def test_kill_and_heal_logs_equal_the_references():
     n, victim = 4, 2
     kw = dict(timeout_s=150.0, seed=11, rounds=6, kill_ranks=str(victim),
               kill_ops="49")
-    port = PM.run_workers(n, "kill-and-heal", **kw)
-    ref = RM.run_workers(n, "kill-and-heal", **kw)
+    port, ref = _both(n, "kill-and-heal", **kw)
     for results in (port, ref):
         _hung(results)
         assert results[victim].returncode == 7, results[victim].stdout
@@ -82,8 +106,7 @@ def test_die_mid_collective_logs_equal_the_references():
     reference's survivor prints for the same seed."""
     n, victim = 4, 2
     kw = dict(timeout_s=120.0, seed=7, rounds=6, fault_rank=victim)
-    port = PM.run_workers(n, "die-mid-collective", **kw)
-    ref = RM.run_workers(n, "die-mid-collective", **kw)
+    port, ref = _both(n, "die-mid-collective", **kw)
     for results in (port, ref):
         _hung(results)
         assert results[victim].returncode == 7, results[victim].stderr

@@ -10,7 +10,7 @@ import pytest
 from rocnrdma_tpu import native as RN
 from rocnrdma_tpu_torch import native as PN
 
-from _chaos import variant_equals_reference
+from test_torch_chaos_heal import variants_held
 
 pytestmark = [
     pytest.mark.chaos,
@@ -19,10 +19,18 @@ pytestmark = [
 ]
 
 
-@pytest.mark.parametrize("variant,kill_op,lines", [
-    ({"codec": "int8"}, "49", ("CODECLOG", "FLEET")),
-    ({"hier": True}, "35", ("TRACELOG", "FLEET")),
-], ids=["codec", "hier"])
-def test_kill_and_heal_wire_variant_equals_the_references(monkeypatch, variant,
-                                                          kill_op, lines):
-    variant_equals_reference(monkeypatch, variant, kill_op, lines)
+VARIANTS = {"codec": ({"codec": "int8"}, "49", ("CODECLOG", "FLEET")),
+            "hier": ({"hier": True}, "35", ("TRACELOG", "FLEET"))}
+
+
+@pytest.fixture(scope="module")
+def held():
+    """Each variant's outcome (None, or the exception its check raised),
+    the variants' fleets run at once (``test_torch_chaos_variants.py``)."""
+    return variants_held(VARIANTS)
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_kill_and_heal_wire_variant_equals_the_references(held, variant):
+    if held[variant] is not None:
+        raise held[variant]

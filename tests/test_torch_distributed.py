@@ -365,13 +365,12 @@ def test_front_door_ragged_channel_and_async_verbs():
 
 
 def test_front_door_refuses_dtypes_without_numpy_and_never_casts():
-    # bf16 folds now (below); fp8 stays refused: torch's cast saturates at
-    # +-448 where ml_dtypes' gives NaN past +-464, so it is not the
-    # reference's rounding
+    # bf16, e4m3fn and e5m2 fold now (below); the fnuz fp8 dtypes stay
+    # refused: numpy has none, and the host plane has no fold for them
     def drive(pg, r):
         errs = []
-        for dt in (torch.float8_e4m3fn,):
-            x = torch.ones(64, dtype=dt)
+        for dt in (torch.float8_e4m3fnuz, torch.float8_e5m2fnuz):
+            x = torch.zeros(64, dtype=torch.uint8).view(dt)
             for call in (lambda: pg.all_reduce(x), lambda: pg.all_gather(x),
                          lambda: pg.recv(x, (r - 1) % 2),
                          lambda: pg.batch_isend_irecv([("send", x, 1 - r)])):
@@ -382,7 +381,7 @@ def test_front_door_refuses_dtypes_without_numpy_and_never_casts():
         return errs, pg.all_reduce(torch.full((8,), float(r + 1)))
     outs = run_group([PD] * 2, drive, plane="shm", group="bf16")
     for errs, total in outs:
-        assert len(errs) == 4 and isinstance(PD.HostPlaneDtypeError("x"), TypeError)
+        assert len(errs) == 8 and isinstance(PD.HostPlaneDtypeError("x"), TypeError)
         assert torch.equal(total, torch.full((8,), 3.0))
 
 
@@ -415,6 +414,112 @@ def test_front_door_folds_bf16_bitwise_as_ml_dtypes_folds_it(plane, n):
             assert isinstance(have, torch.Tensor) and have.dtype == torch.bfloat16
             np.testing.assert_array_equal(have.view(torch.int16).numpy(),
                                           np.asarray(want).view(np.int16))
+
+
+# fp8: (the host plane's bit dtype, ml_dtypes' name, torch's dtype)
+F8 = {"e4m3fn": ("F8E4M3", "float8_e4m3fn", torch.float8_e4m3fn),
+      "e5m2": ("F8E5M2", "float8_e5m2", torch.float8_e5m2)}
+
+
+@pytest.mark.parametrize("op", ["sum", "prod", "max", "min"])
+@pytest.mark.parametrize("fmt", list(F8))
+def test_fp8_fold_of_every_operand_pair_is_ml_dtypes_bitwise(fmt, op):
+    """All 256 x 256 operand pairs through the host plane's fold, bitwise
+    the ml_dtypes ufunc on the same bits (NaNs, infinities, signed zeros,
+    subnormals and overflow among them)."""
+    ml = pytest.importorskip("ml_dtypes")
+    from rocnrdma_tpu_torch.transport import plugin as PP
+    bits_dt, ml_name, _ = F8[fmt]
+    codes = np.arange(256, dtype=np.uint8)
+    a, b = (v.ravel() for v in np.meshgrid(codes, codes, indexing="ij"))
+    got = PP._NET_REDUCE_OPS[op](a.view(getattr(PP, bits_dt)), b.view(getattr(PP, bits_dt)))
+    ufunc = {"sum": np.add, "prod": np.multiply, "max": np.maximum, "min": np.minimum}[op]
+    with np.errstate(all="ignore"):
+        want = ufunc(a.view(getattr(ml, ml_name)), b.view(getattr(ml, ml_name)))
+    assert got.dtype == getattr(PP, bits_dt)
+    np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8))
+
+
+@pytest.mark.parametrize("fmt", list(F8))
+def test_fp8_round_is_ml_dtypes_cast_bitwise(fmt):
+    """The round step alone against ml_dtypes' cast: 3,000,001 values in
+    [-600, 600] (e4m3fn's NaN past +-464 among them), +-0, +-inf, NaNs of
+    both signs, float32 subnormals, e5m2's overflow to infinity and every
+    fp8 value; the widen table against ml_dtypes' widening."""
+    ml = pytest.importorskip("ml_dtypes")
+    from rocnrdma_tpu_torch.transport import plugin as PP
+    bits_dt, ml_name, _ = F8[fmt]
+    mdt, pdt = getattr(ml, ml_name), getattr(PP, bits_dt)
+    every = np.arange(256, dtype=np.uint8).view(mdt).astype(np.float32)
+    tiny = np.float32(np.finfo(np.float32).tiny)
+    special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, -np.nan, 448, 464, 465,
+                        57344, 61440, 61441, 1e30, -1e30, tiny, -tiny, tiny / 2,
+                        np.float32(1e-45), -np.float32(1e-45)], np.float32)
+    f = np.concatenate([np.linspace(-600, 600, 3_000_001, dtype=np.float32),
+                        special, every, every * np.float32(1 + 2 ** -5)])
+    got = PP.f8_round(f, pdt)
+    assert got.dtype == pdt
+    np.testing.assert_array_equal(got.view(np.uint8), f.astype(mdt).view(np.uint8))
+    np.testing.assert_array_equal(PP.f8_widen(np.arange(256, dtype=np.uint8).view(pdt)),
+                                  every)
+
+
+def _fp8_calls(pg, r, x):
+    return [pg.all_reduce(x), pg.all_reduce(x, op="prod"), pg.all_reduce(x, op="max"),
+            pg.all_reduce(x, op="min"), pg.reduce_scatter(x), pg.all_gather(x),
+            _sendrecv(pg, r, x), _batch(pg, r, x)]
+
+
+@pytest.mark.parametrize("plane", ["shm", "tcp"])
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_front_door_folds_fp8_bitwise_as_ml_dtypes_folds_it(plane, n):
+    """e4m3fn and e5m2 tensors (CPU) through the port's front door, each
+    rank's every result bitwise the reference's on the same values as
+    ml_dtypes arrays: the sum, prod, max and min allreduce,
+    reduce_scatter, all_gather, send/recv and a batched ring exchange,
+    with signed zeros, NaN, e5m2's inf, the largest values and sums past
+    them among the values."""
+    ml = pytest.importorskip("ml_dtypes")
+
+    def data(r, fmt):
+        x = _x(np.float32, r, salt=13) * 64
+        x[:5] = (0.0, -0.0, np.nan, 448.0, 240.0 if fmt == "e4m3fn" else np.inf)
+        return x.astype(getattr(ml, F8[fmt][1]))
+
+    def calls(pkg_tensor):
+        return lambda pg, r: [_fp8_calls(pg, r, pkg_tensor(data(r, fmt), fmt)) for fmt in F8]
+
+    ref = run_group([RD] * n, calls(lambda a, fmt: a), plane=plane, group=f"f8r{n}")
+    got = run_group([PD] * n, calls(
+        lambda a, fmt: torch.from_numpy(a.view(np.uint8)).view(F8[fmt][2])),
+        plane=plane, group=f"f8p{n}")
+    for r in range(n):
+        for fmt, want_calls, have_calls in zip(F8, ref[r], got[r]):
+            for want, have in zip(want_calls, have_calls):
+                if want is None:
+                    assert have is None
+                    continue
+                assert isinstance(have, torch.Tensor) and have.dtype == F8[fmt][2]
+                np.testing.assert_array_equal(have.view(torch.uint8).numpy(),
+                                              np.asarray(want).view(np.uint8))
+
+
+def test_fp8_formats_never_share_a_coalesced_bucket():
+    """Async e4m3fn and e5m2 allreduces queued on one channel (both bit
+    dtypes are 1-byte voids) flush as buckets of their own, each result
+    the synchronous call's."""
+    def drive(pg, r):
+        ch = pg.channel("bulk", bucket_bytes=1 << 20)
+        xs = [torch.from_numpy(_x(np.float32, r, (500,), k)).to(F8[fmt][2])
+              for k, fmt in enumerate(F8)]
+        futs = [ch.allreduce_async(x) for x in xs]
+        ch.flush(timeout_s=30.0)
+        got = [f.wait(30.0).clone() for f in futs]
+        return got, [pg.all_reduce(x) for x in xs]
+    for got, want in run_group([PD] * 2, drive, plane="shm", group="f8co"):
+        for g, w, fmt in zip(got, want, F8):
+            assert g.dtype == F8[fmt][2]
+            assert torch.equal(g.view(torch.uint8), w.view(torch.uint8))
 
 
 def test_numpy_in_numpy_out_is_untouched():

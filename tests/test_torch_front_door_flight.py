@@ -42,20 +42,21 @@ def batch_isend_irecv(self, ops):
 
 
 def test_a_refused_bfloat16_tensor_leaves_exactly_one_event():
-    # bf16 now folds (test_torch_distributed.py); fp8 is the refused dtype
-    fp8 = torch.float8_e4m3fn
+    # bf16, e4m3fn and e5m2 fold now (test_torch_distributed.py); the fnuz
+    # fp8 dtypes are the refused ones
+    fp8 = torch.float8_e4m3fnuz
     verb = D._front_door(all_reduce)
     mark = _mark()
     with pytest.raises(D.HostPlaneDtypeError, match="refused, not cast"):
         verb(None, torch.zeros(4, dtype=fp8))
-    assert _aborts_since(mark) == [{"verb": "all_reduce", "dtype": "torch.float8_e4m3fn",
+    assert _aborts_since(mark) == [{"verb": "all_reduce", "dtype": "torch.float8_e4m3fnuz",
                                     "device": "cpu", "error": "HostPlaneDtypeError"}]
     batch = D._front_door_batch(batch_isend_irecv)
     mark = _mark()
     with pytest.raises(D.HostPlaneDtypeError):
         batch(None, [("send", torch.zeros(2), 1), ("recv", torch.zeros(2, dtype=fp8), 1)])
     assert _aborts_since(mark) == [{"verb": "batch_isend_irecv",
-                                    "dtype": "torch.float8_e4m3fn", "device": "cpu",
+                                    "dtype": "torch.float8_e4m3fnuz", "device": "cpu",
                                     "error": "HostPlaneDtypeError"}]
     # a bf16 tensor is staged as its bits, no event
     mark = _mark()

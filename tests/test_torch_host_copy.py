@@ -27,7 +27,7 @@ PORT = os.path.join(REPO, "rocnrdma_tpu_torch")
 _FRONT_DOOR = ("HostPlaneDtypeError", "_STAGING_KEEP", "_Staging.*", "_STAGING",
                "staging_stats", "_numpy_dtype", "_Door.*", "_TensorHandle.*",
                "_holds_tensor", "_front_door", "_front_door_batch",
-               "_host_array", "_tensor_of",
+               "_host_array", "_tensor_of", "_bit_dtypes",
                "_ARRAY_VERBS", "_TEMPLATE_VERBS", "_ASYNC_VERBS",
                "_install_front_door", "stmt _install_front_door()")
 _SMOKE_FLOORS = ("SMOKE_FLOORS", "SMOKE_COALESCE_SPEEDUP", "SMOKE_CODEC_X",
@@ -64,6 +64,14 @@ REPLACED = {
        for d in ("BF16", "bf16_widen", "bf16_round", "_Fold.*")},
     ("transport/plugin.py", "_NET_REDUCE_OPS"): "each op a _Fold: the numpy "
         "ufunc, or on BF16 frames the fold ml_dtypes' bfloat16 ufunc does",
+    **{("transport/plugin.py", d): "added: fp8 frames (e4m3fn, e5m2) carried "
+       "as their bits and folded as ml_dtypes folds them, through a 256-entry "
+       "widen table and a ties-to-even round with ml_dtypes' overflow and NaN; "
+       "torch's fp8 cast saturates, and the card's machine has no ml_dtypes"
+       for d in ("F8E4M3", "F8E5M2", "_F8.*", "_F8_FORMATS", "f8_widen",
+                 "f8_round", "_NARROW")},
+    ("transport/coalesce.py", "Coalescer.submit"): "a bucket's key names a "
+        "bit dtype's fields, so two fp8 formats (both |V1) never share one",
     ("transport/codec.py", "_F8_PIECE"): "added: torch converts fp8 in pieces "
         "at its parallel grain, on one thread",
     ("transport/codec.py", "Fp8E4M3Codec.*"): "torch.float8_e4m3fn in place "
