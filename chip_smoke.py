@@ -231,7 +231,8 @@ Phases, each timed, any failure exits non-zero:
    those across processes in phase 14 (every rank's, both cases; rows
    1-5 must have some, the local folds have no form across processes),
    its ``cli_across_launches`` rank 0's in phase 16's CLI sweeps, its
-   ``workload_across_launches`` rank 0's in phase 16's workload CLIs;
+   ``workload_across_launches`` rank 0's in phase 16's workload CLIs, its
+   ``tools_launches`` rank 0's in phase 16's tool fleets;
 16. bench_mesh, after phase 14 and before the kernels line: the bench
    CLIs across processes, each launched as a launcher launches it
    (``runtime.multiprocess.run_cli``: the reference's
@@ -272,6 +273,27 @@ Phases, each timed, any failure exits non-zero:
    on every rank, an agreed check) and launched its kernels across
    processes; each run's ms a step printed beside the card's name and
    power limit.
+   The tools across processes, each launched through ``run_cli`` as its
+   own fleet (``TOOLS_ONE_CARD``: 2 processes over gloo staged, all six
+   fleets at once, beside the workload fleets; ``TOOLS_MESH``: a GPU a
+   process over NCCL, one fleet at a time, after them): the tuner's
+   sweep (one card ``allreduce,alltoall`` at 4K and 1M with
+   ``fused,ring,cuda_ring``; several GPUs the four ring verbs at 4K, 1M
+   and 1G with every 1-D arm), ``trace --measured --align-steps``
+   (``ring`` at 2 x 4 MiB; ``khd`` at 4 x 4 MiB with the model's digits),
+   ``first_contact`` (its calibration under ``RNR_HW_CAL_DIR`` in
+   ``OUT_DIR``; cut on one card, its dryrun left to phase 10; at its
+   defaults with several GPUs),
+   ``bench_local``, ``fold_ladder`` and ``mfu_profile`` (cut on one card;
+   256 MiB an operand, the default ladder and the headline's MFU shape
+   with several GPUs). Every rank exits 0; rank 0's records name the
+   fleet's link and process count and carry finite times (the tuner's
+   table keyed by the layout, the trace a lane group and aligned steps a
+   rank, a row a rank of each local fold, a profile a rank); every
+   ``cuda_ring`` point of ``first_contact``'s cli_smoke is bitwise its
+   kernels' plain versions on every rank; rank 0's launches over the
+   tool fleets include the ring and alltoall kernels across processes
+   and both combine kernels (the kernels line's ``tools_launches``).
 
 ``python3 chip_smoke.py --host-plane`` runs the probe and phase 11 alone,
 ``--chaos`` the probe and phase 12 alone, ``--hierarchical`` the probe and
@@ -2118,7 +2140,16 @@ def bench_mesh_phase(smi: str) -> dict:
         res[bench] = _cli_rows(recs)
         print(f"{bench} across {n} processes ({link}; {smi}) [us, busbw GB/s, peak "
               f"GiB] by algo and bytes: " + json.dumps(res[bench]), flush=True)
-    res["workloads"], res["workload_launches"] = workloads_across(n, link, gpus, smi)
+    kind = torch.cuda.get_device_name(0)
+    if gpus < 2:  # one card: the tool fleets beside the workload fleets
+        with concurrent.futures.ThreadPoolExecutor(1) as side:
+            tools = side.submit(tools_across, n, link, gpus, kind, smi)
+            res["workloads"], res["workload_launches"] = workloads_across(
+                n, link, gpus, smi)
+            res["tools"], res["tools_launches"] = tools.result()
+    else:
+        res["workloads"], res["workload_launches"] = workloads_across(n, link, gpus, smi)
+        res["tools"], res["tools_launches"] = tools_across(n, link, gpus, kind, smi)
     if gpus >= 2:
         res["torchrun"] = torchrun_check(n)
         res["headline"] = headline_across(n, smi)
@@ -2165,6 +2196,207 @@ def workloads_across(n: int, link: str, gpus: int, smi: str) -> tuple:
           f"{json.dumps({k: v for k, v in launches.items() if k.endswith('_across')})}",
           flush=True)
     return steps, launches
+
+
+# the tools across processes (phase 16): (tag, module, argv), each run as
+# its own fleet through run_cli; the --out, --outdir or --profile paths are
+# added under OUT_DIR/tools. One card: 2 processes over gloo staged, cut
+# short, all fleets at once; several GPUs: a GPU a process over NCCL, one
+# fleet at a time, at the reference's sizes
+_TOOL_SHORT = ["--repeats", "2", "--trials", "1"]
+TOOLS_ONE_CARD = (
+    ("tuner", "transport.tuner", ["--verbs", "allreduce,alltoall", "--sizes", "4K,1M",
+                                  "--algos", "fused,ring,cuda_ring"]),
+    ("trace", "trace", ["--algo", "ring", "--size", "4M", "--measured", "--align-steps"]),
+    # its dryrun runs in phase 10's one-process first_contact; across
+    # processes with several GPUs
+    ("first_contact", "first_contact", ["--sizes", "4K,1M", "--smoke-size", "64K",
+                                        "--calibrate-widths", "2", "--skip-dryrun"]),
+    ("bench_local", "bench.bench_local", ["--size", "64M", "--kernels",
+                                          "torch2,cuda2,pipe2", "--k2", "8"] + _TOOL_SHORT),
+    ("fold_ladder", "bench.fold_ladder", ["--widths", "2,4", "--budget", "1G",
+                                          "--per-op-cap", "256M"] + _TOOL_SHORT),
+    ("mfu_profile", "bench.mfu_profile", ["--tokens", "1024", "--d-model", "512",
+                                          "--ffn", "2048", "--k2", "8"] + _TOOL_SHORT),
+)
+TOOLS_MESH = (
+    ("tuner", "transport.tuner", [
+        "--verbs", "allreduce,reduce_scatter,allgather,alltoall", "--sizes", "4K,1M,1G",
+        "--algos", "fused,ring,ring_bidir,tree,khd,dtree,ptree,ktree,bruck,cuda_ring"]),
+    ("trace", "trace", ["--algo", "khd", "--size", "4M", "--measured", "--align-steps"]),
+    ("first_contact", "first_contact", []),
+    ("bench_local", "bench.bench_local", ["--size", "256M"]),
+    ("fold_ladder", "bench.fold_ladder", []),
+    ("mfu_profile", "bench.mfu_profile", ["--tokens", "4096", "--d-model", "2048",
+                                          "--ffn", "8192"]),
+)
+KHD_SIZE = 4 * MiB
+
+
+def _tool_paths(tag: str, n: int) -> tuple:
+    """(argv naming where ``tag``'s fleet writes, that path), fresh."""
+    path = os.path.abspath(os.path.join(OUT_DIR, "tools", f"{tag}_{n}"))
+    if os.path.isdir(path):
+        shutil.rmtree(path)
+    elif os.path.exists(path):
+        os.remove(path)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if tag == "first_contact":
+        return ["--outdir", path], path
+    if tag == "mfu_profile":
+        return ["--out", path + ".jsonl", "--profile", path], path
+    return ["--out", path], path
+
+
+def _finite(x) -> bool:
+    return isinstance(x, (int, float)) and 0 < x < float("inf")
+
+
+def tool_fleet(n: int, tag: str, module: str, argv: list, link: str, kind: str,
+               timeout_s: float = 900.0) -> dict:
+    """The tool ``module`` as ``n`` processes (``run_cli``): every rank
+    exits 0, and rank 0's records name the fleet's link and process count
+    and carry finite times; ``first_contact``'s calibration is kept in
+    ``OUT_DIR`` (``RNR_HW_CAL_DIR``) and every ``cuda_ring`` point of its
+    cli_smoke is bitwise its kernels' plain versions on every rank.
+    Returns what the check read, with rank 0's kernel launches."""
+    from rocnrdma_tpu_torch.runtime.multiprocess import run_cli
+    from rocnrdma_tpu_torch.transport import tuner
+
+    where, path = _tool_paths(tag, n)
+    env = {}
+    if tag == "first_contact":
+        env["RNR_HW_CAL_DIR"] = os.path.abspath(os.path.join(OUT_DIR, "tools", "hw_cal"))
+    if tag == "trace" and "khd" in argv:
+        digits = tuner.khd_model_digits(
+            "allreduce", n, KHD_SIZE, *tuner.constants_for(kind, "allreduce", 1),
+            device_kind=kind)
+        argv = argv + ["--digits", ",".join(map(str, digits))]
+    t0 = time.perf_counter()
+    rs = run_cli(n, f"rocnrdma_tpu_torch.{module}", argv + where, timeout_s=timeout_s,
+                 env=env)
+    secs = round(time.perf_counter() - t0, 1)
+    for r in rs:
+        if r.returncode != 0:
+            raise AssertionError(f"{tag} x {n} rank {r.process_id}: exit "
+                                 f"{r.returncode}\n{r.stdout[-3000:]}\n{r.stderr[-4000:]}")
+    what = f"{tag} x {n}"
+    out = {"seconds": secs, "launches": {}}
+
+    def launched(counts):
+        for k, v in (counts or {}).items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+
+    def fleet_of(rec, name=what):
+        if rec.get("link") != link or rec.get("processes") != n:
+            raise AssertionError(f"{name}: link {rec.get('link')}, processes "
+                                 f"{rec.get('processes')}; want {link}, {n}")
+
+    def rows(p):
+        with open(p) as fp:
+            return [json.loads(ln) for ln in fp.read().splitlines()]
+
+    if tag == "tuner":
+        with open(path) as fp:
+            table = json.load(fp)
+        meta = table.pop("_meta")
+        fleet_of(meta)
+        layout = f"gpu/{link}"  # tuner.table_platform's key across processes
+        times = meta["times_s"]
+        if (not table or any(not k.endswith(f"|{n}|1|{layout}") for k in table)
+                or not all(_finite(t) for arms in times.values()
+                           for by in arms.values() for t in by.values())):
+            raise AssertionError(f"{what}: keys {sorted(table)}, times {times}")
+        launched(meta.get("launches"))
+        out["us"] = {v: {sz: {a: round(t * 1e6, 1) for a, t in arms.items()}
+                         for sz, arms in by.items()} for v, by in times.items()}
+        out["policy_agreement"] = meta["policy_agreement"]
+    elif tag == "trace":
+        with open(path) as fp:
+            od = json.load(fp)["otherData"]
+        fleet_of(od)
+        steps = od["step_diff"]
+        if (od.get("measured_ranks") != n or len(steps) != n * od["n_steps"]
+                or not od.get("capture_bitwise_equal")
+                or not all(_finite(r["measured_max_us"]) for r in steps)):
+            raise AssertionError(f"{what}: {json.dumps(od)[:3000]}")
+        launched(od.get("launches"))
+        out["steps"] = od["n_steps"]
+        out["per_rank_us"] = {r: [[x["predicted_us"], x["measured_max_us"]]
+                                  for x in steps if x["rank"] == r] for r in range(n)}
+    elif tag == "first_contact":
+        report = rows(os.path.join(path, "report.jsonl"))
+        if (len(report) != 7 - ("--skip-dryrun" in argv)
+                or not all(r["ok"] for r in report)):
+            raise AssertionError(f"{what}: report {report}")
+        if not report[0]["artifact"].startswith(env["RNR_HW_CAL_DIR"]):
+            raise AssertionError(f"{what}: calibration at {report[0]['artifact']}")
+        smoke = rows(os.path.join(path, "cli_smoke.jsonl"))
+        for rec in smoke:
+            ex = rec["extra"]
+            fleet_of(ex, f"{what} cli_smoke {rec['collective']} {rec['algo']}")
+            if not ex["checked"] or (rec["algo"] == "cuda_ring"
+                                     and ex.get("plain_max_abs_err") != 0):
+                raise AssertionError(f"{what} cli_smoke: {rec}")
+        if "cuda_ring" not in {rec["algo"] for rec in smoke}:
+            raise AssertionError(f"{what} cli_smoke ran {sorted({r['algo'] for r in smoke})}")
+        for r in report:
+            launched(r.get("launches"))
+        out["steps_s"] = {r["step"]: r["seconds"] for r in report}
+        out["alltoall_GBps"] = next(r["value"] for r in report
+                                    if r["step"] == "alltoall_scored")
+    else:
+        recs = rows(path + ".jsonl" if tag == "mfu_profile" else path)
+        if sorted({r["rank"] for r in recs}) != list(range(n)):
+            raise AssertionError(f"{what}: rows of ranks {[r['rank'] for r in recs]}")
+        key = {"bench_local": "GBps", "fold_ladder": "GBps_median",
+               "mfu_profile": "full_us"}[tag]
+        for rec in recs:
+            fleet_of(rec)
+            if not _finite(rec[key]):
+                raise AssertionError(f"{what}: {rec}")
+            if rec["rank"] == 0:
+                launched(rec.get("launches"))
+        name = {"bench_local": "kernel", "fold_ladder": "n_ops", "mfu_profile": "bench"}[tag]
+        out["by_rank"] = {r["rank"]: {} for r in recs}
+        for rec in recs:
+            out["by_rank"][rec["rank"]][rec[name]] = round(rec[key], 3)
+        if tag == "mfu_profile" and not all(
+                os.path.exists(os.path.join(path, f"rank{r}", "trace.json"))
+                for r in range(n)):
+            raise AssertionError(f"{what}: a rank wrote no profile")
+    return out
+
+
+def tools_across(n: int, link: str, gpus: int, kind: str, smi: str) -> tuple:
+    """The tools across ``n`` processes (module docstring, phase 16):
+    ``TOOLS_ONE_CARD`` on one card, every fleet at once, ``TOOLS_MESH`` one
+    fleet at a time with several GPUs. Returns each tool's checks and rank
+    0's kernel launches over all of them."""
+    runs = TOOLS_ONE_CARD if gpus < 2 else TOOLS_MESH
+
+    def fleet(run):
+        tag, module, argv = run
+        return tool_fleet(n, tag, module, argv, link, kind)
+
+    if gpus < 2:
+        with concurrent.futures.ThreadPoolExecutor(len(runs)) as pool:
+            done = dict(zip([r[0] for r in runs], pool.map(fleet, runs)))
+    else:
+        done = {r[0]: fleet(r) for r in runs}
+    launches = {}
+    for tag, res in done.items():
+        for k, v in res["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        print(f"{tag} across {n} processes ({link}; {smi}): "
+              + json.dumps({k: v for k, v in res.items() if k != "launches"}), flush=True)
+    print(f"tools across {n} processes, rank 0's kernel launches: {json.dumps(launches)}",
+          flush=True)
+    for k in ("ring_allreduce_across", "alltoall_across", "hbm_combine",
+              "hbm_combine_pipelined"):
+        if launches.get(k, 0) < 1:
+            raise AssertionError(f"tools across {n} processes: {k} never launched")
+    return done, launches
 
 
 def torchrun_check(n: int) -> dict:
@@ -2557,6 +2789,10 @@ def main() -> int:
         # and in the workload CLIs' runs
         kern["workload_across_launches"] = mesh["workload_launches"].get(
             kern["name"] + "_across", 0)
+        # and in the tools' fleets (rank 0's): rows 1-5 across processes,
+        # the local folds on rank 0's card
+        kern["tools_launches"] = (mesh["tools_launches"].get(kern["name"] + "_across", 0)
+                                  + mesh["tools_launches"].get(kern["name"], 0))
         if kern["route"] == "cuda" and "combine" not in kern["name"]                 and kern["across_launches"] < 1:
             raise AssertionError(f"{kern['name']}: no launch across processes in phase 14")
     print(smi)

@@ -16,6 +16,16 @@ version: correct, not a measurement of the kernels.
 
 Timing: the two-depth chained marginal (``timing.marginal_s_per_op``);
 GB/s counts (k+1) bytes moved per element (k reads + 1 write).
+
+Gate, before any timing: a 2-deep chain of each kernel against numpy on a
+slice of the operands; on the card each cudaN and pipeN chain is also
+held bitwise to the same chain of the kernels' plain version.
+
+Under a launcher's fleet (one process a card) every process folds on its
+own card, each gate agreed across the fleet (one rank's failure fails
+every rank, named) and each kernel's timing started after a barrier;
+rank 0 prints and writes one row a (rank, kernel), each naming its rank
+and card, so a slow card shows.
 """
 
 from __future__ import annotations
@@ -32,8 +42,9 @@ from rocnrdma_tpu_torch import metrics as M
 from rocnrdma_tpu_torch.bench import cli_common
 from rocnrdma_tpu_torch.bench.fold_ladder import DEFAULT_WIDTHS
 from rocnrdma_tpu_torch.bench.runner import DTYPES, parse_size
-from rocnrdma_tpu_torch.bench.timing import marginal_s_per_op
-from rocnrdma_tpu_torch.ops import hbm_combine, hbm_combine_pipelined
+from rocnrdma_tpu_torch.bench.timing import agree, fleet_barrier, marginal_s_per_op
+from rocnrdma_tpu_torch.ops import (hbm_combine, hbm_combine_pipelined,
+                                    hbm_combine_plain, launch_counts)
 
 KERNELS = ("torch2", "torch3", "torch4", "torch5", "torch6", "torch7",
            "torch8", "torch9", "cuda2", "cuda3", "cuda4", "cuda5",
@@ -50,8 +61,9 @@ def kernel_n_ops(kernel: str) -> int:
     return int(m.group(1))
 
 
-def combine_fn(kernel: str):
-    """The one-step combine ``f(y, *bs) -> y + b1 + ... + b(k-1)``."""
+def combine_fn(kernel: str, plain: bool = False):
+    """The one-step combine ``f(y, *bs) -> y + b1 + ... + b(k-1)``;
+    ``plain``: a kernel row's plain version in place of the kernel."""
     k = kernel_n_ops(kernel)
     if kernel.startswith("torch"):
         def f(y, *bs):
@@ -60,14 +72,15 @@ def combine_fn(kernel: str):
                 out = torch.add(out, b)
             return out
         return f
-    kernel_fn = hbm_combine_pipelined if kernel.startswith("pipe") else hbm_combine
+    kernel_fn = (hbm_combine_plain if plain else
+                 hbm_combine_pipelined if kernel.startswith("pipe") else hbm_combine)
     return lambda y, *bs: kernel_fn(y, *bs[:k - 1])
 
 
-def make_combine_chain(kernel: str, k: int):
+def make_combine_chain(kernel: str, k: int, plain: bool = False):
     """A callable running the combine ``k`` times, each step's output the
     next step's first operand."""
-    f = combine_fn(kernel)
+    f = combine_fn(kernel, plain)
 
     def chain(x, *bs):
         for _ in range(k):
@@ -98,8 +111,27 @@ def make_parser() -> argparse.ArgumentParser:
     return p
 
 
+def gate_error(kname: str, x_gate: tuple, f32: list, tol: float, on_card: bool):
+    """This rank's failure of ``kname``'s 2-deep gate, or None: against
+    numpy within ``tol``, and on the card a kernel's chain bitwise against
+    its plain version's."""
+    want = f32[0] + 2 * sum(f32[1:kernel_n_ops(kname)])
+    out = make_combine_chain(kname, 2)(*x_gate)
+    got = out.float().cpu().numpy()
+    if not np.allclose(got, want, rtol=tol, atol=tol):
+        bad = int(np.argmax(~np.isclose(got, want, rtol=tol, atol=tol)))
+        return f"{kname}: self-check failed at element {bad} ({got[bad]} vs {want[bad]})"
+    if on_card and not kname.startswith("torch"):
+        plain = make_combine_chain(kname, 2, plain=True)(*x_gate)
+        if not torch.equal(out, plain):
+            err = float((out.float() - plain.float()).abs().max())
+            return f"{kname}: not bitwise its plain version (max abs err {err})"
+    return None
+
+
 def run(args) -> list[dict]:
-    topo = cli_common.setup_backend(None, args.platform, default_ranks=1)
+    topo = cli_common.setup_backend(None, args.platform, default_ranks=1, across=True)
+    span = cli_common.fleet_span(topo)
     dev = topo.device
     size = parse_size(args.size) if args.size else (
         512 * M.KiB if topo.is_oracle else 256 * M.MiB)
@@ -122,29 +154,45 @@ def run(args) -> list[dict]:
     x_gate = tuple(x[:gate].contiguous() for x in x0)
     f32 = [x.float().cpu().numpy() for x in x_gate]
     tol = 1e-3 if dtype.itemsize == 4 else 3e-2
+    fleet = {} if span is None else {"rank": span.index, "device_index": dev.index,
+                                     **cli_common.link_extra(topo, span, span.size)}
     rows = []
     for kname in kernels:
         n_ops = kernel_n_ops(kname)
-        want = f32[0] + 2 * sum(f32[1:n_ops])
-        got = make_combine_chain(kname, 2)(*x_gate).float().cpu().numpy()
-        if not np.allclose(got, want, rtol=tol, atol=tol):
-            bad = int(np.argmax(~np.isclose(got, want, rtol=tol, atol=tol)))
-            raise SystemExit(f"{kname}: self-check failed at element {bad} "
-                             f"({got[bad]} vs {want[bad]})")
+        before = launch_counts()
+        err = gate_error(kname, x_gate, f32, tol, dev.type == "cuda")
+        agree(span, err, f"bench_local {kname} gate", exc=SystemExit)
+        if span is not None:
+            fleet_barrier(span)  # the cards time the kernel at the same time
         sec = marginal_s_per_op(
             lambda k, kname=kname: make_combine_chain(kname, k),
             x0, args.k1, k2, args.repeats, args.trials)
         gbps = (n_ops + 1) * elems * dtype.itemsize / sec / 1e9
-        rows.append({"bench": "bench_local", "kernel": kname,
-                     "dtype": args.dtype, "size_bytes": size, "GBps": gbps, "s_per_op": sec,
-                     "platform": topo.platform, "device": topo.device_name})
-        print(f"{kname:8s} {args.dtype:9s} {size:>12d} B  {gbps:10.3f} GB/s  "
-              f"{sec * 1e3:.4f} ms/op  on {topo.device_name}")
-    if args.out:
+        row = {"bench": "bench_local", "kernel": kname,
+               "dtype": args.dtype, "size_bytes": size, "GBps": gbps, "s_per_op": sec,
+               "platform": topo.platform, "device": topo.device_name, **fleet}
+        launched = {k: v - before[k] for k, v in launch_counts().items() if v > before[k]}
+        if launched:
+            row["launches"] = launched
+        rows.append(row)
+        if span is None:
+            print(format_row(row))
+    every = [row for rank_rows in cli_common.gather_rows(rows, span) for row in rank_rows]
+    if span is not None and cli_common.is_lead():
+        for row in every:
+            print(format_row(row))
+    if args.out and cli_common.is_lead():
         with open(args.out, "a") as fp:
-            for rec in rows:
+            for rec in every:
                 fp.write(json.dumps(rec) + "\n")
     return rows
+
+
+def format_row(row: dict) -> str:
+    where = "" if "rank" not in row else f" rank {row['rank']}"
+    return (f"{row['kernel']:8s} {row['dtype']:9s} {row['size_bytes']:>12d} B  "
+            f"{row['GBps']:10.3f} GB/s  {row['s_per_op'] * 1e3:.4f} ms/op  on "
+            f"{row['device']}{where}")
 
 
 def main(argv=None) -> int:
@@ -153,4 +201,4 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(cli_common.main(main))

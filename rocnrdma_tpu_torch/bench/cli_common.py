@@ -18,17 +18,21 @@ be joined raises with the coordinator named, and nothing carries on in
 one process. Each process is then one rank of the fleet: the 1-D mesh is
 ``rank_mesh(world, group=WORLD)``, a ``--mesh2d SxI`` is ``slice_mesh(S,
 I, group=WORLD)`` where S is the world size (a slice of I ranks a
-process), and ``--fake-devices`` is refused. Every other CLI (the tools:
-``trace``, ``first_contact``, the tuner, ``bench_local``,
-``fold_ladder``, ``mfu_profile``) runs in one process and refuses a
-launcher's fleet by name (``refuse_fleet``) rather than run N copies of
-itself. ``main`` runs a CLI and tears the group down at its exit, the
-kernels' IPC workspace first.
+process), and ``--fake-devices`` is refused. The card's
+micro-benchmarks (``bench_kernel_variants``, ``bench_pipe_sweep``,
+``bench_ring_tiles``) run in one process only: ``setup_backend`` without
+``across`` refuses a launcher's fleet, naming it. A tool that folds on its own
+card (``bench_local``, ``fold_ladder``, ``mfu_profile``, a calibration)
+agrees its checks and gathers its rows on ``fleet_span``: one row a rank
+(``gather_rows``), a calibration the fleet's median (``fleet_median``),
+written once (``save_calibration``). ``main`` runs a CLI and tears the
+group down at its exit, the kernels' IPC workspace first.
 """
 
 from __future__ import annotations
 
 import os
+import statistics
 import sys
 import traceback
 
@@ -59,31 +63,25 @@ def join(platform: str) -> bool:
     return joined()
 
 
-def refuse_fleet() -> None:
-    """Refuse a launcher's fleet of more than one process for a CLI that
-    runs in one process only (the tools are not ported across processes
-    yet: ROADMAP Queue 1), naming the launcher's
-    world size: N copies of a one-process program would each run the
-    whole mesh and write the same ``--out``."""
-    from rocnrdma_tpu_torch.runtime.init import launcher_env
-    env = launcher_env()
-    if env is not None and env[1] != 1:
-        coordinator, world, _ = env
-        raise SystemExit(
-            f"{os.path.basename(sys.argv[0])}: a launcher's environment asks "
-            f"for a fleet (coordinator={coordinator!r}, world size {world}); "
-            f"this CLI runs in one process only (not yet across processes: "
-            f"ROADMAP Queue 1) - launch it as one process")
-
-
 def setup_backend(fake_devices: int | None, platform: str,
                   default_ranks: int | None = None,
                   across: bool = False) -> Topology:
     """The topology a CLI runs on. ``across``: the CLI runs across
     processes, one rank each, where a launcher's environment asks (it
-    joins the group here); without it a launcher's fleet is refused."""
+    joins the group here). Without it the CLI runs in one process only
+    and a launcher's fleet of more than one is refused, the coordinator
+    and the world size named: N copies of a one-process program would
+    each time their kernels on the same card and write the same
+    ``--out``."""
     if not across:
-        refuse_fleet()
+        from rocnrdma_tpu_torch.runtime.init import launcher_env
+        env = launcher_env()
+        if env is not None and env[1] != 1:
+            raise SystemExit(
+                f"{os.path.basename(sys.argv[0])}: a launcher's environment "
+                f"asks for a fleet (coordinator={env[0]!r}, world size "
+                f"{env[1]}); this CLI runs in one process only - launch it "
+                f"as one process")
     elif join(platform):
         if fake_devices:
             raise SystemExit(
@@ -149,23 +147,79 @@ def build_mesh(mesh2d: str | None, ranks: int | None, topo: Topology) -> RankMes
     return rank_mesh(min(ranks or topo.n_devices, topo.n_devices), topo.device)
 
 
+def link_of(platform: str, span) -> str:
+    """The link between a mesh's ranks on ``platform`` (``detect_topology``'s
+    "gpu" or "cpu") whose leading axis crosses the processes of ``span``
+    (a ``ProcessSpan``, or None): ``cpu-loopback`` on the CPU,
+    ``hbm-loopback`` with the ranks on one GPU in one process, and across
+    processes ``nvlink`` (NCCL, a GPU a process) or ``host-loopback``
+    (processes sharing a GPU, gloo staged). A record's ``link`` and, across
+    processes, a tuning table's key (``tuner.table_platform``)."""
+    if platform != "gpu":
+        return "cpu-loopback"
+    if span is None:
+        return "hbm-loopback"
+    return "host-loopback" if span.staged else "nvlink"
+
+
 def link_extra(topo, span, n_ranks: int) -> dict:
-    """A record's ``link`` where it has more than one rank: ``cpu-loopback``
-    on the CPU, ``hbm-loopback`` with the ranks on one GPU in one process,
-    and across processes ``nvlink`` (NCCL, a GPU a process) or
-    ``host-loopback`` (processes sharing a GPU, gloo staged); across
-    processes also ``processes``, their count."""
+    """A record's ``link`` (``link_of``) where it has more than one rank;
+    across processes also ``processes``, their count."""
     extra = {}
     if n_ranks > 1:
-        if topo.platform != "gpu":
-            extra["link"] = "cpu-loopback"
-        elif span is None:
-            extra["link"] = "hbm-loopback"
-        else:
-            extra["link"] = "host-loopback" if span.staged else "nvlink"
+        extra["link"] = link_of(topo.platform, span)
     if span is not None:
         extra["processes"] = span.size
     return extra
+
+
+def fleet_span(topo: Topology):
+    """The ``ProcessSpan`` of the world's 1-D mesh (one rank a process)
+    where this process is in a group, else None: what a tool with no mesh
+    of its own agrees its checks and gathers its rows on. Every process
+    of the world calls it together (the first mesh over the group makes
+    its cross leg)."""
+    if not joined():
+        return None
+    return rank_mesh(topo.n_processes, topo.device,
+                     group=torch.distributed.group.WORLD).span
+
+
+def gather_rows(rows, span) -> list:
+    """``rows`` of every rank of ``span``, in its order, on every rank (one
+    ``all_gather_object`` on its cross group); ``[rows]`` without one."""
+    if span is None:
+        return [rows]
+    out = [None] * span.size
+    torch.distributed.all_gather_object(out, rows, group=span.cross_group)
+    return out
+
+
+def fleet_median(values: list, span) -> list:
+    """Each of ``values`` (the same count on every rank, one measurement
+    of this rank's card each) as its median over the ranks of ``span``;
+    ``values`` themselves without one."""
+    per_rank = gather_rows([float(v) for v in values], span)
+    return [statistics.median(col) for col in zip(*per_rank)]
+
+
+def save_calibration(device_kind: str, data: dict, span,
+                     base_dir: str | None = None) -> str:
+    """``hw.save_calibration`` on rank 0 of ``span`` alone (the file is
+    last-writer-wins: N writers would keep one arbitrary card's numbers);
+    after a barrier every rank drops its cached calibration, so the fleet
+    prices with the same constants. Returns the file's path."""
+    from rocnrdma_tpu_torch import hw
+    from rocnrdma_tpu_torch.bench.timing import fleet_barrier
+
+    if span is None or span.index == 0:
+        path = hw.save_calibration(device_kind, data, base_dir=base_dir)
+    else:
+        path = hw.calibration_path(device_kind, base_dir)
+    if span is not None:
+        fleet_barrier(span)
+        hw._CAL_CACHE.clear()
+    return path
 
 
 def is_lead() -> bool:

@@ -22,6 +22,11 @@ operand is at least ``OP_FLOOR`` = 64 MiB (128 MiB an add, well out of
 the cache at every width) under a 4 GiB budget (64 widths of 64 MiB).
 
     python -m rocnrdma_tpu_torch.bench.fold_ladder [--widths 2,3,4,8,16,32,64]
+
+Under a launcher's fleet (one process a card) every process runs the
+ladder on its own card, the gates agreed across the fleet; rank 0 prints
+and writes one row a (rank, width), each naming its rank and card, and
+``--save-calibration`` writes the fleet's median of each width once.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from rocnrdma_tpu_torch import hw
 from rocnrdma_tpu_torch import metrics as M
 from rocnrdma_tpu_torch.bench import cli_common
 from rocnrdma_tpu_torch.bench.runner import DTYPES, parse_size
-from rocnrdma_tpu_torch.bench.timing import marginal_trials
+from rocnrdma_tpu_torch.bench.timing import agree, fleet_barrier, marginal_trials
 from rocnrdma_tpu_torch.collectives.reduce_op import fold_
 
 # the reference's widths: the khd radices of n = 64 plus the narrow anchors
@@ -70,11 +75,14 @@ def fold_chain(n_ops: int, k: int):
 
 def run_ladder(widths, addend_budget: int, per_op_cap: int, k1: int, k2: int,
                repeats: int, trials: int, device: torch.device,
-               out_path=None, dtype: str = "float32",
-               floor: int = OP_FLOOR) -> list[dict]:
-    """Measure each width on ``device``; returns rows (and appends JSONL
-    to ``out_path``). Each width is first checked on a slice, bitwise
-    against the same adds on the host."""
+               dtype: str = "float32", floor: int = OP_FLOOR,
+               span=None) -> list[dict]:
+    """Measure each width on ``device``; returns rows, each printed as it
+    comes in one process. Each width is first checked on a slice, bitwise
+    against the same adds on the host. Across the processes of ``span``
+    (each on its own card) each gate is agreed, so one rank's failure fails
+    every rank, named, each width starts after a barrier, and nothing is
+    printed here: the caller gathers the rows."""
     tdt = DTYPES[dtype]
     isz = tdt.itemsize
     name = (torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu")
@@ -93,25 +101,31 @@ def run_ladder(widths, addend_budget: int, per_op_cap: int, k1: int, k2: int,
         for _ in range(2):
             for b in host[1:]:
                 want = want + b
-        if not torch.equal(got, want):
-            raise SystemExit(f"fold{w}: self-check failed")
+        agree(span, None if torch.equal(got, want) else f"fold{w}: self-check failed",
+              f"fold{w} self-check", exc=SystemExit)
+        if span is not None:
+            fleet_barrier(span)  # the cards fold at the same time
         tr = marginal_trials(lambda k: fold_chain(w, k), args, k1, k2,
                              repeats, trials)
-        span = sorted((w + 1) * elems * isz / s / 1e9 for s in tr)
-        med = statistics.median(span)
+        rates = sorted((w + 1) * elems * isz / s / 1e9 for s in tr)
+        med = statistics.median(rates)
         row = {"bench": "fold_ladder", "n_ops": w, "dtype": dtype,
-               "size_bytes": elems * isz, "GBps": span[-1], "GBps_median": med,
-               "spread": [span[0], span[-1]], "k1": k1, "k2": k2,
+               "size_bytes": elems * isz, "GBps": rates[-1], "GBps_median": med,
+               "spread": [rates[0], rates[-1]], "k1": k1, "k2": k2,
                "device": name, "platform": "gpu" if device.type == "cuda" else "cpu"}
         rows.append(row)
-        print(f"fold{w:<3d} {dtype:9s} {elems * isz / M.MiB:8.1f} MiB/operand "
-              f"{span[-1]:9.1f} GB/s best {med:9.1f} median  "
-              f"span {span[0]:.1f}-{span[-1]:.1f}", flush=True)
-        if out_path:
-            with open(out_path, "a") as fp:
-                fp.write(json.dumps(row) + "\n")
+        if span is None:  # a fleet's rows are printed once gathered
+            print(format_row(row), flush=True)
         del args
     return rows
+
+
+def format_row(row: dict) -> str:
+    lo, hi = row["spread"]
+    where = "" if "rank" not in row else f"  rank {row['rank']} ({row['device']})"
+    return (f"fold{row['n_ops']:<3d} {row['dtype']:9s} {row['size_bytes'] / M.MiB:8.1f} "
+            f"MiB/operand {row['GBps']:9.1f} GB/s best {row['GBps_median']:9.1f} "
+            f"median  span {lo:.1f}-{hi:.1f}{where}")
 
 
 def main(argv=None) -> int:
@@ -137,7 +151,9 @@ def main(argv=None) -> int:
                         "fraction) into this card's calibration file")
     args = p.parse_args(argv)
 
-    topo = cli_common.setup_backend(None, args.platform, default_ranks=1)
+    topo = cli_common.setup_backend(None, args.platform, default_ranks=1, across=True)
+    span = cli_common.fleet_span(topo)
+    lead = cli_common.is_lead()
     widths = ([int(w) for w in args.widths.split(",")] if args.widths
               else list(DEFAULT_WIDTHS))
     if topo.is_oracle:
@@ -152,17 +168,36 @@ def main(argv=None) -> int:
         raise SystemExit(f"--save-calibration needs a card with a hw.CHIPS row "
                          f"(got {topo.device_name!r}) and width 2, the anchor")
     smi = hw.smi_line() if topo.platform == "gpu" else ""
-    print(f"# fold ladder on {topo.device_name}" + (f" ({smi})" if smi else ""))
+    fleet = "" if span is None else f" x {span.size} processes"
+    if lead:
+        print(f"# fold ladder on {topo.device_name}" + (f" ({smi})" if smi else "")
+              + fleet)
     rows = run_ladder(widths, budget, cap, args.k1, k2, repeats, trials,
-                      topo.device, args.out, args.dtype, floor)
+                      topo.device, args.dtype, floor, span)
+    if span is not None:
+        extra = cli_common.link_extra(topo, span, span.size)
+        for row in rows:
+            row.update(rank=span.index, device_index=topo.device.index, **extra)
+    every = [row for rank_rows in cli_common.gather_rows(rows, span)
+             for row in rank_rows]
+    if span is not None and lead:
+        for row in every:
+            print(format_row(row), flush=True)
+    if args.out and lead:
+        with open(args.out, "a") as fp:
+            for row in every:
+                fp.write(json.dumps(row) + "\n")
     if args.save_calibration:
-        lad = {str(r["n_ops"]): r["GBps_median"] for r in rows}
-        path = hw.save_calibration(topo.device_name, {
+        meds = cli_common.fleet_median([r["GBps_median"] for r in rows], span)
+        lad = {str(r["n_ops"]): m for r, m in zip(rows, meds)}
+        path = cli_common.save_calibration(topo.device_name, {
             "fold_ladder": lad, "hbm_frac": lad["2"] / chip.hbm_GBps,
-            "provenance_ladder": f"bench.fold_ladder on {smi}"})
-        print(f"wrote {path}")
+            "provenance_ladder": f"bench.fold_ladder on {smi}{fleet}"
+                                 + ("" if span is None else ", the ranks' median")}, span)
+        if lead:
+            print(f"wrote {path}")
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(cli_common.main(main))

@@ -18,6 +18,12 @@ leg (``bench/headline.py``) counts only the two expert matmuls
 
     python -m rocnrdma_tpu_torch.bench.mfu_profile [--profile DIR] [--out rows.jsonl]
     python -m rocnrdma_tpu_torch.bench.mfu_profile --platform cpu   # plumbing only
+
+Under a launcher's fleet (one process a card) each process profiles its
+own one-rank step on its own card, as the reference's processes each
+profile their own device; rank 0 prints and writes one row a rank, each
+naming its rank and card, and ``--profile DIR`` writes ``DIR/rank<r>/``
+a rank.
 """
 
 from __future__ import annotations
@@ -155,8 +161,11 @@ def main(argv=None) -> int:
     p.add_argument("--out", default=None, help="append one JSON row here")
     args = p.parse_args(argv)
 
-    topo = cli_common.setup_backend(1, args.platform)
+    topo = cli_common.setup_backend(None, args.platform, default_ranks=1, across=True)
     device, kind, on_cpu = topo.device, topo.device_name, topo.is_oracle
+    span = cli_common.fleet_span(topo)
+    lead = cli_common.is_lead()
+    say = print if span is None else (lambda *a, **k: None)  # a fleet: rank 0 after
     if on_cpu:  # the CPU checks the plumbing at the headline's CPU shape
         T, d, ffn, dtype = mfu_shape(True)
         k1, k2, reps, trials = 2, 8, 3, 1
@@ -183,7 +192,7 @@ def main(argv=None) -> int:
                 split[variant] = (h, device_s(lambda: one(*xs), 20, h))
                 line += (f"; host enqueue {split[variant][0] * 1e6:.0f} us, device "
                          f"{split[variant][1] * 1e6:.0f} us a step")
-            print(line, flush=True)
+            say(line, flush=True)
 
     full, einsum, routing = res["full"], res["einsum"], res["routing"]
     row = {"bench": "mfu_profile", "T": T, "d": d, "ffn": ffn,
@@ -197,25 +206,40 @@ def main(argv=None) -> int:
     for variant, (h, dv) in split.items():
         row[f"{variant}_host_us"] = round(h * 1e6, 1)
         row[f"{variant}_device_us"] = round(dv * 1e6, 1)
-    print(f"# attribution: full = einsum ({einsum / full:.0%}) + routing "
-          f"({routing / full:.0%}) - overlap ({(einsum + routing - full) / full:.0%}); "
-          f"einsum-only MFU {row['mfu_einsum_only']:.2f} bounds any dispatch "
-          f"restructuring", flush=True)
+    say(f"# attribution: full = einsum ({einsum / full:.0%}) + routing "
+        f"({routing / full:.0%}) - overlap ({(einsum + routing - full) / full:.0%}); "
+        f"einsum-only MFU {row['mfu_einsum_only']:.2f} bounds any dispatch "
+        f"restructuring", flush=True)
 
     if args.profile:
         mk, xs = build_step(T, d, ffn, dtype, "full", device)
-        clock, ops = chain_top_ops(profile_chain(mk, xs, args.profile), not on_cpu)
+        where = (args.profile if span is None
+                 else os.path.join(args.profile, f"rank{span.index}"))
+        clock, ops = chain_top_ops(profile_chain(mk, xs, where), not on_cpu)
         row["top_ops_clock"] = clock
         row["top_ops"] = [[nm, round(ms, 3), ct] for nm, ms, ct in ops]
-        print(f"# top ops by {clock} time (total ms over an 8-step chain):")
+        say(f"# top ops by {clock} time (total ms over an 8-step chain):")
         for nm, ms, ct in row["top_ops"]:
-            print(f"#   {ms:9.3f} ms  x{ct:<4d} {nm}")
+            say(f"#   {ms:9.3f} ms  x{ct:<4d} {nm}")
 
-    if args.out:
+    if span is not None:
+        row.update(rank=span.index, device_index=device.index,
+                   **cli_common.link_extra(topo, span, span.size))
+        if args.profile:
+            row["profile_dir"] = where
+    rows = cli_common.gather_rows(row, span)
+    if span is not None and lead:
+        for r in rows:
+            print(f"# rank {r['rank']} ({r['device_kind']}): full {r['full_us']:.0f} "
+                  f"us/step, einsum {r['einsum_us']:.0f}, routing {r['routing_us']:.0f}, "
+                  f"MFU {r['mfu_full']:.2f} (einsum only {r['mfu_einsum_only']:.2f})",
+                  flush=True)
+    if args.out and lead:
         with open(args.out, "a") as fp:
-            fp.write(json.dumps(row) + "\n")
+            for r in rows:
+                fp.write(json.dumps(r) + "\n")
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(cli_common.main(main))

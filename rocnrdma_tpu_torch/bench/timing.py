@@ -107,17 +107,17 @@ def failed_ranks(failed: bool, span) -> list:
     return [span.peers[i] for i, f in enumerate(flags) if f]
 
 
-def agree(span, err: str | None, what: str) -> None:
-    """Raise on every rank of ``span`` when any rank's check failed
+def agree(span, err: str | None, what: str, exc=AssertionError) -> None:
+    """Raise ``exc`` on every rank of ``span`` when any rank's check failed
     (``err``: this rank's failure, or None), naming the ranks that failed
-    (``failed_ranks``). Without a span, raise ``err`` itself."""
+    (``failed_ranks``). Without a span, raise ``exc(err)`` itself."""
     if span is None:
         if err is not None:
-            raise AssertionError(err)
+            raise exc(err)
         return
     bad = failed_ranks(err is not None, span)
     if bad:
-        raise AssertionError(
+        raise exc(
             f"{what}: the check failed on rank(s) {bad} of {span.size}"
             + (f"; here: {err}" if err else ""))
 

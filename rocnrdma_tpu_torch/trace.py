@@ -15,8 +15,13 @@ step span (``collectives/_steps.py``), a ``record_function`` whose name
 holds ``ppermute``, and ``measured_lanes`` reads the exported Chrome-trace
 JSON. On the card a lane is one CUDA stream and a step's measured time is
 its span's device time (the ``gpu_user_annotation`` event): the step's row
-copies and its fold, where the reference's step is its permute alone. On
-the CPU the lane is the host thread's ``user_annotation`` events.
+copies and its fold, where the reference's step is its permute alone.
+Where the mesh spans processes the steps lane of each device holds each
+step's device time instead: from the first start to the last end of the
+kernels and copies the step span launched, on every stream (its copies,
+its fold and NCCL's send/recv kernel, which spins until the peer's
+matching call arrives, so the wait for the slowest peer is in it). On the
+CPU the lane is the host thread's ``user_annotation`` events.
 
 CLI::
 
@@ -24,6 +29,14 @@ CLI::
         --ranks 8 --size 4M --out dtree.trace.json
     python -m rocnrdma_tpu_torch.trace --algo dtree --measured --align-steps \
         --fake-devices 8 --out dtree.trace.json       # on the card
+    torchrun --nproc-per-node 4 -m rocnrdma_tpu_torch.trace --algo khd \
+        --measured --align-steps --out khd4.trace.json  # a GPU a process
+
+Across processes (a launcher's fleet, one rank a process) every rank
+captures its own lanes, its checks agreed across the fleet; rank 0
+gathers them and writes one trace: the model lane for the whole mesh,
+then one lane group a rank, named by the rank, and ``step_diff`` rows a
+(rank, step).
 """
 
 from __future__ import annotations
@@ -409,19 +422,67 @@ _MEASURED_OP_HINTS = ("ppermute", "add", "roll", "index", "copy",
 # copies, and each record_function range's span on the stream) and the
 # host's ("python_function" frames are never read: a frame name like
 # "add" would false-match the hints)
-_DEVICE_CATS = ("gpu_user_annotation", "kernel", "gpu_memcpy", "gpu_memset")
+_DEVICE_WORK_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+_DEVICE_CATS = ("gpu_user_annotation",) + _DEVICE_WORK_CATS
 _HOST_CATS = ("user_annotation", "cpu_op")
+# the host calls that launch device work; each carries the correlation id
+# of the kernel or copy it launched
+_LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+
+
+def _device_steps(evs: list) -> dict:
+    """Each host step span's device extent: ``{device pid: [(name,
+    start_ns, dur_ns)]}``, one event a step span (a ``user_annotation``
+    whose name holds ``ppermute``) that launched device work, from the
+    first start to the last end of the kernels and copies launched inside
+    it on its thread, whatever their stream. A step that crosses processes
+    runs its library call (NCCL's send/recv kernel) on the library's own
+    stream under the library's own annotation, so the step span's
+    ``gpu_user_annotation`` on the caller's stream holds only its copies
+    and fold; this extent holds the whole step."""
+    launched = {}  # correlation id -> (pid, tid, host ts in us)
+    for e in evs:
+        if e.get("ph") == "X" and e.get("cat") in _LAUNCH_CATS:
+            corr = e.get("args", {}).get("correlation")
+            if corr is not None:
+                launched[corr] = (e.get("pid"), e.get("tid"), float(e["ts"]))
+    spans = [e for e in evs if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+             and any(h in str(e.get("name", "")).lower() for h in _PERMUTE_HINTS)]
+    extents: dict = {}  # span index -> [device pid, first start, last end] (us)
+    for e in evs:
+        if e.get("ph") != "X" or e.get("cat") not in _DEVICE_WORK_CATS:
+            continue
+        host = launched.get(e.get("args", {}).get("correlation"))
+        if host is None:
+            continue
+        for i, sp in enumerate(spans):
+            if ((sp.get("pid"), sp.get("tid")) == host[:2]
+                    and float(sp["ts"]) <= host[2] <= float(sp["ts"]) + float(sp["dur"])):
+                start, end = float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0))
+                ext = extents.setdefault(i, [e.get("pid"), start, end])
+                ext[1], ext[2] = min(ext[1], start), max(ext[2], end)
+                break
+    out: dict = {}
+    for i, (pid, start, end) in sorted(extents.items(), key=lambda kv: kv[1][1]):
+        out.setdefault(pid, []).append((str(spans[i]["name"]), int(round(start * 1e3)),
+                                        int(round((end - start) * 1e3))))
+    return out
 
 
 def measured_lanes(json_path: str, hints=_MEASURED_OP_HINTS,
-                   device: bool | None = None) -> list:
+                   device: bool | None = None, steps: bool = False) -> list:
     """Parse a Chrome-trace JSON that ``torch.profiler`` exported
     (``prof.export_chrome_trace``) into per-lane events:
     ``[(lane_label, [(name, start_ns, dur_ns), ...]), ...]``, keeping only
     complete events whose name matches ``hints``. A lane is one
     (process, thread) of the trace: a CUDA stream on the card, a host
     thread on the CPU. ``device``: read the device's events (True), the
-    host's (False), or the device's when the trace has any (None)."""
+    host's (False), or the device's when the trace has any (None).
+    ``steps`` (a capture of a mesh that spans processes): on the device
+    each step's events form one more lane a device, ``<device>/steps``:
+    each step span's extent over every stream (``_device_steps``), which
+    then stands in for the step spans' per-stream ``gpu_user_annotation``
+    events (kept where no launch carries a correlation id)."""
     if json_path.endswith(".xplane.pb"):
         raise ValueError(f"{json_path}: an XProf .xplane.pb is the JAX "
                          f"package's capture; the port reads the Chrome-trace "
@@ -437,11 +498,15 @@ def measured_lanes(json_path: str, hints=_MEASURED_OP_HINTS,
     if device is None:
         device = any(e.get("cat") in _DEVICE_CATS for e in evs)
     cats = _DEVICE_CATS if device else _HOST_CATS
-    lanes: dict = {}
+    steps = _device_steps(evs) if device and steps else {}
+    lanes: dict = {(pid, "steps"): lane for pid, lane in steps.items()}
     for e in evs:
         if e.get("ph") != "X" or e.get("cat") not in cats:
             continue
         name = str(e.get("name", ""))
+        if steps and e["cat"] == "gpu_user_annotation" and any(
+                h in name.lower() for h in _PERMUTE_HINTS):
+            continue  # the steps lane holds these steps whole
         if any(h in name.lower() for h in hints):
             lanes.setdefault((e.get("pid"), e.get("tid")), []).append(
                 (name, int(round(float(e["ts"]) * 1e3)),
@@ -450,7 +515,7 @@ def measured_lanes(json_path: str, hints=_MEASURED_OP_HINTS,
     for (pid, tid), lane in lanes.items():
         lane.sort(key=lambda t: t[1])
         label = (f"{names.get((pid, None)) or f'pid {pid}'}/"
-                 f"{names.get((pid, tid)) or f'tid {tid}'}")
+                 f"{'steps' if tid == 'steps' else names.get((pid, tid)) or f'tid {tid}'}")
         out.append((label, lane))
     return sorted(out)
 
@@ -546,6 +611,12 @@ def _bitwise_equal(a, b) -> bool:
                        b.contiguous().view(torch.uint8))
 
 
+def _span_counts(lanes: list) -> dict:
+    """Each lane's count of step spans (its ``ppermute`` events)."""
+    return {label: sum(any(h in ev[0].lower() for h in _PERMUTE_HINTS) for ev in evs)
+            for label, evs in lanes}
+
+
 def profile_collective(collective: str, algo: str, ranks: int,
                        nbytes: int, mesh2d, fake_devices, platform: str,
                        dtype: str = "float32", digits=None,
@@ -558,18 +629,26 @@ def profile_collective(collective: str, algo: str, ranks: int,
     (warm-up: caches, kernel builds) and its output there must equal, bit
     for bit, the output under the capture; else this raises. On the card
     the step spans must carry device time; a capture without it raises
-    rather than fall back to host time. ``json_out``: keep the exported
-    Chrome-trace JSON there (default: a temporary file, removed)."""
+    rather than fall back to host time, naming each lane's span count.
+    ``json_out``: keep the exported Chrome-trace JSON there (default: a
+    temporary file, removed).
+
+    Under a launcher's process group the mesh spans the processes
+    (``cli_common.build_mesh``: one rank, or one slice, a process): every
+    process captures its own rank's lanes and returns them, and both
+    checks are agreed across the fleet (``timing.agree``), so one rank's
+    failure fails every rank, named."""
     import tempfile
 
     import torch
 
     from rocnrdma_tpu_torch.bench.cli_common import build_mesh, setup_backend
     from rocnrdma_tpu_torch.bench.runner import _build_input
+    from rocnrdma_tpu_torch.bench.timing import agree, fleet_barrier
     from rocnrdma_tpu_torch.collectives._steps import capturing
     from rocnrdma_tpu_torch.transport import Transport
 
-    topo = setup_backend(fake_devices, platform, ranks)
+    topo = setup_backend(fake_devices, platform, ranks, across=True)
     mesh = build_mesh("x".join(map(str, mesh2d)) if mesh2d else None,
                       ranks, topo)
     t = Transport(mesh)
@@ -584,12 +663,16 @@ def profile_collective(collective: str, algo: str, ranks: int,
         acts.append(torch.profiler.ProfilerActivity.CUDA)
         torch.cuda.synchronize(t.device)
     with torch.profiler.profile(activities=acts) as prof, capturing():
+        if t.span is not None:
+            # every rank's profiler is up before its first step: a rank
+            # still starting its own would stretch its peers' first steps
+            fleet_barrier(t.span)
         got = fn(x)
         if on_card:
             torch.cuda.synchronize(t.device)
-    if not _bitwise_equal(got, want):
-        raise RuntimeError(f"({collective}, {algo}): the output under the "
-                           f"capture differs from the output without it")
+    what = f"({collective}, {algo}): the output under the capture"
+    agree(t.span, None if _bitwise_equal(got, want)
+          else f"{what} differs from the output without it", what, exc=RuntimeError)
     tmp = None
     if json_out is None:
         fd, tmp = tempfile.mkstemp(prefix="rnr_trace_", suffix=".json")
@@ -597,16 +680,19 @@ def profile_collective(collective: str, algo: str, ranks: int,
     path = json_out or tmp
     try:
         prof.export_chrome_trace(path)
-        lanes = measured_lanes(path, device=on_card)
+        lanes = measured_lanes(path, device=on_card, steps=t.span is not None)
     finally:
         if tmp is not None:
             os.remove(tmp)
+    err = None
     if on_card and not any("ppermute" in name.lower()
                            for _, evs in lanes for name, _, _ in evs):
-        raise RuntimeError(
-            f"({collective}, {algo}): the capture holds no device time for "
-            f"the step spans (no gpu_user_annotation 'ppermute' event); "
-            f"refusing to fall back to host time")
+        err = (f"({collective}, {algo}): the capture holds no device time for "
+               f"the step spans (no device event of a 'ppermute' step span; "
+               f"the lanes' step spans: {_span_counts(lanes)}); refusing to "
+               f"fall back to host time")
+    agree(t.span, err, f"({collective}, {algo}): device time for the step spans",
+          exc=RuntimeError)
     return lanes
 
 
@@ -621,7 +707,9 @@ def main(argv=None) -> int:
                     "with --measured)")
     p.add_argument("--collective", default="allreduce")
     p.add_argument("--algo", default="ring")
-    p.add_argument("--ranks", type=int, default=8)
+    p.add_argument("--ranks", type=int, default=None,
+                   help="rank count (default 8; with --measured under a "
+                        "launcher's fleet, its world size: one rank a process)")
     p.add_argument("--size", default="4M", help="buffer bytes (e.g. 4M, 64K)")
     p.add_argument("--mesh2d", default=None, metavar="SLICESxPER",
                    help="for --algo hierarchical / khd2d")
@@ -653,6 +741,13 @@ def main(argv=None) -> int:
                         "digits too, so the lanes align")
     args = p.parse_args(argv)
 
+    if args.measured and not args.profile_json:
+        import torch
+
+        from rocnrdma_tpu_torch.bench import cli_common
+        if cli_common.join(args.platform) and args.ranks is None:
+            args.ranks = torch.distributed.get_world_size()
+    args.ranks = args.ranks or 8
     mesh2d = None
     if args.mesh2d:
         s, per = args.mesh2d.lower().split("x")
@@ -669,56 +764,48 @@ def main(argv=None) -> int:
         "digits": list(digits) if digits else None}
 
     measured_note = ""
+    lead = True
     if args.measured:
+        fleet = None  # [each rank's lanes] across processes
         if args.profile_json:
             lanes = measured_lanes(args.profile_json)
         else:
-            from rocnrdma_tpu_torch import hw
+            from rocnrdma_tpu_torch import hw, ops
+            from rocnrdma_tpu_torch.bench import cli_common
             from rocnrdma_tpu_torch.runtime import detect_topology
+            before = ops.launch_counts()
             lanes = profile_collective(args.collective, args.algo, args.ranks,
                                        parse_size(args.size), mesh2d,
                                        args.fake_devices, args.platform,
                                        digits=digits)
+            launched = {k: v - before[k] for k, v in ops.launch_counts().items()
+                        if v > before[k]}
             topo = detect_topology(args.platform)
             doc["otherData"]["device"] = topo.device_name
             if topo.platform == "gpu":
                 doc["otherData"]["nvidia_smi"] = hw.smi_line()
+            if launched:
+                doc["otherData"]["launches"] = launched  # this process's
             # profile_collective raised otherwise
             doc["otherData"]["capture_bitwise_equal"] = True
-        if not lanes:
+            span = cli_common.fleet_span(topo)
+            if span is not None:
+                lead = span.index == 0
+                fleet = cli_common.gather_rows(lanes, span)
+                doc["otherData"].update(cli_common.link_extra(topo, span, args.ranks))
+        if fleet is not None:
+            measured_note = _measured_across(doc, events, fleet, args)
+        elif not lanes:
             raise SystemExit(
                 "--measured: no schedule-data-path events matched in the "
                 "capture (try a bigger --size, or check the trace JSON)")
-        doc["traceEvents"] += measured_to_chrome(lanes)
-        n_ev = sum(len(evs) for _, evs in lanes)
-        meas_us = max(ev[1] + ev[2] for _, evs in lanes for ev in evs)
-        meas_us = (meas_us - min(ev[1] for _, evs in lanes for ev in evs)) / 1e3
-        doc["otherData"]["measured_us"] = round(meas_us, 3)
-        doc["otherData"]["measured_events"] = n_ev
-        measured_note = (f"; measured lane: {n_ev} events across "
-                         f"{len(lanes)} lanes, {meas_us:.0f} us")
-        if args.align_steps:
-            aligned, diff = align_steps(events, lanes, args.alpha, args.beta)
-            if not diff:
-                counts = {label: sum(any(h in ev[0].lower() for h in _PERMUTE_HINTS)
-                                     for ev in evs) for label, evs in lanes}
-                raise SystemExit(
-                    "--align-steps: no lane's step-span count matches the "
-                    "schedule's step count (the capture caught extra calls, "
-                    "or the schedule opens no spans) — cannot align; "
-                    f"the schedule has {max(e.step for e in events) + 1} "
-                    f"steps, the lanes' step spans: {counts}")
-            doc["traceEvents"] += aligned
-            doc["otherData"]["step_diff"] = diff
-            tot_meas = sum(r["measured_max_us"] for r in diff)
-            tot_pred = sum(r["predicted_us"] for r in diff)
-            measured_note += (
-                f"; aligned {len(diff)} steps across {diff[0]['lanes']} "
-                f"lanes: predicted {tot_pred:.0f} us vs measured "
-                f"{tot_meas:.0f} us (x{tot_meas / max(tot_pred, 1e-9):.1f})")
+        else:
+            measured_note = _measured_one(doc, events, lanes, args)
     elif args.align_steps:
         raise SystemExit("--align-steps requires --measured")
 
+    if not lead:  # rank 0 of a fleet writes and prints
+        return 0
     payload = json.dumps(doc)
     if args.out:
         with open(args.out, "w") as fp:
@@ -731,5 +818,91 @@ def main(argv=None) -> int:
     return 0
 
 
+def _measured_one(doc: dict, events: list, lanes: list, args) -> str:
+    """Add one process's measured lanes (pid 1) and, with ``--align-steps``,
+    its aligned lane (pid 2) and ``step_diff`` to ``doc``; returns the
+    summary's measured part."""
+    doc["traceEvents"] += measured_to_chrome(lanes)
+    n_ev = sum(len(evs) for _, evs in lanes)
+    meas_us = _extent_us(lanes)
+    doc["otherData"]["measured_us"] = round(meas_us, 3)
+    doc["otherData"]["measured_events"] = n_ev
+    note = (f"; measured lane: {n_ev} events across "
+            f"{len(lanes)} lanes, {meas_us:.0f} us")
+    if args.align_steps:
+        aligned, diff = align_steps(events, lanes, args.alpha, args.beta)
+        if not diff:
+            raise SystemExit(
+                "--align-steps: no lane's step-span count matches the "
+                "schedule's step count (the capture caught extra calls, "
+                "or the schedule opens no spans) — cannot align; "
+                f"the schedule has {max(e.step for e in events) + 1} "
+                f"steps, the lanes' step spans: {_span_counts(lanes)}")
+        doc["traceEvents"] += aligned
+        doc["otherData"]["step_diff"] = diff
+        note += _aligned_note(diff, diff[0]["lanes"])
+    return note
+
+
+def _extent_us(lanes: list) -> float:
+    """Microseconds from the lanes' first matched event to their last end."""
+    end = max(ev[1] + ev[2] for _, evs in lanes for ev in evs)
+    return (end - min(ev[1] for _, evs in lanes for ev in evs)) / 1e3
+
+
+def _aligned_note(diff: list, lanes) -> str:
+    tot_meas = sum(r["measured_max_us"] for r in diff)
+    tot_pred = sum(r["predicted_us"] for r in diff)
+    return (f"; aligned {len(diff)} steps across {lanes} "
+            f"lanes: predicted {tot_pred:.0f} us vs measured "
+            f"{tot_meas:.0f} us (x{tot_meas / max(tot_pred, 1e-9):.1f})")
+
+
+def _measured_across(doc: dict, events: list, fleet: list, args) -> str:
+    """Add a fleet's measured lanes to ``doc``, one lane group a rank
+    (``fleet[r]``: rank r's lanes): rank r's measured lanes at pid ``1 +
+    2r`` and, with ``--align-steps``, its aligned lane at pid ``2 + 2r``,
+    each group named by its rank, and ``step_diff`` with a row a (rank,
+    step), each naming its rank. Every rank holds every rank's lanes, so a
+    rank that caught nothing, or no lane of the schedule's step count,
+    fails every rank alike, named. Returns the summary's measured part."""
+    empty = [r for r, lanes in enumerate(fleet) if not lanes]
+    if empty:
+        raise SystemExit(f"--measured: no schedule-data-path events matched in "
+                         f"the capture of rank(s) {empty} of {len(fleet)}")
+    n_steps = max(e.step for e in events) + 1
+    diff, n_ev, n_lanes = [], 0, 0
+    for r, lanes in enumerate(fleet):
+        for pid, what in ((1 + 2 * r, "measured"), (2 + 2 * r, "aligned")):
+            if what == "measured" or args.align_steps:
+                doc["traceEvents"].append({"name": "process_name", "ph": "M", "pid": pid,
+                                           "args": {"name": f"rank {r} {what}"}})
+        doc["traceEvents"] += measured_to_chrome(lanes, pid=1 + 2 * r)
+        n_ev += sum(len(evs) for _, evs in lanes)
+        n_lanes += len(lanes)
+        if args.align_steps:
+            aligned, rows = align_steps(events, lanes, args.alpha, args.beta)
+            if not rows:
+                counts = {f"rank {q}": _span_counts(lq) for q, lq in enumerate(fleet)}
+                raise SystemExit(
+                    f"--align-steps: rank {r} has no lane whose step-span count "
+                    f"matches the schedule's {n_steps} steps — cannot align; "
+                    f"the lanes' step spans: {counts}")
+            doc["traceEvents"] += [dict(e, pid=2 + 2 * r) for e in aligned]
+            diff += [{"rank": r, **row} for row in rows]
+    meas_us = max(_extent_us(lanes) for lanes in fleet)
+    doc["otherData"]["measured_us"] = round(meas_us, 3)
+    doc["otherData"]["measured_events"] = n_ev
+    doc["otherData"]["measured_ranks"] = len(fleet)
+    note = (f"; measured lanes: {n_ev} events across {n_lanes} lanes of "
+            f"{len(fleet)} ranks, the slowest rank {meas_us:.0f} us")
+    if args.align_steps:
+        doc["otherData"]["step_diff"] = diff
+        note += _aligned_note(diff, f"{len(fleet)} ranks'")
+    return note
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    from rocnrdma_tpu_torch.bench import cli_common as _cli
+
+    sys.exit(_cli.main(main))

@@ -30,9 +30,10 @@ process one rank). A tensor on it is this process's row, leading dim
 one-process mesh's result. Every (verb, algo) pair of a 1-D mesh runs
 there, ``cuda_ring`` too: each process launches its rank's blocks of the
 same kernels, reading and writing the peers' rows through CUDA IPC
-(``ops/ipc.py``); ``auto``, ``model``, ``RNR_ALGO`` and a tuning table
-resolve as on a one-process mesh, and what a 1-D mesh refuses is refused
-with the same error.
+(``ops/ipc.py``); ``auto``, ``model`` and ``RNR_ALGO`` resolve as on a
+one-process mesh, and what a 1-D mesh refuses is refused with the same
+error. A tuning table answers it only under its layout's key
+(``table_platform``), never under a one-process mesh's.
 
 On either, the leading axis's exchanges cross processes on the span's
 cross group (``collectives._exchange``), and ``stats()`` counts them under
@@ -67,7 +68,7 @@ Algorithms (``SCHEDULES``; the reference's names, except that its
 - ``"auto"`` - ``RNR_ALGO`` when set and supported; else the tuning
   table's arm at this message size when a table is attached
   (``Transport(tuning=...)`` or ``RNR_TUNING``) and names one this mesh
-  supports; else ``hierarchical`` for allreduce and alltoall on a 2-D
+  supports under its own key (rank count, ndim, ``table_platform``); else ``hierarchical`` for allreduce and alltoall on a 2-D
   mesh, ``fused`` otherwise.
 - ``"model"`` - the cost model's cheapest arm at this message size
   (``tuner.model_pick``, with this device's constants); ``cuda_ring``
@@ -364,7 +365,8 @@ class Transport:
         self.span = self.mesh.span  # the leading axis across processes, or None
         self.device = self.mesh.device
         on_card = self.device.type == "cuda"
-        # the tuning-table platform (detect_topology's) and the cost
+        # detect_topology's platform (the tuning table's, with the layout
+        # where the mesh spans processes: ``table_platform``) and the cost
         # model's device kind
         self.platform = "gpu" if on_card else "cpu"
         self.device_kind = torch.cuda.get_device_name(self.device) if on_card else "cpu"
@@ -392,6 +394,14 @@ class Transport:
         # re-rooting hook: an int or zero-arg callable naming the root that
         # grouped rooted verbs take when the caller passes none (None = 0)
         self.root_hint = None
+
+    @property
+    def table_platform(self) -> str:
+        """The platform of this mesh's tuning-table key
+        (``tuner.table_platform``): "gpu" or "cpu" with every rank in this
+        process, a name of the layout where the mesh spans processes."""
+        from rocnrdma_tpu_torch.transport.tuner import table_platform
+        return table_platform(self.platform, self.span)
 
     def _default_root(self) -> int:
         """Resolve :attr:`root_hint` for a grouped rooted verb issued with
@@ -450,7 +460,7 @@ class Transport:
                 algo = forced
         if algo == "auto" and self.tuning is not None and nbytes is not None:
             tuned = self.tuning.lookup(op, nbytes, self.n_ranks, len(self.axes),
-                                       self.platform)
+                                       self.table_platform)
             if tuned is not None and supports(op, tuned, self.is_2d):
                 algo = tuned
         if algo == "auto":

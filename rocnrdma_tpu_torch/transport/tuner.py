@@ -35,7 +35,14 @@ the message size S per rank; for allgather the gathered total.
 
 CLI: ``python -m rocnrdma_tpu_torch.transport.tuner`` sweeps (or, with
 ``--model-table KIND``, models) and writes a table; ``--measure-alpha``
-measures the dispatch alpha.
+measures the dispatch alpha. Under a launcher (``runtime.multiprocess.
+run_cli`` or torchrun) it runs across the fleet's processes, one rank a
+process: the sweep on ``rank_mesh(world, group=WORLD)``, each point's
+time the slowest rank's (so every rank keeps the same winners), its table
+keyed by the layout (``table_platform``); ``--measure-alpha`` the median
+of the ranks' medians, written once. Rank 0 prints and writes. Each
+sweep also prints the cost model's pick beside every winner
+(``policy_agreement``).
 """
 
 from __future__ import annotations
@@ -1558,10 +1565,28 @@ class Bucket:
     algo: str
 
 
+def table_platform(platform: str, span=None) -> str:
+    """The platform of a tuning table's key for a mesh on ``platform``
+    (``runtime.detect_topology``'s "gpu" or "cpu") whose leading axis
+    crosses the processes of ``span`` (a ``ProcessSpan``, or None): the
+    platform itself for ranks in one process; across processes
+    ``<platform>/<link>`` with the link ``cli_common.link_of`` names:
+    "gpu/nvlink" (NCCL, a GPU a process), "gpu/host-loopback" (processes
+    sharing a GPU, their exchanges staged through gloo) and
+    "cpu/cpu-loopback". So a table swept across processes never answers a
+    one-process mesh of the same rank count, nor the reverse: their arms
+    cost different things."""
+    if span is None:
+        return platform
+    from rocnrdma_tpu_torch.bench.cli_common import link_of
+    return f"{platform}/{link_of(platform, span)}"
+
+
 class TuningTable:
     """Measured winners: (verb, n_ranks, mesh_ndim, platform) -> [Bucket].
-    The platform is ``runtime.detect_topology``'s: "gpu" or "cpu", so a
-    reference table keyed "tpu" never matches."""
+    The platform is ``table_platform``'s: "gpu" or "cpu" in one process,
+    "gpu/nvlink", "gpu/host-loopback" or "cpu/cpu-loopback" across
+    processes, so a reference table keyed "tpu" never matches."""
 
     def __init__(self, entries: dict | None = None, meta: dict | None = None):
         # key: "verb|n|ndim|platform" -> sorted [Bucket]
@@ -1644,23 +1669,40 @@ class Autotuner:
     def _example(self, verb: str, size_bytes: int, dtype: str):
         # the bench runner owns each collective's shape and divisibility
         # rules, so tuner sizes mean what sweep sizes mean
-        from rocnrdma_tpu_torch.bench.runner import _build_input
-        x, _, _ = _build_input(self.t, verb.replace("_", ""), size_bytes, dtype)
-        return x
+        import torch
+
+        from rocnrdma_tpu_torch.bench.runner import (DTYPES, _build_input,
+                                                     _shape_and_bytes)
+        collective = verb.replace("_", "")
+        if self.t.span is None:
+            x, _, _ = _build_input(self.t, collective, size_bytes, dtype)
+            return x
+        # across processes each rank draws its own rows on its device: the
+        # sweep checks no values, and a row of the runner's whole draw
+        # would cost every rank every rank's bytes
+        shape, _ = _shape_and_bytes(collective, self.t.n_ranks, size_bytes, dtype)
+        gen = torch.Generator(self.t.device).manual_seed(self.t.span.index)
+        return torch.randn(self.t._local + shape[1:], generator=gen,
+                           device=self.t.device).to(DTYPES[dtype])
 
     def sweep(self, verbs, sizes, dtype: str = "float32",
               algos=None, progress=None) -> TuningTable:
         """Measure; return a table with one bucket list per swept verb and
-        every arm's time under ``_meta["times_s"]``."""
+        every arm's time under ``_meta["times_s"]`` (on a mesh that spans
+        processes the slowest rank's, so every rank keeps the same
+        table), and this process's kernel launches under
+        ``_meta["launches"]``."""
+        from rocnrdma_tpu_torch import ops
         from rocnrdma_tpu_torch.bench.timing import time_fn
 
-        plat = self.t.platform
+        plat = self.t.table_platform
         ndim = len(self.t.axes)
         times: dict = {}
         table = TuningTable(meta={
             "provenance": f"measured Autotuner sweep (platform={plat}, "
                           f"n_ranks={self.t.n_ranks}, mesh_ndim={ndim})",
             "device": self.t.device_kind, "dtype": dtype, "times_s": times})
+        before = ops.launch_counts()
         for verb in verbs:
             buckets = []
             for size in sorted(sizes):
@@ -1676,7 +1718,7 @@ class Autotuner:
                     fn = self.t.jit_fn(verb, algo, **knobs)
                     timing = time_fn(fn, x, warmup=self.warmup,
                                      repeats=self.repeats,
-                                     calls_per_repeat=self.calls)
+                                     calls_per_repeat=self.calls, span=self.t.span)
                     row[algo] = timing.mean_s
                     if progress:
                         progress(verb, size, algo, timing.mean_s)
@@ -1688,11 +1730,16 @@ class Autotuner:
             if buckets:
                 table.set_buckets(verb, self.t.n_ranks, ndim, plat,
                                   _coalesce(buckets))
+        launched = {k: v - before[k] for k, v in ops.launch_counts().items()
+                    if v > before[k]}
+        if launched:
+            table.meta["launches"] = launched  # this process's, the kernels'
         return table
 
 
 def alpha_sensitivity(device_kind: str, rank_counts, verbs, sizes,
-                      platform: str | None = None) -> dict:
+                      platform: str | None = None,
+                      per_card: int | None = None) -> dict:
     """The model-table rows that move inside the kind's measured dispatch
     alpha range: ``{table_key: {"alpha_lo": buckets, "alpha_hi": buckets}}``
     for every key whose buckets differ at the two ends; {} when every bucket
@@ -1703,9 +1750,9 @@ def alpha_sensitivity(device_kind: str, rank_counts, verbs, sizes,
         return {}
     lo, hi = rng
     t_lo = model_table(device_kind, rank_counts, verbs, sizes, platform,
-                       dispatch_alpha_s=lo, _audit=False)
+                       dispatch_alpha_s=lo, _audit=False, per_card=per_card)
     t_hi = model_table(device_kind, rank_counts, verbs, sizes, platform,
-                       dispatch_alpha_s=hi, _audit=False)
+                       dispatch_alpha_s=hi, _audit=False, per_card=per_card)
     out = {}
     for k in sorted(set(t_lo._entries) | set(t_hi._entries)):
         blo = [[b.max_bytes, b.algo] for b in t_lo._entries.get(k, [])]
@@ -1718,16 +1765,21 @@ def alpha_sensitivity(device_kind: str, rank_counts, verbs, sizes,
 def model_table(device_kind: str, rank_counts, verbs, sizes,
                 platform: str | None = None,
                 dispatch_alpha_s: float | None = None,
-                _audit: bool = True, mesh_shapes=None) -> TuningTable:
+                _audit: bool = True, mesh_shapes=None,
+                per_card: int | None = None) -> TuningTable:
     """A tuning table from the cost model, no hardware needed: every
     per-size pick is ``model_pick`` with fused in the candidates, each row
     priced for its ranks sharing one card (the port's layout; generic
     constants on a kind without a ``hw.CHIPS`` row, where the ``cuda_ring``
     kernel arm does not compete). ``platform``: the table key's, by default
-    "gpu" for a known card and "cpu" otherwise. ``mesh_shapes``: (slices,
-    intra) shapes whose ndim=2 rows take the 2-D candidates, the slice axis
-    at network constants. ``dispatch_alpha_s`` overrides the measured
-    dispatch alpha; ``_audit`` records ``alpha_sensitivity`` in ``_meta``."""
+    "gpu" for a known card and "cpu" otherwise; for a mesh that spans
+    processes, ``table_platform``'s name of its layout, with ``per_card``
+    its ranks on a card (``ProcessSpan.per_card``: 1 with a GPU a
+    process), which prices every row in place of its rank count.
+    ``mesh_shapes``: (slices, intra) shapes whose ndim=2 rows take the 2-D
+    candidates, the slice axis at network constants. ``dispatch_alpha_s``
+    overrides the measured dispatch alpha; ``_audit`` records
+    ``alpha_sensitivity`` in ``_meta``."""
     from rocnrdma_tpu_torch import hw
     from rocnrdma_tpu_torch.transport.api import SCHEDULES, supports
 
@@ -1737,11 +1789,14 @@ def model_table(device_kind: str, rank_counts, verbs, sizes,
         "provenance": "model-derived (tuner.model_table); supersede with a "
                       "measured Autotuner sweep",
         "device_kind": device_kind,
-        "layout": "every rank of a row on one card",
+        "layout": ("every rank of a row on one card" if per_card is None
+                   else f"{platform}, {per_card} rank(s) a card"),
     })
+    if per_card is not None:
+        table.meta["per_card"] = per_card
     for n in sorted(rank_counts):
         for verb in verbs:
-            alpha, beta, hbm_beta = constants_for(device_kind, verb, n,
+            alpha, beta, hbm_beta = constants_for(device_kind, verb, per_card or n,
                                                   dispatch_alpha_s)
             table.meta[f"alpha_beta[{verb}]"] = [alpha, beta, hbm_beta]
             cands = [a for a in SCHEDULES.get(verb, ())
@@ -1761,7 +1816,7 @@ def model_table(device_kind: str, rank_counts, verbs, sizes,
         shape = tuple(int(d) for d in shape)
         N = math.prod(shape)
         for verb in verbs:
-            alpha, beta, hbm_beta = constants_for(device_kind, verb, N,
+            alpha, beta, hbm_beta = constants_for(device_kind, verb, per_card or N,
                                                   dispatch_alpha_s)
             cands2 = [a for a in SCHEDULES.get(verb, ())
                       if supports(verb, a, True)
@@ -1797,7 +1852,7 @@ def model_table(device_kind: str, rank_counts, verbs, sizes,
             "dispatch_alpha_range_s": list(rng) if rng else None,
             # {} = every bucket stable across the measured range
             "unstable_keys": alpha_sensitivity(device_kind, rank_counts,
-                                               verbs, sizes, platform),
+                                               verbs, sizes, platform, per_card),
         }
     return table
 
@@ -1869,13 +1924,14 @@ def main(argv=None) -> int:
 
     python -m rocnrdma_tpu_torch.transport.tuner --fake-devices 8 \\
         --verbs allreduce,alltoall --sizes 4K,64K,1M --out tuning.json
+    torchrun --nproc-per-node 4 -m rocnrdma_tpu_torch.transport.tuner \\
+        --algos fused,ring,cuda_ring --out tuning_4gpu.json   # a GPU a process
     """
     import argparse
 
     from rocnrdma_tpu_torch import hw
     from rocnrdma_tpu_torch.bench import cli_common
     from rocnrdma_tpu_torch.bench.runner import DTYPES, parse_size
-    from rocnrdma_tpu_torch.runtime import rank_mesh, slice_mesh
     from rocnrdma_tpu_torch.transport import Transport
 
     p = argparse.ArgumentParser(description=main.__doc__)
@@ -1931,44 +1987,75 @@ def main(argv=None) -> int:
         print(f"wrote {args.out} (model-derived, {len(table)} entries)")
         return 0
 
-    topo = cli_common.setup_backend(args.fake_devices, args.platform, args.ranks or 1)
+    topo = cli_common.setup_backend(args.fake_devices, args.platform, args.ranks or 1,
+                                    across=True)
     smi = hw.smi_line() if topo.platform == "gpu" else ""
+    lead = cli_common.is_lead()
     if args.measure_alpha:
+        # each rank on its own card; across processes the fleet's median
+        # of the ranks' medians, written once
+        span = cli_common.fleet_span(topo)
         runs = [measure_alpha(device=topo.device) for _ in range(ALPHA_RUNS)]
-        med = statistics.median(runs)
-        print(f"dispatch alpha on {topo.device_name} ({smi or 'no nvidia-smi'}): "
-              f"runs {[round(a * 1e9, 1) for a in runs]} ns, median "
-              f"{med * 1e9:.1f} ns/launch")
+        per_rank = cli_common.gather_rows(runs, span)
+        med = cli_common.fleet_median([statistics.median(runs)], span)[0]
+        everyone = [a for rank_runs in per_rank for a in rank_runs]
+        if lead:
+            for r, rank_runs in enumerate(per_rank):
+                print(f"dispatch alpha on {topo.device_name} "
+                      f"{'' if span is None else f'(rank {r} of {span.size}) '}"
+                      f"({smi or 'no nvidia-smi'}): runs "
+                      f"{[round(a * 1e9, 1) for a in rank_runs]} ns, median "
+                      f"{statistics.median(rank_runs) * 1e9:.1f} ns/launch")
+            if span is not None:
+                print(f"dispatch alpha, the median of the {span.size} ranks' medians: "
+                      f"{med * 1e9:.1f} ns/launch")
         if args.save_calibration:
             if hw.chip_for(topo.device_name) is None:
                 raise SystemExit(f"no hw.CHIPS row for {topo.device_name!r}: "
                                  f"its calibration would price nothing")
-            path = hw.save_calibration(topo.device_name, {
+            path = cli_common.save_calibration(topo.device_name, {
                 "dispatch_alpha_s": med,
-                "dispatch_alpha_range_s": [min(runs), max(runs)],
-                "provenance_alpha": f"tuner --measure-alpha on {smi}"})
-            print(f"wrote {path}")
+                "dispatch_alpha_range_s": [min(everyone), max(everyone)],
+                "provenance_alpha": f"tuner --measure-alpha on {smi}"
+                                    + ("" if span is None else f" x {span.size} processes")},
+                span)
+            if lead:
+                print(f"wrote {path}")
         return 0
 
-    if args.mesh2d:
-        s, per = cli_common.parse_mesh2d(args.mesh2d)
-        mesh = slice_mesh(s, per, topo.device)
-    else:
-        mesh = rank_mesh(args.ranks or topo.n_devices, topo.device)
+    # --ranks as asked in one process (ranks may share a card); under a
+    # process group the world's, one rank a process
+    mesh = cli_common.mesh_for(
+        cli_common.parse_mesh2d(args.mesh2d) if args.mesh2d else None,
+        args.ranks or topo.n_devices, topo)
     t = Transport(mesh)
     sizes = [parse_size(s) for s in args.sizes.split(",")]
 
     def progress(verb, size, algo, sec):
-        print(f"  {verb:>14} {size:>12} B {algo:>12} {sec * 1e6:>12.1f} us",
-              flush=True)
+        if lead:
+            print(f"  {verb:>14} {size:>12} B {algo:>12} {sec * 1e6:>12.1f} us",
+                  flush=True)
 
-    table = Autotuner(t).sweep(args.verbs.split(","), sizes, args.dtype,
+    verbs = args.verbs.split(",")
+    table = Autotuner(t).sweep(verbs, sizes, args.dtype,
                                args.algos.split(",") if args.algos else None,
                                progress=progress)
     table.meta["command"] = ("python -m rocnrdma_tpu_torch.transport.tuner "
                              + " ".join(sys.argv[1:] if argv is None else argv))
+    table.meta.update(cli_common.link_extra(topo, t.span, t.n_ranks))
     if smi:
         table.meta["nvidia_smi"] = smi
+    agreement = policy_agreement(t, table, verbs, sizes, DTYPES[args.dtype].itemsize)
+    table.meta["policy_agreement"] = agreement
+    if not lead:
+        return 0
+    print(f"policy agreement on {t.table_platform} ({t.n_ranks} ranks): the cost "
+          f"model's pick (Transport._resolve('model')) is the sweep's winner at "
+          f"{agreement['agree']} of {agreement['points']} points")
+    for verb, by_size in agreement["picks"].items():
+        for size, (won, picked) in by_size.items():
+            print(f"  {verb:>14} {size:>12} B winner {won:>12} model {picked:>12}"
+                  f"{'' if won == picked else '  (differs)'}")
     if args.merge and os.path.exists(args.out):
         table = merge_tables(TuningTable.load(args.out), table)
     table.save(args.out)
@@ -1978,5 +2065,26 @@ def main(argv=None) -> int:
     return 0
 
 
+def policy_agreement(t, table: TuningTable, verbs, sizes, itemsize: int = 4) -> dict:
+    """The cost model's pick on ``t``'s mesh (``Transport._resolve("model",
+    ...)``, with its layout's constants) beside the measured winner of
+    ``table``'s ``_meta["times_s"]`` at each swept (verb, size): ``{"picks":
+    {verb: {size: [winner, model pick]}}, "agree": n, "points": n}``."""
+    picks, agree, points = {}, 0, 0
+    for verb in verbs:
+        for size in sorted(sizes):
+            arms = table.meta["times_s"].get(verb, {}).get(str(size))
+            if not arms:
+                continue
+            won = min(arms, key=arms.get)
+            picked = t._resolve("model", verb, size, itemsize)
+            picks.setdefault(verb, {})[str(size)] = [won, picked]
+            agree += won == picked
+            points += 1
+    return {"picks": picks, "agree": agree, "points": points}
+
+
 if __name__ == "__main__":
-    raise SystemExit(main())
+    from rocnrdma_tpu_torch.bench import cli_common as _cli
+
+    sys.exit(_cli.main(main))

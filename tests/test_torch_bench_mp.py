@@ -32,8 +32,9 @@ input (``_build_input``: ``default_rng(0)``) for every explicit arm
 the failed check fails every rank, naming rank 1, inside the deadline; only
 rank 0 prints results. Out of a fleet: a launcher's environment that
 cannot be joined makes a CLI exit non-zero naming the coordinator (the
-workload CLIs, ported across processes since, raise naming it too), and
-the CLIs not ported across processes refuse a launcher's fleet. The JAX package does not run across processes here
+workload CLIs and the tools, ported across processes since, raise naming
+it too; their fleets: ``tests/test_torch_workloads_mp.py`` and
+``tests/test_torch_tools_mp.py``). The JAX package does not run across processes here
 (``jax.distributed`` fails to initialize on this jax), so the fleet is
 held to its one-process outputs.
 """
@@ -335,29 +336,46 @@ def test_an_unjoinable_coordinator_exits_non_zero_naming_it(tmp_path, module):
     assert r.stdout == "" and not (tmp_path / "out").exists()
 
 
-@pytest.mark.parametrize("module", ["first_contact", "bench.bench_local",
-                                    "bench.fold_ladder", "bench.mfu_profile"])
-def test_a_cli_not_ported_across_processes_refuses_a_fleet(monkeypatch, module):
-    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
-    monkeypatch.setenv("MASTER_PORT", "9")
-    monkeypatch.setenv("WORLD_SIZE", "4")
-    monkeypatch.setenv("RANK", "0")
-    cli = importlib.import_module("rocnrdma_tpu_torch." + module)
-    with pytest.raises(SystemExit, match=r"coordinator='127.0.0.1:9', world size 4\); "
-                                         r"this CLI runs in one process only"):
-        cli.main(["--platform", "cpu"])
+# the arguments that make a tool run on the device (trace: --measured)
+_DEVICE_ARGV = {"trace": ["--measured"]}
 
 
 @pytest.mark.parametrize("module", ["bench.bench_allreduce", "workloads.moe",
                                     "workloads.ddp_replay", "workloads.fsdp_replay",
-                                    "workloads.overlap"])
+                                    "workloads.overlap", "trace", "first_contact",
+                                    "transport.tuner", "bench.bench_local",
+                                    "bench.fold_ladder", "bench.mfu_profile"])
 def test_an_unjoinable_launcher_environment_is_refused_naming_the_coordinator(
-        monkeypatch, module):
-    """The CLIs ported across processes join a launcher's fleet: one whose
-    environment cannot be joined raises, the coordinator named."""
+        monkeypatch, tmp_path, module):
+    """Every CLI joins a launcher's fleet (the tools too, since they run
+    across processes): one whose environment cannot be joined raises, the
+    coordinator named, before it writes anything."""
     monkeypatch.setenv("COORDINATOR_ADDRESS", "127.0.0.1:9")
     monkeypatch.setenv("WORLD_SIZE", "2")
     monkeypatch.delenv("RANK", raising=False)
+    monkeypatch.chdir(tmp_path)
     cli = importlib.import_module("rocnrdma_tpu_torch." + module)
     with pytest.raises(RuntimeError, match=r"coordinator='127.0.0.1:9'"):
-        cli.main(["--platform", "cpu"])
+        cli.main(["--platform", "cpu"] + _DEVICE_ARGV.get(module, []))
+    assert os.listdir(tmp_path) == []
+
+
+@pytest.mark.parametrize("module,argv", [
+    ("bench.bench_kernel_variants", []),
+    ("bench.bench_pipe_sweep", []),
+    ("bench.bench_ring_tiles", ["--platform", "cpu"])])
+def test_a_one_process_micro_benchmark_refuses_a_fleet(monkeypatch, tmp_path,
+                                                       module, argv):
+    """The card's micro-benchmarks run in one process only: a launcher's
+    fleet of more than one is refused, coordinator and world size named,
+    before anything is built, timed or written."""
+    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+    monkeypatch.setenv("MASTER_PORT", "9")
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.chdir(tmp_path)
+    cli = importlib.import_module("rocnrdma_tpu_torch." + module)
+    with pytest.raises(SystemExit, match=r"coordinator='127.0.0.1:9', world size 4\); "
+                                         r"this CLI runs in one process only"):
+        cli.main(argv + ["--out", str(tmp_path / "out.jsonl")])
+    assert os.listdir(tmp_path) == []

@@ -461,9 +461,12 @@ def test_policy_resolves_on_a_spanning_mesh_as_on_a_one_process_2d_mesh(monkeypa
     arms = {v: [a for a in algos if api.supports(v, a, is_2d=True)]
             for v, algos in api.SCHEDULES.items()}
     arms = {v: algos for v, algos in arms.items() if algos}
+    # each mesh under its own layout's key (a table answers one layout
+    # alone: tests/test_torch_tools_mp.py)
     for verb, algos in arms.items():
-        table.set_buckets(verb, 8, 2, "cpu", [Bucket(1 << 10, algos[-1]),
-                                              Bucket(1 << 30, algos[0])])
+        for tr in (t, one):
+            table.set_buckets(verb, 8, 2, tr.table_platform,
+                              [Bucket(1 << 10, algos[-1]), Bucket(1 << 30, algos[0])])
     t.tuning = one.tuning = table
     for verb, algos in arms.items():
         a, b = both(verb, "auto")

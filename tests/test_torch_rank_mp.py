@@ -448,12 +448,16 @@ def test_policy_resolves_on_a_spanning_rank_mesh_as_without_cuda_ring(monkeypatc
             assert a == b, (verb, forced)
         monkeypatch.delenv("RNR_ALGO")
     assert picked_cuda_ring  # the model picks the kernel somewhere, on both meshes
+    # each mesh under its own layout's key (a table answers one layout
+    # alone: tests/test_torch_tools_mp.py)
     table = TuningTable()
     arms = {v: [a for a in algos if api.supports(v, a)]
             for v, algos in api.SCHEDULES.items()}
+    assert (t.table_platform, one.table_platform) == ("gpu/host-loopback", "gpu")
     for verb, algos in arms.items():
-        table.set_buckets(verb, 4, 1, "gpu", [Bucket(1 << 10, algos[-1]),
-                                              Bucket(1 << 30, algos[0])])
+        for tr in (t, one):
+            table.set_buckets(verb, 4, 1, tr.table_platform,
+                              [Bucket(1 << 10, algos[-1]), Bucket(1 << 30, algos[0])])
     t.tuning = one.tuning = table
     for verb, algos in arms.items():
         for size, arm in ((full[:, :4], algos[-1]), (big, algos[0])):

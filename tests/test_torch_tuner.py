@@ -479,3 +479,16 @@ def test_cli_sweep_on_cpu(tmp_path, capsys):
     merged = PT.TuningTable.load(str(out))
     assert merged.lookup("reduce_scatter", 4096, 4, 1, "cpu") == "ring"
     assert merged.lookup("allreduce", 4096, 4, 1, "cpu") is not None
+
+
+def test_cli_sweep_in_one_process_takes_ranks_beyond_the_backends_devices(tmp_path):
+    """In one process ``--ranks`` is the mesh's rank count as asked, even
+    above the ranks the backend hosts (ranks share a device): the table is
+    keyed by that count, not capped at the backend's."""
+    out = tmp_path / "sweep.json"
+    assert PT.main(["--platform", "cpu", "--fake-devices", "2", "--ranks", "4",
+                    "--verbs", "allreduce", "--sizes", "4K", "--algos", "fused,ring",
+                    "--out", str(out)]) == 0
+    table = PT.TuningTable.load(str(out))
+    assert table.lookup("allreduce", 4096, 4, 1, "cpu") in ("fused", "ring")
+    assert table.lookup("allreduce", 4096, 2, 1, "cpu") is None
