@@ -193,12 +193,15 @@ Phases, each timed, any failure exits non-zero:
    fused, rotation and Bruck; the fused alltoallv; the rooted verbs fused
    and binomial at roots off process 0; sendrecv at shift 3; a
    ``prog_ring_allreduce`` program; a ``group()``), and ``cuda_ring``:
-   the ring and alltoall kernels across processes, each process
-   launching its rank's blocks with the peers' rows and flags mapped
-   through CUDA IPC (the allreduce, the tiled in-place allreduce at 3 x
-   128-element tiles, reduce_scatter, allgather, alltoall, alltoallv and
-   a ``group()``; the reduce_scatter on a buffer not of whole
-   n*128-element chunks refused by both meshes alike). The kernels build
+   the kernels across processes, each process launching its rank's
+   blocks with the peers' rows and flags mapped through CUDA IPC: the
+   ring kernel (the allreduce, the tiled in-place allreduce at 3 x
+   128-element tiles, reduce_scatter; the reduce_scatter on a buffer not
+   of whole n*128-element chunks refused by both meshes alike) and the
+   push kernel (allgather, alltoall, alltoallv; a ``group()`` of an
+   allreduce and an alltoall). The push kernel's wrappers count the bytes
+   they stage (``RANKSTAGED``): none at full width, whose rows they read
+   where they lie; the reference's 1-element rows are staged. The kernels build
    once here first. Every rank holds every result to the one-process
    port on the card (bitwise, the fused reductions within rtol 1e-5,
    atol 1e-6) and to the reference's checks, each ``cuda_ring`` result
@@ -211,8 +214,12 @@ Phases, each timed, any failure exits non-zero:
    the card, or a cross leg other than gloo staged with one GPU (NCCL
    unstaged with a GPU a process) fails the phase. With a GPU a process
    a third case runs the headline size, 1 GiB fp32 a rank, for the
-   ``cuda_ring`` and ``fused`` allreduce, with their busbw beside the
-   NVLink datasheet bound. Printed: each call's ms, each ``cuda_ring``
+   ``cuda_ring`` and ``fused`` allreduce, allgather and alltoall, with
+   their busbw beside the NVLink datasheet bound; then
+   ``bench_push_across --split`` splits the allgather and alltoall calls
+   at 64 MiB and 1 GiB a rank into the device time before, of and after
+   the push kernel's launch and the host wait in ``finish``, each
+   result checked, nothing staged. Printed: each call's ms, each ``cuda_ring``
    call beside its verb's ``fused`` and ``ring``, the cross leg's backend
    and its GB/s each way; all of it to ``smoke_out/rank_mesh.json``;
 15. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
@@ -292,7 +299,7 @@ Phases, each timed, any failure exits non-zero:
    rank, a row a rank of each local fold, a profile a rank); every
    ``cuda_ring`` point of ``first_contact``'s cli_smoke is bitwise its
    kernels' plain versions on every rank; rank 0's launches over the
-   tool fleets include the ring and alltoall kernels across processes
+   tool fleets include the ring and push kernels across processes
    and both combine kernels (the kernels line's ``tools_launches``).
 
 ``python3 chip_smoke.py --host-plane`` runs the probe and phase 11 alone,
@@ -1827,9 +1834,19 @@ def hierarchical_phase(smi: str) -> dict:
 # phase 14: (label, elements of a rank's row, seed: None = the reference's rows)
 # (label, elements a rank, seed, the calls or None for every one)
 RANK_CASES = (("reference", 8, None, None), ("full_width", 64 * MiB // 4, 7, None))
-# with a GPU a process: the headline size, the kernel against NCCL
-RANK_HEADLINE = ("headline", 1024 * MiB // 4, 7, "allreduce/cuda_ring,allreduce/fused")
+# with a GPU a process: the headline size, the kernels against NCCL
+RANK_HEADLINE = ("headline", 1024 * MiB // 4, 7,
+                 "allreduce/cuda_ring,allreduce/fused,allgather/cuda_ring,allgather/fused,"
+                 "alltoall/cuda_ring,alltoall/fused")
 NVLINK_GBPS = 450.0  # datasheet: NVLink 4, each way per H100 (not measured)
+# with a GPU a process: the push kernel's calls split (bench_push_across)
+PUSH_SPLIT_SIZES = "64M,1G"
+# the source of each kernel's form across processes (the kernels line)
+_RING_CU, _PUSH_CU = ("rocnrdma_tpu_torch/ops/csrc/ring.cu",
+                      "rocnrdma_tpu_torch/ops/csrc/push_across.cu")
+ACROSS_SOURCE = {"ring_allreduce": _RING_CU, "hbm_ring_allreduce": _RING_CU,
+                 "ring_reduce_scatter": _RING_CU, "ring_allgather": _PUSH_CU,
+                 "alltoall": _PUSH_CU}
 
 
 def _median(vals: list) -> float:
@@ -1889,7 +1906,8 @@ def rank_mesh_phase(smi: str) -> dict:
                   "max_abs_err": json.loads(_line(r, "RANKERRS")),
                   "plain_err": json.loads(_line(r, "RANKPLAINERRS")),
                   "cross": json.loads(_line(r, "RANKCROSS")),
-                  "launches": json.loads(_line(r, "RANKLAUNCHES"))} for r in rs]
+                  "launches": json.loads(_line(r, "RANKLAUNCHES")),
+                  "staged": json.loads(_line(r, "RANKSTAGED"))} for r in rs]
         kernel_calls = {name for name in names if "cuda_ring" in name}
         for rank in ranks:
             if set(rank["ms"]) != names or set(rank["max_abs_err"]) != names:
@@ -1912,6 +1930,17 @@ def rank_mesh_phase(smi: str) -> dict:
                                      f"{want} with {gpus} GPU(s) and {n} processes")
             for k, v in rank["launches"].items():
                 res["across_launches"][k] = res["across_launches"].get(k, 0) + v
+        # the push kernel's wrappers read whole aligned rows where they lie:
+        # nothing staged at full width; the reference's 1-element rows are
+        staged = {k: sum(r["staged"][k] for r in ranks) for k in ranks[0]["staged"]}
+        pushed = {"allgather/cuda_ring", "alltoall/cuda_ring"} & names
+        if label == "reference" and pushed and not sum(staged.values()):
+            raise AssertionError(f"rank-mesh reference: no staged bytes counted {staged}")
+        if label != "reference" and any(staged.values()):
+            raise AssertionError(f"rank-mesh {label}: aligned rows staged {staged}")
+        print(f"rank-mesh {label} push kernel staged bytes (every rank's; in: copied "
+              f"into the workspace, out: sliced after the kernel): " + json.dumps(staged),
+              flush=True)
         full[label] = ranks
         # per call, the median over the ranks of each steady call's ms
         calls = {name: [round(_median([r["ms"][name][i] for r in ranks]), 3)
@@ -1937,7 +1966,7 @@ def rank_mesh_phase(smi: str) -> dict:
                  **{f"{way}_GBps": [min(v), max(v)] if None not in v else None
                     for way, v in gbps.items()}}
         res[label] = {"rank_bytes": size * 4, "seed": seed,
-                      "fleet_seconds": round(secs, 1),
+                      "fleet_seconds": round(secs, 1), "staged_bytes": staged,
                       "cross": cross, "ms": calls, "launches_per_rank": launches}
         if gpus >= 2 and size * 4 >= MiB:
             res[label]["nvlink_bound_ms"] = {
@@ -1946,14 +1975,18 @@ def rank_mesh_phase(smi: str) -> dict:
             print(f"rank-mesh {label} cuda_ring NVLink bound ms (datasheet 450 GB/s each "
                   f"way): " + json.dumps(res[label]["nvlink_bound_ms"]), flush=True)
         if label == "headline":
+            # a verb's bytes: the allreduce's and alltoall's row, the
+            # allgather's gathered row (each rank's input a 1/n part)
             res[label]["busbw_GBps"] = {
-                name: round(busbw_GBps("allreduce", n, size * 4, min(ms) / 1e3), 1)
+                name: round(busbw_GBps(name.split("/")[0], n, size * 4, min(ms) / 1e3), 1)
                 for name, ms in calls.items()}
-            bound_ms = nvlink_bound_ms("allreduce/cuda_ring", n, size * 4)
             res[label]["nvlink_bound"] = {
-                "ms": round(bound_ms, 3),
-                "busbw_GBps": round(busbw_GBps("allreduce", n, size * 4, bound_ms / 1e3), 1),
-                "source": "datasheet, NVLink 4 at 450 GB/s each way per GPU"}
+                verb: {"ms": round(nvlink_bound_ms(f"{verb}/cuda_ring", n, size * 4), 3),
+                       "busbw_GBps": round(busbw_GBps(verb, n, size * 4, nvlink_bound_ms(
+                           f"{verb}/cuda_ring", n, size * 4) / 1e3), 1)}
+                for verb in sorted({name.split("/")[0] for name in calls})}
+            res[label]["nvlink_bound"]["source"] = \
+                "datasheet, NVLink 4 at 450 GB/s each way per GPU"
             print(f"rank-mesh headline, {n} x 1 GiB fp32 ({smi}): busbw GB/s "
                   f"{res[label]['busbw_GBps']}, NVLink bound {res[label]['nvlink_bound']}",
                   flush=True)
@@ -1964,10 +1997,45 @@ def rank_mesh_phase(smi: str) -> dict:
     for k, v in res["across_launches"].items():
         if v < 1:
             raise AssertionError(f"rank-mesh: the kernel wrapper {k} never launched")
+    if gpus >= 2:
+        res["push_split"] = push_split(n, smi)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "rank_mesh.json"), "w") as f:
         json.dump({"summary": res, "ranks": full}, f)
     return res
+
+
+def push_split(n: int, smi: str) -> dict:
+    """With a GPU a process: the allgather and alltoall calls across
+    processes split into the device time before, of and after the push
+    kernel's launch and the host wait in ``finish`` (bench_push_across
+    --split, n processes at 64 MiB and 1 GiB a rank, fp32, every result
+    checked); nothing may be staged."""
+    out = os.path.join(OUT_DIR, "push_split.json")
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "rocnrdma_tpu_torch.bench.bench_push_across",
+                        "--split", "--procs", str(n), "--sizes", PUSH_SPLIT_SIZES,
+                        "--out", out], capture_output=True, text=True, timeout=600)
+    if p.returncode != 0:
+        raise AssertionError(f"bench_push_across --split: exit {p.returncode}\n"
+                             f"{p.stdout[-3000:]}\n{p.stderr[-4000:]}")
+    with open(out) as f:
+        res = json.load(f)["results"]
+    for point, row in res.items():
+        if any(row["staged_bytes"].values()):
+            raise AssertionError(f"push split {point}: aligned rows staged {row['staged_bytes']}")
+        parts = {k: max(v) for k, v in row["parts_ms_by_rank"].items()}
+        print(f"  push split {point} ({smi}): {row['ms']} ms a call (slowest rank, median),"
+              f" busbw {row['busbw_GBps']} GB/s, NCCL {row.get('nccl_ms')} ms, NVLink "
+              f"bound {row['nvlink_bound_ms']} ms; "
+              f"slowest rank's ms: " + json.dumps(parts)
+              + f"; staged {row['staged_bytes']}; rank 0's profiled kernels (us): "
+              + json.dumps(row["profile_rank0_us"]), flush=True)
+    print(f"rank-mesh push split, {n} processes ({smi}): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {point: {k: row.get(k) for k in ("ms", "busbw_GBps", "nccl_ms", "nvlink_bound_ms",
+                                             "staged_bytes", "parts_ms_by_rank")}
+            for point, row in res.items()}
 
 
 # phase 16: the bench CLIs across processes, run as a launcher runs them
@@ -2784,6 +2852,8 @@ def main() -> int:
         kern["chaos_launches"] = chaos["launches"].get(kern["name"], 0)
         # phase 14's launches across processes (none for the local folds)
         kern["across_launches"] = ranks["across_launches"].get(kern["name"] + "_across", 0)
+        if kern["name"] in ACROSS_SOURCE:
+            kern["across_source"] = ACROSS_SOURCE[kern["name"]]
         # phase 16's: rank 0's launches across processes in the CLIs' sweeps
         kern["cli_across_launches"] = mesh["launches"].get(kern["name"] + "_across", 0)
         # and in the workload CLIs' runs

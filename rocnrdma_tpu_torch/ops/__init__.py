@@ -46,12 +46,23 @@ _COUNTERS = (local_cuda.LAUNCHES, ring_cuda.LAUNCHES, alltoall_cuda.LAUNCHES,
              local_triton.LAUNCHES)
 
 
+_STAGED = (ring_cuda.STAGED_BYTES, alltoall_cuda.STAGED_BYTES)
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches per wrapper since the last reset."""
     return {k: v for c in _COUNTERS for k, v in c.items()}
 
 
+def staged_bytes() -> dict[str, int]:
+    """Bytes the push kernel's wrappers across processes copied into the
+    workspace input row (``<wrapper>_in``) and out after the kernel
+    (``<wrapper>_out``) since the last reset: 0 for aligned rows."""
+    return {k: v for c in _STAGED for k, v in c.items()}
+
+
 def reset_launch_counts() -> None:
-    for c in _COUNTERS:
+    """Zero the launch counts and the staged bytes."""
+    for c in _COUNTERS + _STAGED:
         for k in c:
             c[k] = 0

@@ -4,8 +4,9 @@ Each ``ops/csrc/<name>.cu`` is compiled by ``nvcc`` on its own into
 ``ops/_build/lib<name>_<hash>.so`` (a plain C interface: pointers and the
 stream travel as ``c_void_p``), at first use, so a fresh checkout builds
 everything the first time a kernel is called. ``ring.cu`` and
-``alltoall.cu`` also build ``ring_across`` and ``alltoall_across``
-(``_VARIANTS``: their kernels across processes, at kSys). ``build()``
+``ring.cu`` also builds ``ring_across`` (``_VARIANTS``: its kernel across
+processes, at kSys); ``push_across.cu`` is the allgather and alltoall
+across processes. ``build()``
 starts one ``nvcc`` per library at once and waits for all. The hash
 covers the sources and the flags, so an edited kernel is rebuilt and a
 current one is reused.
@@ -28,10 +29,9 @@ import subprocess
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("alltoall", "alltoall_across", "combine", "ipc", "ring", "ring_across")
+SOURCES = ("alltoall", "combine", "ipc", "push_across", "ring", "ring_across")
 # a library built from another one's source with extra flags
-_VARIANTS = {"alltoall_across": ("alltoall", ("-DRNR_ACROSS=1",)),
-             "ring_across": ("ring", ("-DRNR_ACROSS=1",))}
+_VARIANTS = {"ring_across": ("ring", ("-DRNR_ACROSS=1",))}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -45,14 +45,17 @@ _SIGNATURES = {
                           _VP], _INT),
         "rnr_alltoall_rows": ([_VP, _LL, _VP, _LL, _VP, _LL, _INT, _LL, _INT, _INT,
                                _UINT, _INT, _INT, _VP], _INT),
-        "rnr_a2a_lanes_across": ([_INT, _LL, _INT, _INT], _INT),
-        "rnr_alltoall_rank": ([_VP, _VP, _VP, _INT, _LL, _INT, _INT, _UINT, _INT, _ULL,
-                               _VP, _INT, _VP], _INT),
         "rnr_a2a_error": ([_INT], ctypes.c_char_p),
     },
     "combine": {
         "rnr_combine": ([_VP, _INT, _VP, _LL, _INT, _INT, _VP], _INT),
         "rnr_combine_error": ([_INT], ctypes.c_char_p),
+    },
+    "push_across": {
+        "rnr_push_resident": ([_INT, _INT], _INT),
+        "rnr_push_rank": ([_VP, _VP, _VP, _LL, _VP, _INT, _LL, _INT, _LL, _LL, _INT, _INT,
+                           _UINT, _INT, _ULL, _VP, _INT, _VP], _INT),
+        "rnr_push_error": ([_INT], ctypes.c_char_p),
     },
     "ipc": {
         "rnr_ipc_handle_bytes": ([], _INT),

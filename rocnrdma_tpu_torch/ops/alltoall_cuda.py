@@ -21,12 +21,16 @@ tables from each tensor's base and row stride.
 Across processes, one rank a process (a 1-D mesh that spans processes):
 ``alltoall_across`` and ``alltoallv_across`` take this process's row
 ``(1, n, c...)`` and the span and return its row of ``alltoall`` /
-``alltoallv``, bit for bit. On a CUDA tensor the row goes into this
-process's IPC workspace (``ops/ipc.py``), its rank's blocks of the same
-kernel at ``kSys`` scatter its chunks straight into the peers' output rows
-(mapped from CUDA IPC handles), and its output row is copied out; on a CPU
-tensor the plain version across processes gathers every rank's row on the
-span's cross group and keeps this process's row of ``alltoall_plain``.
+``alltoallv``, bit for bit. On a CUDA tensor one launch of the push kernel
+across processes (``ops/push_cuda.py``, ``ops/csrc/push_across.cu``) reads
+the chunks from ``x`` itself when its row is contiguous, 16-byte aligned
+and of whole 128-element chunks, pushes chunk d into rank d's IPC
+workspace output row (``ops/ipc.py``) and drains this rank's row into a
+new tensor inside the launch. Any other row is staged into the workspace
+input row first, and a padded result is sliced out after the kernel; both
+copies are counted in ``STAGED_BYTES``. On a CPU tensor the plain version
+across processes gathers every rank's row on the span's cross group and
+keeps this process's row of ``alltoall_plain``.
 """
 
 from __future__ import annotations
@@ -38,17 +42,21 @@ import torch
 from rocnrdma_tpu_torch.collectives._exchange import cross_allgather
 from rocnrdma_tpu_torch.collectives.alltoall import ragged_mask
 from rocnrdma_tpu_torch.collectives.fused import alltoall_ranks
-from rocnrdma_tpu_torch.ops import _build
+from rocnrdma_tpu_torch.ops import _build, push_cuda
 from rocnrdma_tpu_torch.ops.local_cuda import DTYPE_CODES
 
 # launches of the kernel wrappers since the last reset (alltoall_across: one
 # rank's launch across processes)
 LAUNCHES = {"alltoall": 0, "alltoall_across": 0}
+# bytes alltoall_across copied into the workspace input row (staged a row
+# that was not contiguous, aligned and of whole chunks) and out of the
+# kernel's output after it (sliced a padded result), since the last reset
+STAGED_BYTES = {"alltoall_across_in": 0, "alltoall_across_out": 0}
 
 LANES = 128
 MAX_RANKS = 32
 FLAG_WORDS = 2  # per lane and rank, as alltoall.cu's RNR_A2A_FLAG_WORDS
-KERNEL_CODE = 3  # alltoall.cu's RNR_KERNEL_A2A
+KERNEL_CODE = 3  # the workspace header's kernel code of the alltoall
 
 
 def _rows(x: torch.Tensor) -> tuple[int, int, int]:
@@ -172,16 +180,6 @@ def alltoall_across_plain(x: torch.Tensor, span) -> torch.Tensor:
     return alltoall_plain(full)[span.index:span.index + 1]
 
 
-@functools.lru_cache(maxsize=256)
-def _lanes_across(device: int, n: int, per: int, code: int) -> int:
-    """The across launch's lanes: the same in every process of a job on
-    like cards."""
-    lib = _build.load("alltoall_across")
-    lanes = lib.rnr_a2a_lanes_across(n, per, code, device)
-    _build.check(lib, "rnr_a2a_error", min(lanes, 0), "alltoall lane query")
-    return lanes
-
-
 def alltoall_across(x: torch.Tensor, span) -> torch.Tensor:
     """Alltoall across processes: ``x`` is this process's row (1, n, c...)
     of ``span``'s ranks, chunk d for rank d; returns a new (1, n, c...),
@@ -197,15 +195,33 @@ def alltoall_across(x: torch.Tensor, span) -> torch.Tensor:
         raise ValueError(f"alltoall kernel takes <= {MAX_RANKS} ranks, got {n}")
     if n == 1 or per == 0:
         return x.clone()
-    lib = _build.load("alltoall_across")
-    code = DTYPE_CODES[x.dtype]
-    lanes = _lanes_across(x.get_device(), n, padded, code)
+    return _alltoall_across_kernel(x, span, n, per, padded)
+
+
+def _alltoall_across_kernel(x: torch.Tensor, span, n: int, per: int,
+                            padded: int) -> torch.Tensor:
+    """``alltoall_across``'s launch of the push kernel on a validated row
+    of n chunks of ``per`` elements, ``padded`` to 128."""
+    isz, code = x.element_size(), DTYPE_CODES[x.dtype]
+    pv = padded * isz // push_cuda.VEC
+    geo = push_cuda.geometry_for(x.get_device(), n, pv, span.per_card)
     ws = span.workspace(x.device)
-    inp, out = ws.rows(x.dtype, n * padded, n * padded, (KERNEL_CODE, code, padded, lanes))
-    # the pad of a chunk lands in the pad of its receiver's chunk, never read
-    inp.view(n, padded)[:, :per].copy_(x.reshape(n, per))
-    ws.launch("alltoall", lanes, lib, "rnr_alltoall_rank", n, padded, lanes, code)
-    res = out.view(n, padded)[:, :per].clone().reshape(x.shape)
+    direct = per == padded and x.is_contiguous() and x.data_ptr() % push_cuda.VEC == 0
+    inp, _ = ws.rows(x.dtype, 0 if direct else n * padded, n * padded,
+                     (KERNEL_CODE, code, padded, geo.lanes))
+    if direct:
+        src = x
+    else:  # the pad of a chunk lands in the pad of its receiver's chunk, never read
+        src = inp
+        inp.view(n, padded)[:, :per].copy_(x.reshape(n, per))
+        STAGED_BYTES["alltoall_across_in"] += n * per * isz
+    out = torch.empty((n, padded), dtype=x.dtype, device=x.device)
+    push_cuda.launch(ws, geo, src, pv, out, pv)
+    if per == padded:
+        res = out.view(x.shape)
+    else:
+        res = out[:, :per].reshape(x.shape)
+        STAGED_BYTES["alltoall_across_out"] += n * per * isz
     ws.finish()
     LAUNCHES["alltoall_across"] += 1
     return res

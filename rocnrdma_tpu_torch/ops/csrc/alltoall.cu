@@ -32,11 +32,8 @@
 // resident at once: the launch is cooperative and a grid that cannot be is
 // refused.
 //
-// Across processes (rnr_alltoall_rank): one rank a process; rank r's
-// `lanes` blocks scatter only rank r's chunks, into the peers' output rows
-// opened from CUDA IPC handles (ops/ipc.py), then meet the peers' blocks
-// as above, with flags at kSys and a deadline on every wait (common.cuh,
-// wait_geq_until), as ring.cu's launch across processes.
+// Across processes (one rank a process) the alltoall runs push_across.cu,
+// which also serves the allgather there.
 //
 // Bound on the H100: device-memory bytes. Each chunk is read once and
 // written once: 2*n*S bytes over all ranks for S bytes per rank, which is
@@ -62,15 +59,11 @@ struct A2AArgs {
   unsigned epoch;  // launches of this flag buffer, this one included
   long long per;   // chunk elements (multiple of 128)
   long long lane;  // lane elements (multiple of 128)
-  int rank;        // -1: all n ranks' blocks in this launch; else rank's alone
-  RnrDeadline dl;  // the waits' deadline (kSys instantiations only)
+  RnrDeadline dl;  // meet's deadline argument (kSys only: unused at kGpu)
 };
 
-#define RNR_KERNEL_A2A 3  // the RNR_DIAG_KERNEL of this kernel
-
-// The flags' memory-model scope of the one-process launch: every rank of it
-// lives on one GPU, so kGpu orders them all; the launch across processes
-// instantiates the kernel at kSys.
+// The flags' memory-model scope: every rank of a launch lives on one GPU,
+// so kGpu orders them all.
 constexpr RnrScope kA2AScope = kGpu;
 
 // Sub-range [lo, lo + nv vectors) of every chunk of x[r] into out[d, r],
@@ -111,8 +104,8 @@ template <typename T, int N, RnrScope S>
 __global__ void __launch_bounds__(RNR_BLOCK_THREADS)
     alltoall_kernel(const A2AArgs a) {
   const int n = N > 0 ? N : a.n;
-  const int r = a.rank >= 0 ? a.rank : blockIdx.x / a.lanes;
-  const int b = a.rank >= 0 ? blockIdx.x : blockIdx.x % a.lanes;
+  const int r = blockIdx.x / a.lanes;
+  const int b = blockIdx.x % a.lanes;
   const long long lo = (long long)b * a.lane;
   const long long hi = lo + a.lane < a.per ? lo + a.lane : a.per;
   const long long nv = hi > lo ? (hi - lo) * (long long)sizeof(T) / 16 : 0;
@@ -123,7 +116,7 @@ __global__ void __launch_bounds__(RNR_BLOCK_THREADS)
   if (a.sync) meet<S>(a.flags, n, r, b * RNR_A2A_FLAG_WORDS + RNR_A2A_ARR, target, a.dl);
 }
 
-template <typename T, RnrScope S>
+template <typename T, RnrScope S = kA2AScope>
 static const void* a2a_fn(int n) {
   switch (n) {
     case 2: return reinterpret_cast<const void*>(alltoall_kernel<T, 2, S>);
@@ -137,20 +130,10 @@ static const void* a2a_fn(int n) {
   }
 }
 
-// Two libraries, as ring.cu: one process (kA2AScope) and, with
-// -DRNR_ACROSS=1, across processes (kSys).
-#ifndef RNR_ACROSS
-#define RNR_ACROSS 0
-#endif
-
-// The kernel for n ranks of `dtype`, one process (kA2AScope) or one rank a
-// process (`across`: kSys, the bounded waits), or null for another dtype or
-// the other library's launch.
-static const void* kernel_for(int n, int dtype, int across) {
-  constexpr RnrScope S = RNR_ACROSS ? kSys : kA2AScope;
-  if (across != RNR_ACROSS) return nullptr;
-  if (dtype == RNR_DTYPE_F32) return a2a_fn<float, S>(n);
-  if (dtype == RNR_DTYPE_BF16) return a2a_fn<__nv_bfloat16, S>(n);
+// The kernel for n ranks of `dtype`, or null for another dtype.
+static const void* kernel_for(int n, int dtype) {
+  if (dtype == RNR_DTYPE_F32) return a2a_fn<float>(n);
+  if (dtype == RNR_DTYPE_BF16) return a2a_fn<__nv_bfloat16>(n);
   return nullptr;
 }
 
@@ -158,8 +141,8 @@ static const void* kernel_for(int n, int dtype, int across) {
 // rnr_ring_lanes chooses them (common.cuh, rnr_lanes). One occupancy query:
 // the wrapper caches the answer per shape. Returns lanes (> 0) or
 // -cudaError.
-static int a2a_lanes(int n, long long per, int dtype, int device, int across) {
-  const void* fn = kernel_for(n, dtype, across);
+extern "C" int rnr_a2a_lanes(int n, long long per, int dtype, int device) {
+  const void* fn = kernel_for(n, dtype);
   if (n < 2 || n > RNR_MAX_RANKS || per <= 0 || per % 128 || fn == nullptr)
     return -(int)cudaErrorInvalidValue;
   int lanes = 0;
@@ -170,21 +153,11 @@ static int a2a_lanes(int n, long long per, int dtype, int device, int across) {
   return rc ? -rc : lanes;
 }
 
-extern "C" int rnr_a2a_lanes(int n, long long per, int dtype, int device) {
-  return a2a_lanes(n, per, dtype, device, 0);
-}
-
-// The same for the launch across processes (its kSys kernel's occupancy).
-extern "C" int rnr_a2a_lanes_across(int n, long long per, int dtype, int device) {
-  return a2a_lanes(n, per, dtype, device, 1);
-}
-
-// Fills the rest of `a` (its row pointers set) and launches on `device`:
-// all n ranks' blocks, or with a.rank >= 0 that rank's alone.
+// Fills the rest of `a` (its row pointers set) and launches all n ranks'
+// blocks on `device`.
 static int launch(A2AArgs& a, int n, long long per, int lanes, int dtype,
                   unsigned epoch, int sync, int device, void* stream) {
-  const int across = a.rank >= 0;
-  const void* fn = kernel_for(n, dtype, across);
+  const void* fn = kernel_for(n, dtype);
   if (lanes < 1 || per <= 0 || per % 128 || fn == nullptr)
     return (int)cudaErrorInvalidValue;
   a.n = n;
@@ -193,7 +166,7 @@ static int launch(A2AArgs& a, int n, long long per, int lanes, int dtype,
   a.epoch = epoch;
   a.per = per;
   a.lane = rnr_lane_elems(per, lanes);
-  const unsigned blocks = (unsigned)(across ? lanes : n * lanes);
+  const unsigned blocks = (unsigned)(n * lanes);
   void* args[] = {&a};
   return rnr_on_device(device, [&] {
     return (int)cudaLaunchCooperativeKernel(
@@ -221,7 +194,6 @@ extern "C" int rnr_alltoall(const void* const* src, void* const* dst,
                             int device, void* stream) {
   if (n < 2 || n > RNR_MAX_RANKS) return (int)cudaErrorInvalidValue;
   A2AArgs a = {};
-  a.rank = -1;
   fill(a, src, dst, flags, n);
   return launch(a, n, per, lanes, dtype, epoch, sync, device, stream);
 }
@@ -236,35 +208,12 @@ extern "C" int rnr_alltoall_rows(const void* src, long long src_stride,
                                  int device, void* stream) {
   if (n < 2 || n > RNR_MAX_RANKS) return (int)cudaErrorInvalidValue;
   A2AArgs a = {};
-  a.rank = -1;
   for (int r = 0; r < n; ++r) {
     a.src[r] = static_cast<const char*>(src) + r * src_stride;
     a.dst[r] = static_cast<char*>(dst) + r * dst_stride;
     a.flags[r] = reinterpret_cast<unsigned*>(static_cast<char*>(flags) + r * flags_stride);
   }
   return launch(a, n, per, lanes, dtype, epoch, sync, device, stream);
-}
-
-// One launch of rank `rank`'s `lanes` blocks across processes: the tables
-// hold every rank's rows and flags (peers' mapped from CUDA IPC handles).
-// Each wait gives up after `timeout_ns` (0: never), writing its record into
-// `diag` (mapped host words, RNR_DIAG_WORDS) before the launch traps.
-extern "C" int rnr_alltoall_rank(const void* const* src, void* const* dst,
-                                 void* const* flags, int n, long long per,
-                                 int lanes, int dtype, unsigned epoch, int rank,
-                                 unsigned long long timeout_ns, void* diag,
-                                 int device, void* stream) {
-  if (n < 2 || n > RNR_MAX_RANKS || rank < 0 || rank >= n)
-    return (int)cudaErrorInvalidValue;
-  A2AArgs a = {};
-  a.rank = rank;
-  a.dl.timeout_ns = timeout_ns;
-  a.dl.diag = static_cast<unsigned*>(diag);
-  a.dl.rank = rank;
-  a.dl.kernel = RNR_KERNEL_A2A;
-  a.dl.epoch = epoch;
-  fill(a, src, dst, flags, n);
-  return launch(a, n, per, lanes, dtype, epoch, 1, device, stream);
 }
 
 extern "C" const char* rnr_a2a_error(int code) {

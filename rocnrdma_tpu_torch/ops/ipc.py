@@ -7,22 +7,29 @@ this process (``ops/csrc/ipc.cu``): on this card, or on another over
 NVLink. Each process owns one device allocation, its ``Workspace``, laid
 out as
 
-- flag words: for each kernel (ring, alltoall) and each lane count L up to
-  ``max_lanes``, a region of L * ``FLAG_WORDS`` words, zeroed once at the
-  allocation and epoch-counted per (kernel, L) as the one-process
-  wrappers count theirs (a launch e waits for e*(n-1) on each word);
+- flag words: for each kernel (``ring``, ``push``) and each lane count L
+  up to its ``max_lanes``, a region of L * ``FLAG_WORDS[kernel]`` words,
+  zeroed once at the allocation and epoch-counted per (kernel, L) as the
+  one-process wrappers count theirs (a launch e waits for e*(n-1) on each
+  word);
 - the input row and the output row, ``capacity`` bytes each.
 
-A call copies this process's row into its input row, launches its rank's
-blocks (``rnr_ring_rank`` / ``rnr_alltoall_rank``) with the tables of every
-rank's input rows, output rows and flag region, and copies its result out
-of its output row, all on the current stream; then it waits for them on
-the host (``finish``), so that a bounded wait that expired surfaces at the
-call that ran it, as ``PeerWaitExpired``. Only the barrier and the
-arrivals of the kernels order the peers: a peer reads this input row, and
-writes this output row, only between this process's entry into a launch
-and its exit from it, and this process's copies happen before and after
-on its own stream (``tests/test_torch_ring.py``'s protocol model).
+The ring kernel (``rnr_ring_rank``: allreduce, reduce_scatter) pulls: a
+call copies this process's row into its input row, launches its rank's
+blocks with the tables of every rank's input rows, output rows and flag
+region, and copies its result out of its output row, all on the current
+stream. The push kernel (``rnr_push_rank``: allgather, alltoall,
+``ops/push_cuda.py``) reads this process's row where the caller holds it
+and stores into the peers' output rows, and drains its own output row into
+the caller's result inside the launch: it takes the tables of the output
+rows and flag regions only. Then every call waits on the host
+(``finish``), so that a bounded wait that expired surfaces at the call
+that ran it, as ``PeerWaitExpired``. Only the barriers and the arrivals of
+the kernels order the peers: a peer reads this input row, and writes this
+output row, only between this process's entry into a launch and its exit
+from it, and this process's copies happen before and after on its own
+stream (the protocol models of ``tests/test_torch_ring.py`` and
+``tests/test_torch_push.py``).
 
 The handles are exchanged once, with a header, by one all-gather on the
 span's cross group (gloo while the processes share a card), and each
@@ -55,13 +62,22 @@ from rocnrdma_tpu_torch.ops import _build
 
 # the bounded wait's deadline: a peer missing this long fails the launch
 WAIT_TIMEOUT_S = 5.0
-FLAG_WORDS = 2  # per lane, as ring.cu's RNR_FLAG_WORDS and alltoall.cu's
-KERNELS = ("ring", "alltoall")  # the flag regions, in the workspace's order
+# per lane: ring.cu's RNR_FLAG_WORDS, push_across.cu's RNR_PUSH_WORDS; the
+# flag regions in the workspace's order
+FLAG_WORDS = {"ring": 2, "push": 9}
+KERNELS = tuple(FLAG_WORDS)
+_ERRORS = {"ring": "rnr_ring_error", "push": "rnr_push_error"}
+# the row tables (0 input, 1 output) each kernel's C entry takes before its flags
+_ROW_TABLES = {"ring": (0, 1), "push": (1,)}
 DIAG_WORDS = 8  # common.cuh's RNR_DIAG_WORDS, its RNR_DIAG_* below
 _STATE, _RANK, _LANE, _WORD, _SEEN, _TARGET, _EPOCH, _KERNEL = range(DIAG_WORDS)
-# RNR_DIAG_KERNEL: ring.cu's modes, alltoall.cu's RNR_KERNEL_A2A
+# RNR_DIAG_KERNEL: ring.cu's modes, push_across.cu's RNR_KERNEL_PUSH
 KERNEL_NAMES = {0: "ring (allreduce)", 1: "ring (reduce_scatter)",
-                2: "ring (allgather)", 3: "alltoall"}
+                4: "push (allgather, alltoall)"}
+_PUSH_CODE = 4
+# the push kernel's lanes with a card to itself: at most this many blocks an
+# SM (ops/push_cuda.py's geometry stays within it)
+PUSH_BLOCKS_PER_SM = 4
 _ALIGN = 256  # bytes, every region's start
 _GRAIN = 2 << 20  # capacity grows in whole 2 MiB
 _HANDLE_WORDS = 8  # int64 words of the header holding the 64-byte handle
@@ -122,7 +138,9 @@ def expired(timeout_s: float = WAIT_TIMEOUT_S) -> PeerWaitExpired | None:
         return None
     w = list(_DIAG[0])
     word = w[_WORD]
-    what = "entry barrier" if word % FLAG_WORDS == 0 else "exit arrivals"
+    per = FLAG_WORDS["push" if w[_KERNEL] == _PUSH_CODE else "ring"]
+    what = ("entry barrier" if word % per == 0 else "exit arrivals" if per == 2
+            else f"arrivals of sub-step {word % per - 1}")
     return PeerWaitExpired(
         f"the {KERNEL_NAMES.get(w[_KERNEL], w[_KERNEL])} kernel across processes "
         f"gave up after {timeout_s:g} s: rank {w[_RANK]}, lane {w[_LANE]}, flag word "
@@ -130,6 +148,22 @@ def expired(timeout_s: float = WAIT_TIMEOUT_S) -> PeerWaitExpired | None:
         f"{w[_TARGET]} ({(w[_TARGET] - w[_SEEN]) & 0xFFFFFFFF} arrival(s) missing): a "
         f"peer died or made another call. The launch trapped, so this process's "
         f"CUDA context is lost (as after an NCCL timeout): tear the job down")
+
+
+def max_lanes(n: int, sms: int, per_card: int) -> dict:
+    """The most lanes each kernel may launch with, on a card of ``sms``
+    SMs that ``per_card`` of the span's n processes share: the ring
+    kernel's cap (common.cuh, rnr_lanes: about 4 blocks an SM over all n
+    ranks, which must fit one card together); the push kernel's the same
+    on a shared card and ``PUSH_BLOCKS_PER_SM`` blocks an SM on a card of
+    its own (its peers' grids are on their own cards)."""
+    shared = -(-4 * sms // n)
+    return {"ring": shared, "push": shared if per_card > 1 else PUSH_BLOCKS_PER_SM * sms}
+
+
+def _triangle(kernel: str, lanes: int) -> int:
+    """Bytes of ``kernel``'s flag regions for 1..``lanes`` lanes."""
+    return FLAG_WORDS[kernel] * 4 * lanes * (lanes + 1) // 2
 
 
 class Workspace:
@@ -143,11 +177,12 @@ class Workspace:
         self.n, self.rank = span.size, span.index
         self.timeout_s = WAIT_TIMEOUT_S
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        # the kernels' lanes cap (common.cuh, rnr_lanes): about 4 blocks an
-        # SM over all n ranks
-        self.max_lanes = -(-4 * sms // self.n)
-        self._region = FLAG_WORDS * 4 * self.max_lanes * (self.max_lanes + 1) // 2
-        self.flag_bytes = _up(len(KERNELS) * self._region, _ALIGN)
+        self.max_lanes = max_lanes(self.n, sms, span.per_card)
+        self._regions, off = {}, 0
+        for k in KERNELS:
+            self._regions[k] = off
+            off += _triangle(k, self.max_lanes[k])
+        self.flag_bytes = _up(off, _ALIGN)
         self.capacity = 0
         self.base = None       # this process's allocation
         self.bases: tuple = ()  # every rank's, as mapped here (own at rank)
@@ -155,29 +190,31 @@ class Workspace:
         self.launches = 0
         self._tables: dict = {}
         self._rows = None
-        _build.build(("ipc", "ring_across", "alltoall_across"))
+        _build.build(("ipc", "ring_across", "push_across"))
         _LIVE.append(self)
 
     # -- layout --------------------------------------------------------
 
     def _flags_off(self, kernel: str, lanes: int) -> int:
-        if not 1 <= lanes <= self.max_lanes:
-            raise ValueError(f"{lanes} lanes, the workspace holds 1..{self.max_lanes}")
-        return (KERNELS.index(kernel) * self._region
-                + FLAG_WORDS * 4 * lanes * (lanes - 1) // 2)
+        if not 1 <= lanes <= self.max_lanes[kernel]:
+            raise ValueError(f"{lanes} lanes of the {kernel} kernel, the workspace "
+                             f"holds 1..{self.max_lanes[kernel]}")
+        return self._regions[kernel] + _triangle(kernel, lanes - 1)
 
     def _offsets(self) -> tuple[int, int]:
         return self.flag_bytes, self.flag_bytes + self.capacity
 
     def tables(self, kernel: str, lanes: int) -> tuple:
-        """The kernels' tables (every rank's input row, output row, flag
-        region of ``kernel`` at ``lanes``), each a C array of n pointers."""
+        """``kernel``'s tables: every rank's rows it takes (``_ROW_TABLES``:
+        the ring kernel's input and output rows, the push kernel's output
+        rows), then every rank's flag region of ``kernel`` at ``lanes``, each
+        a C array of n pointers."""
         key = (kernel, lanes)
         if key not in self._tables:
-            i, o = self._offsets()
-            f = self._flags_off(kernel, lanes)
+            rows = self._offsets()
+            offs = [rows[t] for t in _ROW_TABLES[kernel]] + [self._flags_off(kernel, lanes)]
             self._tables[key] = tuple((ctypes.c_void_p * self.n)(*[b + off for b in self.bases])
-                                      for off in (i, o, f))
+                                      for off in offs)
         return self._tables[key]
 
     def rows(self, dtype: torch.dtype, in_elems: int, out_elems: int,
@@ -187,7 +224,7 @@ class Workspace:
         is too small (collectively: every process grows at the same call,
         ``call`` = (kernel, dtype code, chunk elements, lanes) in its
         header)."""
-        isz = torch.empty((), dtype=dtype).element_size()
+        isz = dtype.itemsize
         need = max(in_elems, out_elems) * isz
         if need > self.capacity:
             self._grow(_up(need, _GRAIN), call)
@@ -198,7 +235,7 @@ class Workspace:
 
     def _header(self, handle: bytes, call: tuple) -> list:
         words = [self.rank, self.device.index, self.capacity, self.flag_bytes,
-                 self.max_lanes, self.launches, *call]
+                 *self.max_lanes.values(), self.launches, *call]
         return words + list(int.from_bytes(handle[k:k + 8], "little", signed=True)
                             for k in range(0, 8 * _HANDLE_WORDS, 8))
 
@@ -230,7 +267,8 @@ class Workspace:
                 raise WorkspaceMismatch(
                     f"rank {q}'s IPC workspace header {h[:body]} differs from rank "
                     f"{self.rank}'s {mine[:body]} (rank, device, capacity, flag bytes, "
-                    f"max lanes, launches so far, kernel, dtype code, chunk, lanes): the "
+                    f"max lanes of the ring and push kernels, launches so far, kernel, "
+                    f"dtype code, chunk, lanes): the "
                     f"processes made other calls; no kernel was launched")
         bases = []
         for q, h in enumerate(got):
@@ -253,18 +291,16 @@ class Workspace:
 
     def launch(self, kernel: str, lanes: int, lib, fn: str, *args) -> None:
         """One launch of this rank's blocks on the current stream: ``lib``'s
-        C entry ``fn`` (``rnr_ring_rank`` or ``rnr_alltoall_rank``) with the
+        C entry ``fn`` (``rnr_ring_rank`` or ``rnr_push_rank``) with the
         tables of ``kernel`` at ``lanes``, then ``args``, then this launch's
         epoch, the rank, the deadline, the diagnostic words, the device and
         the stream. The epoch advances only when the launch went in."""
-        src, dst, flags = self.tables(kernel, lanes)
         epoch = self.epochs.get((kernel, lanes), 0) + 1
         device = self.device.index
-        rc = getattr(lib, fn)(src, dst, flags, *args, epoch & 0xFFFFFFFF, self.rank,
-                              int(self.timeout_s * 1e9), diag()[1], device,
+        rc = getattr(lib, fn)(*self.tables(kernel, lanes), *args, epoch & 0xFFFFFFFF,
+                              self.rank, int(self.timeout_s * 1e9), diag()[1], device,
                               torch._C._cuda_getCurrentRawStream(device))
-        _build.check(lib, "rnr_ring_error" if kernel == "ring" else "rnr_a2a_error", rc,
-                     f"{kernel} kernel launch across processes")
+        _build.check(lib, _ERRORS[kernel], rc, f"{kernel} kernel launch across processes")
         self.epochs[(kernel, lanes)] = epoch
         self.launches += 1
 

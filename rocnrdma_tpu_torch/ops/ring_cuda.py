@@ -26,10 +26,15 @@ Across processes, one rank a process (a 1-D mesh that spans processes,
 process's row ``(1, ...)`` and the span, and return this process's row of
 the one-process wrapper's result, bit for bit: the chunk geometry comes
 from the span's n, so padding, chunk ownership and fold order are the one
-process's. On a CUDA tensor each copies the row into this process's IPC
-workspace (``ops/ipc.py``), launches its rank's blocks of the same kernel
-at ``kSys`` with every rank's rows and flags mapped from CUDA IPC handles,
-and copies its row of the result out. Each has a plain version across
+process's. On a CUDA tensor the allreduce and the reduce-scatter copy the
+row into this process's IPC workspace (``ops/ipc.py``), launch their
+rank's blocks of the same kernel at ``kSys`` with every rank's rows and
+flags mapped from CUDA IPC handles, and copy their row of the result out.
+The allgather runs the push kernel across processes instead
+(``ops/push_cuda.py``): it reads a contiguous, 16-byte-aligned row of
+whole vectors where it lies and drains the gathered row into a new tensor
+inside the launch; any other row is staged and its padded result sliced,
+both counted in ``STAGED_BYTES``. Each has a plain version across
 processes for a CPU tensor: every rank's row gathered on the span's cross
 group, the one-process plain version, this process's row.
 
@@ -52,7 +57,7 @@ import functools
 import torch
 
 from rocnrdma_tpu_torch.collectives._exchange import cross_allgather
-from rocnrdma_tpu_torch.ops import _build
+from rocnrdma_tpu_torch.ops import _build, push_cuda
 from rocnrdma_tpu_torch.ops.local_cuda import DTYPE_CODES
 
 # launches of each kernel wrapper since the last reset; the *_across ones
@@ -61,6 +66,10 @@ LAUNCHES = {"ring_allreduce": 0, "hbm_ring_allreduce": 0,
             "ring_reduce_scatter": 0, "ring_allgather": 0,
             "ring_allreduce_across": 0, "hbm_ring_allreduce_across": 0,
             "ring_reduce_scatter_across": 0, "ring_allgather_across": 0}
+# bytes ring_allgather_across copied into the workspace input row (staged a
+# row that was not contiguous, aligned and of whole vectors) and out of the
+# kernel's output after it (sliced a padded result), since the last reset
+STAGED_BYTES = {"ring_allgather_across_in": 0, "ring_allgather_across_out": 0}
 
 LANES = 128
 MAX_RANKS = 32
@@ -497,10 +506,34 @@ def ring_allgather_across(x: torch.Tensor, span,
     if n == 1 or c == 0:
         return x.reshape(1, -1).clone()
     _check_tile_rows(tile_rows)
-    vec = 16 // x.element_size()
+    return _allgather_across_kernel(x, span, n, c)
+
+
+def _allgather_across_kernel(x: torch.Tensor, span, n: int, c: int) -> torch.Tensor:
+    """``ring_allgather_across``'s launch of the push kernel on a
+    validated row of ``c`` elements."""
+    isz = x.element_size()
+    vec = push_cuda.VEC // isz
     per = -(-c // vec) * vec  # chunks start 16-byte aligned
-    ws, out = _run_across(x, span, MODE_AG, per, per, n * per, _copy_row(x, c))
-    res = out.view(n, per)[:, :c].clone().reshape(1, n * c)
+    pv = per // vec
+    geo = push_cuda.geometry_for(x.get_device(), n, pv, span.per_card)
+    ws = span.workspace(x.device)
+    direct = per == c and x.is_contiguous() and x.data_ptr() % push_cuda.VEC == 0
+    inp, _ = ws.rows(x.dtype, 0 if direct else per, n * per,
+                     (MODE_AG, DTYPE_CODES[x.dtype], per, geo.lanes))
+    if direct:
+        src = x
+    else:  # a chunk's pad lands in the pads of the gathered row, never read
+        src = inp
+        inp[:c].copy_(x.reshape(-1))
+        STAGED_BYTES["ring_allgather_across_in"] += c * isz
+    out = torch.empty((n, per), dtype=x.dtype, device=x.device)
+    push_cuda.launch(ws, geo, src, 0, out, pv)
+    if per == c:
+        res = out.view(1, n * c)
+    else:
+        res = out[:, :c].reshape(1, n * c)
+        STAGED_BYTES["ring_allgather_across_out"] += n * c * isz
     ws.finish()
     LAUNCHES["ring_allgather_across"] += 1
     return res

@@ -562,9 +562,12 @@ class Fp8E4M3Codec(WireCodec):
     probes torch once; a machine without the dtype gets a NAMED refusal
     at get() time, not an ImportError mid-collective.
 
-    Out of range, torch saturates to ±448 where ``ml_dtypes`` (the
-    reference's conversion) gives NaN; the per-frame scale keeps every
-    code within ±qmax, so the two agree on every value a frame holds."""
+    Both torch and ``ml_dtypes`` (the reference's conversion) round a
+    float64 through float32 first, and agree up to 464 in magnitude; past
+    it torch saturates to ±448 where ``ml_dtypes`` gives NaN, so
+    ``_quantize`` writes the NaN code (0x7f, 0xff by sign) there itself and
+    every float32 or float64 value encodes as the reference's. The
+    per-frame scale keeps every scaled value within ±qmax anyway."""
 
     name = "fp8"
     qmax = 448.0
@@ -596,6 +599,13 @@ class Fp8E4M3Codec(WireCodec):
         dst = self._torch.from_numpy(codes).view(self._f8)
         for off in range(0, flat.size, _F8_PIECE):
             dst[off:off + _F8_PIECE].copy_(src[off:off + _F8_PIECE])
+        # past 464 in float32 magnitude (inf included) the reference's NaN,
+        # not torch's saturated ±448; frames never get there, so two
+        # reductions decide whether to look
+        if flat.size and (flat.max() > 464 or flat.min() < -464):
+            with np.errstate(over="ignore"):  # a float64 past float32's range: inf
+                big = np.abs(flat.astype(np.float32, copy=False)) > 464
+            codes[big] = np.where(np.signbit(flat[big]), 0xFF, 0x7F)
         return codes.reshape(np.shape(scaled))
 
     def _payload_values(self, payload: np.ndarray, dtype) -> np.ndarray:

@@ -8,9 +8,11 @@
 - A model of the CUDA kernel's protocol (copy home, global barrier, direct
   writes, arrivals and their drain per (rank, lane)), stepped through
   seeded random interleavings, since the kernel itself runs only on the
-  card (``tests/test_torch_card.py``); also one rank a process, each
-  rank's workspace rows copied in and out on its own stream, and a rank
-  that never launches.
+  card (``tests/test_torch_card.py``); also this kernel launched one rank
+  a process, each rank's workspace rows copied in and out on its own
+  stream, and a rank that never launches (the form the ring kernel keeps
+  across processes; the alltoall there runs the push kernel,
+  ``tests/test_torch_push.py``).
 """
 
 import jax

@@ -627,8 +627,18 @@ def same(name, got, plain):
     assert got.is_cuda and torch.equal(got.cpu(), plain), name
 
 
+def staged_by(call, wrapper, want_in, want_out):
+    # the bytes the push kernel's wrapper staged in and sliced out for call()
+    before = ops.staged_bytes()
+    call()
+    after = ops.staged_bytes()
+    got = tuple(after[f"{wrapper}_{k}"] - before[f"{wrapper}_{k}"] for k in ("in", "out"))
+    assert got == (want_in, want_out), (wrapper, got, want_in, want_out)
+
+
 if case == "parity":
     for dtype in (torch.float32, torch.bfloat16):
+        isz = torch.empty((), dtype=dtype).element_size()
         x = row((3 * 128 * 8 + 37,), dtype, 1)
         counts = dict(ops.launch_counts())
         same("allreduce", R.ring_allreduce_across(x, span),
@@ -641,30 +651,49 @@ if case == "parity":
         z = row((n * 2 * 128,), dtype, 2)
         same("reduce_scatter", R.ring_reduce_scatter_across(z, span),
              R.ring_reduce_scatter_across_plain(z.cpu(), span))
+        # the push kernel: 700 fp32 are whole 16-byte vectors (read in place),
+        # 700 bf16 are not (staged, the result sliced); 704 are in both
         g = row((700,), dtype, 3)
-        same("allgather", R.ring_allgather_across(g, span),
-             R.ring_allgather_across_plain(g.cpu(), span))
-        a = row((n, 77), dtype, 4)
-        same("alltoall", A.alltoall_across(a, span), A.alltoall_across_plain(a.cpu(), span))
+        pad = 0 if dtype == torch.float32 else 700 * isz
+        staged_by(lambda: same("allgather", R.ring_allgather_across(g, span),
+                               R.ring_allgather_across_plain(g.cpu(), span)),
+                  "ring_allgather_across", pad, n * pad)
+        g = row((704,), dtype, 7)
+        staged_by(lambda: same("allgather aligned", R.ring_allgather_across(g, span),
+                               R.ring_allgather_across_plain(g.cpu(), span)),
+                  "ring_allgather_across", 0, 0)
+        a = row((n, 77), dtype, 4)  # chunks padded to 128
+        staged_by(lambda: same("alltoall", A.alltoall_across(a, span),
+                               A.alltoall_across_plain(a.cpu(), span)),
+                  "alltoall_across", n * 77 * isz, n * 77 * isz)
+        a = row((n, 256), dtype, 8)
+        staged_by(lambda: same("alltoall aligned", A.alltoall_across(a, span),
+                               A.alltoall_across_plain(a.cpu(), span)),
+                  "alltoall_across", 0, 0)
         c = np.random.default_rng(5).integers(0, 6, size=(n, n))
-        v = row((n, 5, 4), dtype, 6)
-        got, rc = A.alltoallv_across(v, c, span)
-        want, want_rc = A.ragged_mask(A.alltoall_across_plain(v.cpu(), span), c, span=span)
-        same("alltoallv", got, want)
-        assert torch.equal(rc.cpu(), want_rc)
+        for shape in ((n, 5, 4), (n, 32, 4)):  # padded, whole chunks
+            v = row(shape, dtype, 6)
+            got, rc = A.alltoallv_across(v, c, span)
+            want, want_rc = A.ragged_mask(A.alltoall_across_plain(v.cpu(), span), c,
+                                          span=span)
+            same("alltoallv", got, want)
+            assert torch.equal(rc.cpu(), want_rc)
         after = ops.launch_counts()
         grew = {k: after[k] - counts[k] for k in after if after[k] != counts[k]}
         assert grew == {"ring_allreduce_across": 1, "hbm_ring_allreduce_across": 2,
-                        "ring_reduce_scatter_across": 1, "ring_allgather_across": 1,
-                        "alltoall_across": 2}, grew
+                        "ring_reduce_scatter_across": 1, "ring_allgather_across": 2,
+                        "alltoall_across": 4}, grew
     print(f"OK rank={rank} parity", flush=True)
     span.close()
     dist.destroy_process_group()
     os._exit(0)
-# case "peer-exits": both make one call (the workspace is exchanged), then
-# the last rank exits before its next launch; the others' launch gives up
-x = row((4096,), torch.float32, 7)
-R.ring_allreduce_across(x, span)
+# case "peer-exits-<kernel>": both make one call of the ring (allreduce) or
+# the push kernel (alltoall), so the workspace is exchanged, then the last
+# rank exits before its next launch; the others' launch gives up
+x = row((n, 4096), torch.float32, 7)
+verb = ((lambda: R.ring_allreduce_across(x.reshape(1, -1), span))
+        if case == "peer-exits-ring" else (lambda: A.alltoall_across(x, span)))
+verb()
 dist.barrier()
 if rank == n - 1:
     os._exit(0)
@@ -672,7 +701,7 @@ ws = span.workspace(x.device)
 ws.timeout_s = 2.0
 t0 = time.perf_counter()
 try:
-    R.ring_allreduce_across(x, span)
+    verb()
     print("NO-ERROR", flush=True)
 except ipc.PeerWaitExpired as e:
     print(f"EXPIRED {time.perf_counter() - t0:.3f} {e}", flush=True)
@@ -706,20 +735,26 @@ def test_kernels_across_two_processes_on_one_card_equal_their_plain_versions(cud
     launching its rank's blocks with the other's rows and flags mapped
     through CUDA IPC, every result bitwise the plain version across
     processes (gather, the one-process plain version, own row), fp32 and
-    bf16, each wrapper counted once a call."""
+    bf16, each wrapper counted once a call; the push kernel's allgather,
+    alltoall and alltoallv on aligned rows (nothing staged) and padded ones
+    (staged in and sliced out, counted)."""
     for rank, (rc, out, err) in enumerate(_across(2, "parity")):
         assert rc == 0 and f"OK rank={rank} parity" in out, out + err[-3000:]
 
 
-def test_a_peer_that_never_launches_expires_the_bounded_wait(cuda_device):
-    """A peer that exits before its launch: the other process's launch gives
-    up at its deadline (2 s here) with ``ipc.PeerWaitExpired``, naming the
-    lane and the flag word, never a hang."""
+@pytest.mark.parametrize("kernel", ["ring", "push"])
+def test_a_peer_that_never_launches_expires_the_bounded_wait(cuda_device, kernel):
+    """A peer that exits before its launch of the ring kernel (allreduce) or
+    the push kernel (alltoall): the other process's launch gives up at its
+    deadline (2 s here) with ``ipc.PeerWaitExpired``, naming the kernel,
+    the lane and the flag word, never a hang."""
     import re
 
-    (rc, out, err), _ = _across(2, "peer-exits")
+    (rc, out, err), _ = _across(2, f"peer-exits-{kernel}")
     assert rc == 0, out + err[-3000:]
     m = re.search(r"^EXPIRED (\S+) (.*)$", out, re.M)
     assert m, out + err[-3000:]
     assert 2.0 <= float(m.group(1)) < 2.0 + 5.0
     assert re.search(r"rank 0, lane \d+, flag word \d+ \(entry barrier\)", m.group(2))
+    assert ("push (allgather, alltoall)" if kernel == "push" else "ring (allreduce)") \
+        in m.group(2)

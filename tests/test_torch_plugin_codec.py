@@ -160,18 +160,28 @@ def test_codec_error_feedback_equals_reference(name):
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_fp8_quantize_matches_ml_dtypes_up_to_464_and_saturates_above(dtype):
+    """The codes equal ``ml_dtypes``' over the whole range: the edge at 464
+    (463.9 and 464.0 still 448, past it NaN), infinities, and float32
+    values across every exponent (every 997th bit pattern) or float64
+    values drawn over 24 decades, rounded through float32 by both."""
     port = PC.get("fp8")
-    inside = np.array([448.0, np.nextafter(dtype(448), dtype(500)), 455.9, 456.0,
-                       463.9, 464.0, -464.0, 1.0625, 1.1875, 2.0**-10,
-                       3 * 2.0**-10, 2.0**-12, 0.0, -0.0], dtype)
-    want = inside.astype(ml_dtypes.float8_e4m3fn).view(np.uint8)
-    assert port._quantize(inside.copy()).tobytes() == want.tobytes()
-    # out of range: ml_dtypes gives NaN (0x7f/0xff), torch saturates to
-    # +-448 (0x7e/0xfe) -- the known difference, pinned
+    edge = np.array([448.0, np.nextafter(dtype(448), dtype(500)), 455.9, 456.0,
+                     463.9, 464.0, -464.0, np.nextafter(dtype(464), dtype(500)),
+                     np.nextafter(dtype(-464), dtype(-500)), 465.0, 480.0, 1e6, -470.0,
+                     np.inf, -np.inf, np.finfo(dtype).max, 1.0625, 1.1875,
+                     1.0625 + 2.0**-40, 2.0**-10, 3 * 2.0**-10, 2.0**-12, 0.0, -0.0], dtype)
+    if dtype == np.float32:
+        whole = np.arange(0, 1 << 32, 997, dtype=np.uint64).astype(np.uint32).view(dtype)
+        whole = whole[~np.isnan(whole)]
+    else:
+        rng = np.random.default_rng(3)
+        whole = rng.standard_normal(1 << 20) * 10.0 ** rng.integers(-12, 12, 1 << 20)
+    for x in (edge, whole.astype(dtype)):
+        want = x.astype(ml_dtypes.float8_e4m3fn).view(np.uint8)
+        assert port._quantize(x.copy()).tobytes() == want.tobytes()
+    # past 464 the reference's NaN (0x7f/0xff), no longer torch's +-448
     beyond = np.array([465.0, 480.0, 1e6, -470.0], dtype)
-    assert list(beyond.astype(ml_dtypes.float8_e4m3fn).view(np.uint8)) == \
-        [0x7f, 0x7f, 0x7f, 0xff]
-    assert list(port._quantize(beyond.copy())) == [0x7e, 0x7e, 0x7e, 0xfe]
+    assert list(port._quantize(beyond.copy())) == [0x7f, 0x7f, 0x7f, 0xff]
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
