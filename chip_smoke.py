@@ -194,14 +194,14 @@ Phases, each timed, any failure exits non-zero:
    and binomial at roots off process 0; sendrecv at shift 3; a
    ``prog_ring_allreduce`` program; a ``group()``), and ``cuda_ring``:
    the kernels across processes, each process launching its rank's
-   blocks with the peers' rows and flags mapped through CUDA IPC: the
-   ring kernel (the allreduce, the tiled in-place allreduce at 3 x
-   128-element tiles, reduce_scatter; the reduce_scatter on a buffer not
-   of whole n*128-element chunks refused by both meshes alike) and the
+   blocks with the peers' flags and workspace rows mapped through CUDA
+   IPC: the reduce kernel (the allreduce, the tiled in-place allreduce at
+   3 x 128-element tiles, reduce_scatter; the reduce_scatter on a buffer
+   not of whole n*128-element chunks refused by both meshes alike) and the
    push kernel (allgather, alltoall, alltoallv; a ``group()`` of an
-   allreduce and an alltoall). The push kernel's wrappers count the bytes
-   they stage (``RANKSTAGED``): none at full width, whose rows they read
-   where they lie; the reference's 1-element rows are staged. The kernels build
+   allreduce and an alltoall). Their wrappers count the bytes they stage
+   (``RANKSTAGED``): none at full width, whose rows they read where they
+   lie; the reference's 1-element rows are staged. The kernels build
    once here first. Every rank holds every result to the one-process
    port on the card (bitwise, the fused reductions within rtol 1e-5,
    atol 1e-6) and to the reference's checks, each ``cuda_ring`` result
@@ -214,12 +214,13 @@ Phases, each timed, any failure exits non-zero:
    the card, or a cross leg other than gloo staged with one GPU (NCCL
    unstaged with a GPU a process) fails the phase. With a GPU a process
    a third case runs the headline size, 1 GiB fp32 a rank, for the
-   ``cuda_ring`` and ``fused`` allreduce, allgather and alltoall, with
-   their busbw beside the NVLink datasheet bound; then
-   ``bench_push_across --split`` splits the allgather and alltoall calls
-   at 64 MiB and 1 GiB a rank into the device time before, of and after
-   the push kernel's launch and the host wait in ``finish``, each
-   result checked, nothing staged. Printed: each call's ms, each ``cuda_ring``
+   ``cuda_ring`` and ``fused`` allreduce, reduce_scatter, allgather and
+   alltoall, with their busbw beside the NVLink datasheet bound; then
+   ``bench_push_across --split`` splits the allreduce, reduce_scatter,
+   allgather and alltoall calls at 64 MiB and 1 GiB a rank into the
+   device time before, of and after the kernel's launch and the host wait
+   in ``finish``, beside NCCL's call, each result checked, nothing
+   staged. Printed: each call's ms, each ``cuda_ring``
    call beside its verb's ``fused`` and ``ring``, the cross leg's backend
    and its GB/s each way; all of it to ``smoke_out/rank_mesh.json``;
 15. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
@@ -1836,17 +1837,21 @@ def hierarchical_phase(smi: str) -> dict:
 RANK_CASES = (("reference", 8, None, None), ("full_width", 64 * MiB // 4, 7, None))
 # with a GPU a process: the headline size, the kernels against NCCL
 RANK_HEADLINE = ("headline", 1024 * MiB // 4, 7,
-                 "allreduce/cuda_ring,allreduce/fused,allgather/cuda_ring,allgather/fused,"
+                 "allreduce/cuda_ring,allreduce/fused,reduce_scatter/cuda_ring,"
+                 "reduce_scatter/fused,allgather/cuda_ring,allgather/fused,"
                  "alltoall/cuda_ring,alltoall/fused")
 NVLINK_GBPS = 450.0  # datasheet: NVLink 4, each way per H100 (not measured)
-# with a GPU a process: the push kernel's calls split (bench_push_across)
+# with a GPU a process: the kernels' calls split (bench_push_across)
 PUSH_SPLIT_SIZES = "64M,1G"
 # the source of each kernel's form across processes (the kernels line)
-_RING_CU, _PUSH_CU = ("rocnrdma_tpu_torch/ops/csrc/ring.cu",
-                      "rocnrdma_tpu_torch/ops/csrc/push_across.cu")
-ACROSS_SOURCE = {"ring_allreduce": _RING_CU, "hbm_ring_allreduce": _RING_CU,
-                 "ring_reduce_scatter": _RING_CU, "ring_allgather": _PUSH_CU,
+_REDUCE_CU, _PUSH_CU = ("rocnrdma_tpu_torch/ops/csrc/reduce_across.cu",
+                        "rocnrdma_tpu_torch/ops/csrc/push_across.cu")
+ACROSS_SOURCE = {"ring_allreduce": _REDUCE_CU, "hbm_ring_allreduce": _REDUCE_CU,
+                 "ring_reduce_scatter": _REDUCE_CU, "ring_allgather": _PUSH_CU,
                  "alltoall": _PUSH_CU}
+# a rank's bytes each way over NVLink, in units of (n-1)/n of its row: the
+# allreduce's reduce and allgather twice, every other verb once
+_LINK_ROWS = {"allreduce": 2}
 
 
 def _median(vals: list) -> float:
@@ -1857,17 +1862,21 @@ def _median(vals: list) -> float:
 def nvlink_bound_ms(name: str, n: int, rank_bytes: int) -> float:
     """The least ms of the ``rank-mesh`` task's ``cuda_ring`` call ``name``
     at NVLink's datasheet rate, a GPU a rank: each rank's kernel moves
-    (n-1)/n of its rank's bytes each way (a ``group()`` two verbs' worth)."""
-    verbs = 2 if name.startswith("group/") else 1
-    return verbs * (n - 1) / n * rank_bytes / (NVLINK_GBPS * 1e9) * 1e3
+    (n-1)/n of its rank's bytes each way, the allreduce 2(n-1)/n (its
+    reduce and its allgather); a ``group()`` the sum of its verbs' terms
+    (``mp_worker.RANK_KERNELS``: an allreduce and an alltoall)."""
+    verbs = (("allreduce", "alltoall") if name.startswith("group/")
+             else (name.split("/")[0],))
+    rows = sum(_LINK_ROWS.get(v, 1) for v in verbs)
+    return rows * (n - 1) / n * rank_bytes / (NVLINK_GBPS * 1e9) * 1e3
 
 
 def rank_mesh_phase(smi: str) -> dict:
     """The 1-D rank mesh across processes (module docstring, phase 14)."""
     from rocnrdma_tpu_torch.metrics import busbw_GBps
     from rocnrdma_tpu_torch.ops import _build
-    from rocnrdma_tpu_torch.runtime.mp_worker import (RANK_CALLS, rank_launches,
-                                                      rank_refused)
+    from rocnrdma_tpu_torch.runtime.mp_worker import (RANK_CALLS, TILED_ROWS,
+                                                      rank_launches, rank_refused)
     from rocnrdma_tpu_torch.runtime.multiprocess import WorkerResult, run_workers
 
     gpus = torch.cuda.device_count()
@@ -1930,17 +1939,22 @@ def rank_mesh_phase(smi: str) -> dict:
                                      f"{want} with {gpus} GPU(s) and {n} processes")
             for k, v in rank["launches"].items():
                 res["across_launches"][k] = res["across_launches"].get(k, 0) + v
-        # the push kernel's wrappers read whole aligned rows where they lie:
-        # nothing staged at full width; the reference's 1-element rows are
+        # the kernels' wrappers read whole aligned rows where they lie:
+        # nothing staged at full width but the tiled allreduce's, whose
+        # 3-row tiles pad a chunk; the reference's 1-element rows are
         staged = {k: sum(r["staged"][k] for r in ranks) for k in ranks[0]["staged"]}
-        pushed = {"allgather/cuda_ring", "alltoall/cuda_ring"} & names
+        pushed = {"allgather/cuda_ring", "alltoall/cuda_ring", "allreduce/cuda_ring"} & names
         if label == "reference" and pushed and not sum(staged.values()):
             raise AssertionError(f"rank-mesh reference: no staged bytes counted {staged}")
-        if label != "reference" and any(staged.values()):
+        tiled_pads = ("allreduce/cuda_ring_tiled" in names
+                      and -(-size // n) % (TILED_ROWS * 128) != 0)
+        if label != "reference" and any(
+                v for k, v in staged.items()
+                if not (tiled_pads and k.startswith("hbm_ring_allreduce_across"))):
             raise AssertionError(f"rank-mesh {label}: aligned rows staged {staged}")
-        print(f"rank-mesh {label} push kernel staged bytes (every rank's; in: copied "
-              f"into the workspace, out: sliced after the kernel): " + json.dumps(staged),
-              flush=True)
+        print(f"rank-mesh {label} kernels' staged bytes (every rank's; in: copied "
+              f"before the kernel, out: sliced or copied back after it): "
+              + json.dumps(staged), flush=True)
         full[label] = ranks
         # per call, the median over the ranks of each steady call's ms
         calls = {name: [round(_median([r["ms"][name][i] for r in ranks]), 3)
@@ -1975,15 +1989,19 @@ def rank_mesh_phase(smi: str) -> dict:
             print(f"rank-mesh {label} cuda_ring NVLink bound ms (datasheet 450 GB/s each "
                   f"way): " + json.dumps(res[label]["nvlink_bound_ms"]), flush=True)
         if label == "headline":
-            # a verb's bytes: the allreduce's and alltoall's row, the
-            # allgather's gathered row (each rank's input a 1/n part)
-            res[label]["busbw_GBps"] = {
-                name: round(busbw_GBps(name.split("/")[0], n, size * 4, min(ms) / 1e3), 1)
-                for name, ms in calls.items()}
+            # a verb's bytes: the allreduce's, reduce_scatter's and
+            # alltoall's row, the allgather's gathered row (each rank's
+            # input a 1/n part); metrics names the reduce_scatter
+            # "reducescatter"
+            def busbw(verb, seconds):
+                return round(busbw_GBps(verb.replace("_", ""), n, size * 4, seconds), 1)
+
+            res[label]["busbw_GBps"] = {name: busbw(name.split("/")[0], min(ms) / 1e3)
+                                        for name, ms in calls.items()}
             res[label]["nvlink_bound"] = {
                 verb: {"ms": round(nvlink_bound_ms(f"{verb}/cuda_ring", n, size * 4), 3),
-                       "busbw_GBps": round(busbw_GBps(verb, n, size * 4, nvlink_bound_ms(
-                           f"{verb}/cuda_ring", n, size * 4) / 1e3), 1)}
+                       "busbw_GBps": busbw(verb, nvlink_bound_ms(
+                           f"{verb}/cuda_ring", n, size * 4) / 1e3)}
                 for verb in sorted({name.split("/")[0] for name in calls})}
             res[label]["nvlink_bound"]["source"] = \
                 "datasheet, NVLink 4 at 450 GB/s each way per GPU"
@@ -2006,11 +2024,12 @@ def rank_mesh_phase(smi: str) -> dict:
 
 
 def push_split(n: int, smi: str) -> dict:
-    """With a GPU a process: the allgather and alltoall calls across
-    processes split into the device time before, of and after the push
-    kernel's launch and the host wait in ``finish`` (bench_push_across
-    --split, n processes at 64 MiB and 1 GiB a rank, fp32, every result
-    checked); nothing may be staged."""
+    """With a GPU a process: the allreduce, reduce_scatter, allgather and
+    alltoall calls across processes split into the device time before, of
+    and after the kernel's launch and the host wait in ``finish``
+    (bench_push_across --split, n processes at 64 MiB and 1 GiB a rank,
+    fp32, every result checked, NCCL's call beside each); nothing may be
+    staged."""
     out = os.path.join(OUT_DIR, "push_split.json")
     t0 = time.perf_counter()
     p = subprocess.run([sys.executable, "-m", "rocnrdma_tpu_torch.bench.bench_push_across",
@@ -2031,7 +2050,8 @@ def push_split(n: int, smi: str) -> dict:
               f"slowest rank's ms: " + json.dumps(parts)
               + f"; staged {row['staged_bytes']}; rank 0's profiled kernels (us): "
               + json.dumps(row["profile_rank0_us"]), flush=True)
-    print(f"rank-mesh push split, {n} processes ({smi}): {time.perf_counter() - t0:.1f} s",
+    print(f"rank-mesh kernels' split, {n} processes ({smi}): "
+          f"{time.perf_counter() - t0:.1f} s",
           flush=True)
     return {point: {k: row.get(k) for k in ("ms", "busbw_GBps", "nccl_ms", "nvlink_bound_ms",
                                              "staged_bytes", "parts_ms_by_rank")}

@@ -1,30 +1,48 @@
-"""``bench_push_across`` - the allgather and the alltoall across processes
-(``ring_cuda.ring_allgather_across``, ``alltoall_cuda.alltoall_across``),
-one rank a process on one GPU each, fp32, at a rank's 64 MiB and 1 GiB (the
-alltoall's row, the allgather's gathered row; nccl-tests' sizes).
+"""``bench_push_across`` - the kernels across processes, one rank a
+process on one GPU each, fp32, at a rank's 64 MiB and 1 GiB (nccl-tests'
+sizes: the row of the allreduce, the reduce_scatter and the alltoall, the
+allgather's gathered row). The verbs (``--verbs``): ``allreduce``
+(``ring_cuda.ring_allreduce_across``), ``allreduce_in_place``
+(``hbm_ring_allreduce_across`` at 64-row tiles), ``reduce_scatter``
+(``ring_reduce_scatter_across``), ``allgather``
+(``ring_allgather_across``) and ``alltoall``
+(``alltoall_cuda.alltoall_across``).
 
 - ``--split``: each call's parts, on every rank: the device time before
-  the kernel's launch (the copy into the IPC workspace), of the launch and
-  after it (the copy out), between CUDA events recorded around
-  ``ipc.Workspace.launch`` and at ``Workspace.finish``; the host seconds
-  in ``finish``; the call's wall time after a barrier, the slowest rank's;
-  the staged bytes where the wrappers count them; one steady call on
-  rank 0 under ``torch.profiler``, its device kernels by name in order;
-  and with NCCL its call for the same function, timed the same way.
-  The wrappers are the ones importable from ``PYTHONPATH``, so the same
-  script splits an older tree's calls: unpack it and put it first on
-  ``PYTHONPATH``.
-- ``--sweep``: the push kernel's geometry (``ops/push_cuda.py``): blocks
-  an SM, vectors a thread and sub-step bytes, every point held bitwise to
-  the rows it must gather, the slowest rank's median wall time.
+  the kernel's launch (a copy into the IPC workspace, where a tree stages
+  one), of the launch and after it (a copy out), between CUDA events
+  recorded around ``ipc.Workspace.launch`` and at ``Workspace.finish``;
+  the host seconds in ``finish``; the call's wall time after a barrier,
+  the slowest rank's; the staged bytes where the wrappers count them; one
+  steady call on rank 0 under ``torch.profiler``, its device kernels by
+  name in order; and with NCCL its call for the same function, timed the
+  same way (the allreduce's in place on a copy of the row, as
+  ``all_reduce`` runs). ``--knobs B/V/S`` splits the reduce kernel at that
+  geometry in place of ``KNOBS["reduce"]``. The wrappers are the ones importable from
+  ``PYTHONPATH``, so the same script splits an older tree's calls: unpack
+  it and put it first on ``PYTHONPATH``.
+- ``--sweep``: the geometry of each verb's kernel (``ops/push_cuda.py``,
+  ``KNOBS``): blocks an SM, vectors a thread and sub-step bytes, every
+  point held bitwise to the rows it must give, the slowest rank's median
+  wall time.
 
-Rank 0 prints one JSON line (``PUSHSPLIT`` or ``PUSHSWEEP``) and writes it
-to ``--out``. The script starts its own processes (``--procs``, default one
-a GPU; NCCL with a GPU each, else gloo with the rows on the one card)::
+The timed rows are exact small integers, so they check what a call sums or
+moves but not a reduction's order (every order gives the same bits). Both
+modes therefore also hold one call of each reduction on random fp32 rows,
+at every sweep point, bitwise to its plain version across processes
+(``ring_cuda.*_across_plain``: the ring's order).
+
+Every time stands beside its NVLink bound: (n-1)/n of a rank's bytes each
+way at the datasheet's 450 GB/s, the allreduce's 2(n-1)/n (its reduce and
+its allgather). Rank 0 prints one JSON line (``PUSHSPLIT`` or
+``PUSHSWEEP``) and writes it to ``--out``. The script starts its own
+processes (``--procs``, default one a GPU; NCCL with a GPU each, else gloo
+with the rows on the one card)::
 
     python -m rocnrdma_tpu_torch.bench.bench_push_across --split --out split.json
     PYTHONPATH=old python rocnrdma_tpu_torch/bench/bench_push_across.py --split
-    python -m rocnrdma_tpu_torch.bench.bench_push_across --sweep --sizes 64M,1G
+    python -m rocnrdma_tpu_torch.bench.bench_push_across --sweep --sizes 64M,1G \
+        --verbs allreduce,reduce_scatter
 
 On the CPU (``--platform cpu``, gloo) the wrappers take their plain
 versions: a rehearsal of the flow, no device numbers.
@@ -46,6 +64,13 @@ if not __package__:  # run as a file: PYTHONPATH's package first, else this tree
 
 MiB = 1 << 20
 NVLINK_GBPS = 450.0  # datasheet: NVLink 4, each way per H100
+VERBS = ("allreduce", "allreduce_in_place", "reduce_scatter", "allgather", "alltoall")
+# each verb's wrapper, by its launch and staged-bytes name
+WRAPPER = {"allreduce": "ring_allreduce_across",
+           "allreduce_in_place": "hbm_ring_allreduce_across",
+           "reduce_scatter": "ring_reduce_scatter_across",
+           "allgather": "ring_allgather_across", "alltoall": "alltoall_across"}
+IN_PLACE_TILE_ROWS = 64
 
 
 def _size(s: str) -> int:
@@ -93,12 +118,22 @@ def _spawn(args) -> int:
 
 
 def _inputs(verb: str, n: int, rank: int, size: int, device):
-    """This rank's row (1, n, size/n/4) or (1, size/n/4) fp32 and the result
-    it must get, both from exact small integers: rank r's element i of
-    piece d is (r*n + d) * 2^20 + i mod 2^20."""
+    """This rank's row (1, n, size/n/4) or (1, size/4) or (1, size/n/4)
+    fp32 and the result it must get, both from exact small integers: for
+    the allgather and the alltoall rank r's element i of piece d is
+    (r*n + d) * 2^20 + i mod 2^20; for the reductions rank r's element i is
+    (r + 1) * 2^16 + i mod 2^16, so that every sum is exact (n <= 8) in
+    whatever order it is folded."""
     import torch
 
     per = size // 4 // n
+    if verb.startswith("allreduce") or verb == "reduce_scatter":
+        i = torch.arange(n * per, device=device, dtype=torch.int64) % (1 << 16)
+        x = ((rank + 1) * (1 << 16) + i).to(torch.float32)[None]
+        want = (n * (n + 1) // 2 * (1 << 16) + n * i).to(torch.float32)[None]
+        if verb == "reduce_scatter":
+            want = want[:, rank * per:(rank + 1) * per].contiguous()
+        return x, want
     i = torch.arange(per, device=device, dtype=torch.int64) % (1 << 20)
     if verb == "alltoall":
         d = torch.arange(n, device=device, dtype=torch.int64)[:, None]
@@ -111,12 +146,50 @@ def _inputs(verb: str, n: int, rank: int, size: int, device):
     return x, want
 
 
+def _random(verb: str, n: int, rank: int, size: int, device, span):
+    """For a reduction, this rank's random fp32 row like ``_inputs``'s and
+    its plain version's result across processes (the ring's order, the
+    bits the kernel must give); None for the other verbs."""
+    import torch
+
+    from rocnrdma_tpu_torch.ops import ring_cuda
+
+    if not (verb.startswith("allreduce") or verb == "reduce_scatter"):
+        return None
+    g = torch.Generator(device=device)
+    g.manual_seed(1000 + rank)
+    x = torch.randn((1, size // 4), generator=g, device=device, dtype=torch.float32)
+    plain = {"allreduce": ring_cuda.ring_allreduce_across_plain,
+             "allreduce_in_place": lambda x, span: ring_cuda._tiled_allreduce_across_plain(
+                 x, span, IN_PLACE_TILE_ROWS),
+             "reduce_scatter": ring_cuda.ring_reduce_scatter_across_plain}[verb]
+    return x, plain(x, span)
+
+
 def _call(verb: str, span):
+    """The wrapper's call of ``verb`` (in place: it returns ``x``)."""
     from rocnrdma_tpu_torch.ops import alltoall_cuda, ring_cuda
 
-    if verb == "alltoall":
-        return lambda x: alltoall_cuda.alltoall_across(x, span)
-    return lambda x: ring_cuda.ring_allgather_across(x, span)
+    return {"allreduce": lambda x: ring_cuda.ring_allreduce_across(x, span),
+            "allreduce_in_place": lambda x: ring_cuda.hbm_ring_allreduce_across(
+                x, span, IN_PLACE_TILE_ROWS),
+            "reduce_scatter": lambda x: ring_cuda.ring_reduce_scatter_across(x, span),
+            "allgather": lambda x: ring_cuda.ring_allgather_across(x, span),
+            "alltoall": lambda x: alltoall_cuda.alltoall_across(x, span)}[verb]
+
+
+def _checked(verb: str, fn, x, want, rand=None) -> bool:
+    """One call on ``x`` (in place: on a copy) equals ``want``, and with
+    ``rand`` (``_random``'s pair) one call on its row is bitwise its result."""
+    import torch
+
+    def call(x):
+        return fn(x.clone() if verb == "allreduce_in_place" else x)
+
+    if not bool((call(x) == want).all()):
+        return False
+    return rand is None or torch.equal(call(rand[0]).view(torch.int32),
+                                       rand[1].view(torch.int32))
 
 
 def _ctl(dist, device):
@@ -125,9 +198,11 @@ def _ctl(dist, device):
     return device if dist.get_backend() == "nccl" else "cpu"
 
 
-def _nccl(verb: str, dist):
-    """NCCL's call for the same function, its output allocated per call as
-    the wrappers allocate theirs."""
+def _nccl(verb: str, dist, x):
+    """NCCL's call for the same function as ``verb`` on rows like ``x``, its
+    output allocated per call as the wrappers allocate theirs; the
+    allreduce's in place on one copy of the row (``all_reduce`` has no
+    other form)."""
     import torch
 
     def alltoall(x):
@@ -142,7 +217,21 @@ def _nccl(verb: str, dist):
         torch.cuda.synchronize()
         return out
 
-    return alltoall if verb == "alltoall" else allgather
+    def reduce_scatter(x):
+        out = x.new_empty((1, x.numel() // dist.get_world_size()))
+        dist.reduce_scatter_tensor(out.view(-1), x.view(-1))
+        torch.cuda.synchronize()
+        return out
+
+    y = x.clone() if verb.startswith("allreduce") else None
+
+    def allreduce(_):
+        dist.all_reduce(y)
+        torch.cuda.synchronize()
+        return y
+
+    return {"alltoall": alltoall, "allgather": allgather, "reduce_scatter": reduce_scatter,
+            "allreduce": allreduce, "allreduce_in_place": allreduce}[verb]
 
 
 def _walls(fn, x, repeats: int, dist, device) -> list:
@@ -166,12 +255,19 @@ def _median(v: list) -> float:
     return v[len(v) // 2]
 
 
-def _busbw(size: int, n: int, seconds: float) -> float:
-    return size / seconds / 1e9 * (n - 1) / n
+def _link_rows(verb: str) -> int:
+    """A rank's bytes each way over the link in (n-1)/n of its row: the
+    allreduce's reduce and allgather twice, the other verbs once."""
+    return 2 if verb.startswith("allreduce") else 1
 
 
-def _bound_ms(size: int, n: int) -> float:
-    return (n - 1) / n * size / (NVLINK_GBPS * 1e9) * 1e3
+def _busbw(verb: str, size: int, n: int, seconds: float) -> float:
+    """nccl-tests' bus bandwidth: 2(n-1)/n of the row (allreduce), else (n-1)/n."""
+    return _link_rows(verb) * size / seconds / 1e9 * (n - 1) / n
+
+
+def _bound_ms(verb: str, size: int, n: int) -> float:
+    return _link_rows(verb) * (n - 1) / n * size / (NVLINK_GBPS * 1e9) * 1e3
 
 
 def _split_parts(dist, device):
@@ -228,13 +324,27 @@ def _split(args, rank, n, span, dist, device) -> dict:
     from rocnrdma_tpu_torch import ops
 
     cuda = device.type == "cuda"
+    if args.knobs:
+        from rocnrdma_tpu_torch.ops import push_cuda
+
+        base = push_cuda.geometry_for
+        bps, vecs, step = args.knobs
+
+        def knobbed(*a, kernel="push", **k):
+            if kernel == "reduce":
+                k.update(blocks_per_sm=bps, vecs=vecs, step_bytes=step)
+            return base(*a, kernel=kernel, **k)
+
+        push_cuda.geometry_for = knobbed
     recs = _split_parts(dist, device) if cuda else []
     res = {}
-    for verb, size in itertools.product(("alltoall", "allgather"), args.sizes):
+    for verb, size in itertools.product(args.verbs, args.sizes):
         x, want = _inputs(verb, n, rank, size, device)
         fn = _call(verb, span)
-        if not torch.equal(fn(x), want):
+        rand = _random(verb, n, rank, size, device, span)
+        if not _checked(verb, fn, x, want, rand):
             raise AssertionError(f"{verb} at {size} bytes: wrong result on rank {rank}")
+        del rand
         staged = getattr(ops, "staged_bytes", dict)()
         recs.clear()
         walls = []
@@ -253,12 +363,13 @@ def _split(args, rank, n, span, dist, device) -> dict:
         wall = _median(t.tolist())
         row = {"checked": True}  # on the CPU a rehearsal: no device numbers
         if cuda:
-            row.update(ms=round(wall * 1e3, 4), busbw_GBps=round(_busbw(size, n, wall), 2),
-                       nvlink_bound_ms=round(_bound_ms(size, n), 4))
+            row.update(ms=round(wall * 1e3, 4),
+                       busbw_GBps=round(_busbw(verb, size, n, wall), 2),
+                       nvlink_bound_ms=round(_bound_ms(verb, size, n), 4))
             if dist.get_backend() == "nccl":  # the library call, timed the same way
-                lib = _median(_walls(_nccl(verb, dist), x, args.repeats, dist, device))
+                lib = _median(_walls(_nccl(verb, dist, x), x, args.repeats, dist, device))
                 row.update(nccl_ms=round(lib * 1e3, 4),
-                           nccl_busbw_GBps=round(_busbw(size, n, lib), 2))
+                           nccl_busbw_GBps=round(_busbw(verb, size, n, lib), 2))
             torch.cuda.synchronize()
             parts = {"before_launch_ms": [r["e0"].elapsed_time(r["e1"]) for r in recs],
                      "launch_ms": [r["e1"].elapsed_time(r["e2"]) for r in recs],
@@ -276,7 +387,8 @@ def _split(args, rank, n, span, dist, device) -> dict:
                 dist.barrier()
                 fn(x)
         after = getattr(ops, "staged_bytes", dict)()
-        row["staged_bytes"] = {k: v - staged.get(k, 0) for k, v in after.items() if verb in k}
+        row["staged_bytes"] = {k: v - staged.get(k, 0) for k, v in after.items()
+                               if k.startswith(WRAPPER[verb] + "_")}
         res[f"{verb}/{size}"] = row
         del x, want
         if cuda:
@@ -294,29 +406,33 @@ def _sweep(args, rank, n, span, dist, device) -> dict:
     base = push_cuda.geometry_for
     grid = list(itertools.product(args.blocks_per_sm, args.vecs, args.step_bytes))
     res = {}
-    for verb, size in itertools.product(("alltoall", "allgather"), args.sizes):
+    for verb, size in itertools.product(args.verbs, args.sizes):
         x, want = _inputs(verb, n, rank, size, device)
         fn = _call(verb, span)
+        rand = _random(verb, n, rank, size, device, span)
+        kernel = "push" if verb in ("allgather", "alltoall") else "reduce"
         pts = {}
         for bps, vecs, step in grid:
+            if vecs not in push_cuda.VECS_CHOICES[kernel]:
+                continue
             push_cuda.geometry_for = functools.partial(base, blocks_per_sm=bps, vecs=vecs,
                                                        step_bytes=step)
             try:
-                if not torch.equal(fn(x), want):
+                if not _checked(verb, fn, x, want, rand):
                     raise AssertionError(f"{verb} at {size}, {bps}/{vecs}/{step}: wrong "
                                          f"result on rank {rank}")
                 wall = _median(_walls(fn, x, args.repeats, dist, device))
             finally:
                 push_cuda.geometry_for = base
             pv = size // n // push_cuda.VEC
-            geo = base(device.index, n, pv, span.per_card, blocks_per_sm=bps, vecs=vecs,
-                       step_bytes=step)
+            geo = base(device.index, n, pv, span.per_card, kernel=kernel, blocks_per_sm=bps,
+                       vecs=vecs, step_bytes=step)
             pts[f"{bps}/{vecs}/{step}"] = {"ms": round(wall * 1e3, 4),
                                            "lanes": geo.lanes, "steps": geo.steps}
         best = min(pts, key=lambda k: pts[k]["ms"])
         res[f"{verb}/{size}"] = {"points": pts, "best": best,
-                                 "nvlink_bound_ms": round(_bound_ms(size, n), 4)}
-        del x, want
+                                 "nvlink_bound_ms": round(_bound_ms(verb, size, n), 4)}
+        del x, want, rand
         torch.cuda.empty_cache()
     return res
 
@@ -364,12 +480,16 @@ def main(argv=None) -> int:
     mode.add_argument("--split", action="store_true")
     mode.add_argument("--sweep", action="store_true")
     p.add_argument("--sizes", default="64M,1G",
-                   help="a rank's bytes: the alltoall's row, the allgather's gathered row")
+                   help="a rank's bytes: the row, the allgather's gathered row")
+    p.add_argument("--verbs", default=",".join(VERBS), help=f"a comma list of {VERBS}")
     p.add_argument("--repeats", type=int, default=5)
     p.add_argument("--blocks-per-sm", default="1,2,4")
-    p.add_argument("--vecs", default="2,4,8")
+    p.add_argument("--vecs", default="1,2,4,8",
+                   help="vectors a thread (each kernel sweeps those it is built for)")
     p.add_argument("--step-bytes", default="32K,128K,512K,1T",
                    help="sub-step bytes a piece (1T: one sub-step a lane)")
+    p.add_argument("--knobs", default=None,
+                   help="--split: the reduce kernel's blocks an SM/vectors/sub-step bytes")
     p.add_argument("--procs", type=int, default=None)
     p.add_argument("--platform", choices=("cuda", "cpu"), default="cuda")
     p.add_argument("--out", default=None)
@@ -379,9 +499,15 @@ def main(argv=None) -> int:
     p.add_argument("--port", type=int, default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     args.sizes = [_size(s) for s in args.sizes.split(",")]
+    args.verbs = args.verbs.split(",")
+    if set(args.verbs) - set(VERBS):
+        p.error(f"--verbs {sorted(set(args.verbs) - set(VERBS))}: know {VERBS}")
     args.blocks_per_sm = [int(v) for v in args.blocks_per_sm.split(",")]
     args.vecs = [int(v) for v in args.vecs.split(",")]
     args.step_bytes = [_size(v) for v in args.step_bytes.split(",")]
+    if args.knobs:
+        b, v, st = args.knobs.split("/")
+        args.knobs = (int(b), int(v), _size(st))
     if args.rank is not None:
         return _rank(args)
     if args.platform == "cpu" and args.sweep:

@@ -46,7 +46,7 @@ same XLA fusion, which here would be a pass of its own. The alltoall algbw
 counterpart of ``bench.py``'s multi-chip branch. Each process is one rank
 of ``rank_mesh(N, group=WORLD)``; busbw per rank at 1 GiB fp32 (256 MiB
 if no candidate survives), best by median of ``fused`` (NCCL),
-``ring_bidir``, ``khd`` and ``cuda_ring``, the ring kernel across
+``ring_bidir``, ``khd`` and ``cuda_ring``, the reduce kernel across
 processes in place (``ring_cuda.hbm_ring_allreduce_across``, the arm's
 tiles); ``khd2d`` only where the spanning 2-D mesh holds the balanced
 factor (one slice a process), else skipped with a stderr line. Each chain

@@ -55,8 +55,8 @@ def launch_counts() -> dict[str, int]:
 
 
 def staged_bytes() -> dict[str, int]:
-    """Bytes the push kernel's wrappers across processes copied into the
-    workspace input row (``<wrapper>_in``) and out after the kernel
+    """Bytes the wrappers across processes staged before the kernel
+    (``<wrapper>_in``) and sliced or copied back after it
     (``<wrapper>_out``) since the last reset: 0 for aligned rows."""
     return {k: v for c in _STAGED for k, v in c.items()}
 

@@ -3,11 +3,10 @@
 Each ``ops/csrc/<name>.cu`` is compiled by ``nvcc`` on its own into
 ``ops/_build/lib<name>_<hash>.so`` (a plain C interface: pointers and the
 stream travel as ``c_void_p``), at first use, so a fresh checkout builds
-everything the first time a kernel is called. ``ring.cu`` and
-``ring.cu`` also builds ``ring_across`` (``_VARIANTS``: its kernel across
-processes, at kSys); ``push_across.cu`` is the allgather and alltoall
-across processes. ``build()``
-starts one ``nvcc`` per library at once and waits for all. The hash
+everything the first time a kernel is called. ``push_across.cu`` is the
+allgather and alltoall across processes, ``reduce_across.cu`` the
+allreduce and reduce_scatter there. ``build()`` starts one ``nvcc`` per
+library at once and waits for all. The hash
 covers the sources and the flags, so an edited kernel is rebuilt and a
 current one is reused.
 A failed build raises with the ``nvcc`` command and its output; nothing
@@ -29,9 +28,7 @@ import subprocess
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("alltoall", "combine", "ipc", "push_across", "ring", "ring_across")
-# a library built from another one's source with extra flags
-_VARIANTS = {"ring_across": ("ring", ("-DRNR_ACROSS=1",))}
+SOURCES = ("alltoall", "combine", "ipc", "push_across", "reduce_across", "ring")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -57,6 +54,12 @@ _SIGNATURES = {
                            _UINT, _INT, _ULL, _VP, _INT, _VP], _INT),
         "rnr_push_error": ([_INT], ctypes.c_char_p),
     },
+    "reduce_across": {
+        "rnr_reduce_resident": ([_INT, _INT, _INT, _INT], _INT),
+        "rnr_reduce_rank": ([_VP, _VP, _VP, _VP, _VP, _INT, _LL, _INT, _LL, _LL, _INT, _INT,
+                             _INT, _INT, _UINT, _INT, _ULL, _VP, _INT, _VP], _INT),
+        "rnr_reduce_error": ([_INT], ctypes.c_char_p),
+    },
     "ipc": {
         "rnr_ipc_handle_bytes": ([], _INT),
         "rnr_ipc_alloc": ([_LL, _INT, _PVP, _VP], _INT),
@@ -68,15 +71,11 @@ _SIGNATURES = {
     },
     "ring": {
         "rnr_ring_lanes": ([_INT, _LL, _INT], _INT),
-        "rnr_ring_lanes_across": ([_INT, _LL, _INT], _INT),
-        "rnr_ring_rank": ([_VP, _VP, _VP, _INT, _LL, _INT, _INT, _INT, _UINT, _INT, _ULL,
-                           _VP, _INT, _VP], _INT),
         "rnr_ring": ([_VP, _VP, _VP, _INT, _LL, _INT, _INT, _INT, _UINT, _INT,
                       _INT, _VP], _INT),
         "rnr_ring_error": ([_INT], ctypes.c_char_p),
     },
 }
-_SIGNATURES.update({v: _SIGNATURES[src] for v, (src, _) in _VARIANTS.items()})
 
 
 def nvcc_path() -> str:
@@ -90,17 +89,14 @@ def nvcc_path() -> str:
                        "/usr/local/cuda/bin); the CUDA kernels cannot be built")
 
 
-def _source(name: str) -> tuple[str, tuple]:
-    """The source file and the extra ``nvcc`` flags of library ``name``."""
-    src, flags = _VARIANTS.get(name, (name, ()))
-    return os.path.join(CSRC, f"{src}.cu"), flags
+def _source(name: str) -> str:
+    return os.path.join(CSRC, f"{name}.cu")
 
 
 def _digest(name: str) -> str:
-    src, flags = _source(name)
-    h = hashlib.sha256(" ".join(NVCC_FLAGS + flags).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for fn in sorted(os.listdir(CSRC)):
-        if fn == os.path.basename(src) or fn.endswith(".cuh"):
+        if fn == f"{name}.cu" or fn.endswith(".cuh"):
             with open(os.path.join(CSRC, fn), "rb") as fp:
                 h.update(fn.encode() + fp.read())
     return h.hexdigest()[:12]
@@ -122,8 +118,7 @@ def build(names=SOURCES) -> dict[str, str]:
     procs = {}
     for name, path in todo.items():
         tmp = f"{path}.tmp{os.getpid()}"
-        src, flags = _source(name)
-        cmd = [nvcc, *NVCC_FLAGS, *flags, "-o", tmp, src]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, _source(name)]
         procs[name] = (cmd, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failures = []

@@ -95,7 +95,7 @@ static inline int rnr_sm_count() {
 
 // ---------------------------------------------------------------------------
 // Flag protocol of the kernels whose blocks talk to each other (ring.cu,
-// alltoall.cu). Flags are 32-bit counters in device memory, the
+// alltoall.cu; across processes push_across.cu, reduce_across.cu). Flags are 32-bit counters in device memory, the
 // counterpart of the TPU's DMA and barrier semaphores, raised with atomic
 // adds and read with relaxed loads, at a memory-model scope: kGpu orders
 // the blocks of one GPU, kSys also peers over NVLink and the host. A
@@ -152,6 +152,42 @@ __device__ __forceinline__ void wait_geq(const unsigned* p, unsigned v) {
 
 __device__ __forceinline__ int wrap(int v, int n) { return ((v % n) + n) % n; }
 
+// U vectors a thread, RNR_BLOCK_THREADS apart, of a range ending at vector
+// s1: thread vector i's loads into v (p at vector i) and its stores from v
+// (q at vector i); a vector at or past s1 is skipped (the kernels across
+// processes, push_across.cu and reduce_across.cu).
+template <int U>
+__device__ __forceinline__ void load_vecs(uint4 (&v)[U], const uint4* p, long long i,
+                                          long long s1) {
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (i + u * RNR_BLOCK_THREADS < s1) v[u] = __ldcg(p + u * RNR_BLOCK_THREADS);
+}
+
+template <int U>
+__device__ __forceinline__ void store_vecs(uint4* q, const uint4 (&v)[U], long long i,
+                                           long long s1) {
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (i + u * RNR_BLOCK_THREADS < s1) __stcg(q + u * RNR_BLOCK_THREADS, v[u]);
+}
+
+// Vectors [s0, s1) of every peer's slot j != r (slot j at j * pv) of rank
+// r's workspace row `row` into the same place of `out`: the drain of the
+// kernels across processes (push_across.cu, reduce_across.cu).
+template <int U>
+__device__ __forceinline__ void drain(const uint4* row, uint4* out, int n, int r,
+                                      long long pv, long long s0, long long s1) {
+  for (long long i = s0 + threadIdx.x; i < s1; i += U * RNR_BLOCK_THREADS) {
+    for (int s = 1; s < n; ++s) {
+      const long long at = ((r + s) % n) * pv + i;
+      uint4 v[U];
+      load_vecs<U>(v, row + at, i, s1);
+      store_vecs<U>(out + at, v, i, s1);
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // The bounded wait of the kernels whose ranks live in other processes (one
 // rank a process, peers' rows and flags mapped through CUDA IPC). There a
@@ -172,7 +208,8 @@ __device__ __forceinline__ int wrap(int v, int n) { return ((v % n) + n) % n; }
 #define RNR_DIAG_SEEN 4    // its value when the deadline passed
 #define RNR_DIAG_TARGET 5  // the value waited for
 #define RNR_DIAG_EPOCH 6
-#define RNR_DIAG_KERNEL 7  // ring.cu's RNR_MODE_*, or RNR_KERNEL_A2A
+#define RNR_DIAG_KERNEL 7  // push_across.cu's RNR_KERNEL_PUSH, reduce_across.cu's
+                           // RNR_KERNEL_REDUCE + its mode
 
 struct RnrDeadline {
   unsigned long long timeout_ns;  // 0: no deadline
@@ -259,12 +296,7 @@ static inline long long rnr_lane_elems(long long elems, int lanes) {
 // least RNR_MIN_LANE_ELEMS elements a lane, and never more than can be
 // resident at once. A block waits on lane b of all n-1 peers, so the
 // blocks of all n ranks have to fit on one card together: the whole n*lanes
-// grid in one process, and with one rank a process all n processes'
-// grids at once when they share the card under MPS (on separate cards the
-// cap is only stricter than needed). The answer depends only on n, per, the
-// kernel and the card's model, so every process of a job on like cards
-// gets the same lanes, which the epoch-counted flags of a launch across
-// processes require. Returns lanes (> 0) or -cudaError.
+// grid of one launch. Returns lanes (> 0) or -cudaError.
 static inline int rnr_lanes(const void* fn, int n, long long per) {
   int per_sm = 0;
   cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(

@@ -78,22 +78,6 @@ struct PushArgs {
   RnrDeadline dl;
 };
 
-template <int U>
-__device__ __forceinline__ void load(uint4 (&v)[U], const uint4* p, long long i,
-                                     long long s1) {
-#pragma unroll
-  for (int u = 0; u < U; ++u)
-    if (i + u * RNR_BLOCK_THREADS < s1) v[u] = __ldcg(p + u * RNR_BLOCK_THREADS);
-}
-
-template <int U>
-__device__ __forceinline__ void store(uint4* q, const uint4 (&v)[U], long long i,
-                                      long long s1) {
-#pragma unroll
-  for (int u = 0; u < U; ++u)
-    if (i + u * RNR_BLOCK_THREADS < s1) __stcg(q + u * RNR_BLOCK_THREADS, v[u]);
-}
-
 // Vectors [s0, s1) of every piece: piece d of `src` into slot r of rank
 // d's row (of `out` for d == r), d = r+1, ..., r+n mod n. Each thread
 // loads U vectors of a piece before it stores them; allgather's one piece
@@ -104,25 +88,11 @@ __device__ __forceinline__ void push(const PushArgs& a, long long s0, long long 
   const long long at = r * a.pv;
   for (long long i = s0 + threadIdx.x; i < s1; i += U * RNR_BLOCK_THREADS) {
     uint4 v[U];
-    if (a.src_stride == 0) load<U>(v, a.src + i, i, s1);
+    if (a.src_stride == 0) load_vecs<U>(v, a.src + i, i, s1);
     for (int s = 1; s <= n; ++s) {
       const int d = (r + s) % n;
-      if (a.src_stride != 0) load<U>(v, a.src + d * a.src_stride + i, i, s1);
-      store<U>((d == r ? a.out : a.dst[d]) + at + i, v, i, s1);
-    }
-  }
-}
-
-// Vectors [s0, s1) of every peer's slot, from this rank's row into `out`.
-template <int U>
-__device__ __forceinline__ void drain(const PushArgs& a, long long s0, long long s1) {
-  const int n = a.n, r = a.rank;
-  for (long long i = s0 + threadIdx.x; i < s1; i += U * RNR_BLOCK_THREADS) {
-    for (int s = 1; s < n; ++s) {
-      const long long at = ((r + s) % n) * a.pv + i;
-      uint4 v[U];
-      load<U>(v, a.dst[r] + at, i, s1);
-      store<U>(a.out + at, v, i, s1);
+      if (a.src_stride != 0) load_vecs<U>(v, a.src + d * a.src_stride + i, i, s1);
+      store_vecs<U>((d == r ? a.out : a.dst[d]) + at + i, v, i, s1);
     }
   }
 }
@@ -159,14 +129,14 @@ __global__ void __launch_bounds__(RNR_BLOCK_THREADS) push_kernel(const PushArgs 
     push<U>(a, s0, s1);
     if (k > 0) {
       wait_geq_until<kSys>(mine + word0 + k, target, a.dl, word0 + k);
-      drain<U>(a, p0, p1);
+      drain<U>(a.dst[r], a.out, n, r, a.pv, p0, p1);
     }
     arrive(a, word0, k);
     p0 = s0;
     p1 = s1;
   }
   wait_geq_until<kSys>(mine + word0 + a.steps, target, a.dl, word0 + a.steps);
-  drain<U>(a, p0, p1);
+  drain<U>(a.dst[r], a.out, n, r, a.pv, p0, p1);
 }
 
 static const void* push_fn(int vecs) {

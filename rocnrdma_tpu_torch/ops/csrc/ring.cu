@@ -45,15 +45,9 @@
 // resident at once: the launch is cooperative and a grid that cannot be is
 // refused.
 //
-// Across processes (rnr_ring_rank): one rank a process, each process
-// launching its own rank's `lanes` blocks; the tables hold the peers' rows
-// and flags, opened from CUDA IPC handles (ops/ipc.py), on this card or on
-// another over NVLink. The protocol and the fold are the same, so each
-// rank's row is the one-process launch's bit for bit. What changes: the
-// flags' scope is kSys (peers in other processes or on other cards), and
-// every wait has a deadline (common.cuh, wait_geq_until), since a peer
-// that never launches would otherwise leave this process's kernel spinning
-// for good.
+// Across processes (one rank a process) the allreduce and reduce_scatter
+// run reduce_across.cu, the allgather push_across.cu: the same fold order,
+// so each rank's row is the one-process launch's bit for bit.
 //
 // Bound on the H100: device-memory bytes. Each mode reads every input
 // element once and writes every output element once, which is the least
@@ -88,14 +82,12 @@ struct RingArgs {
   unsigned epoch;   // launches of this flag buffer, this one included
   long long per;    // chunk elements (16-byte multiple)
   long long lane;   // lane elements (multiple of 128)
-  int rank;         // -1: all n ranks' blocks in this launch; else rank's alone
-  RnrDeadline dl;   // the waits' deadline (kSys instantiations only)
+  RnrDeadline dl;   // meet's deadline argument (kSys only: unused at kGpu)
 };
 
-// The flags' memory-model scope of the one-process launch. Every rank of it
-// lives on one GPU, so kGpu orders them all; the launch across processes
-// instantiates the kernel at kSys, whose fences cost several microseconds
-// more per launch on the H100 (bench/bench_kernel_variants.py, PERF.md).
+// The flags' memory-model scope. Every rank of a launch lives on one GPU,
+// so kGpu orders them all; a kSys fence costs several microseconds more per
+// launch on the H100 (bench/bench_kernel_variants.py, PERF.md).
 constexpr RnrScope kRingScope = kGpu;
 
 // Vector i of my sub-range of chunk r in operand k of the fold, which is
@@ -167,8 +159,8 @@ template <typename T, int N, RnrScope S>
 __global__ void __launch_bounds__(RNR_BLOCK_THREADS)
     ring_kernel(const RingArgs a) {
   const int n = N > 0 ? N : a.n;
-  const int r = a.rank >= 0 ? a.rank : blockIdx.x / a.lanes;
-  const int b = a.rank >= 0 ? blockIdx.x : blockIdx.x % a.lanes;
+  const int r = blockIdx.x / a.lanes;
+  const int b = blockIdx.x % a.lanes;
   const long long lo = (long long)b * a.lane;
   const long long hi = lo + a.lane < a.per ? lo + a.lane : a.per;
   const long long nv = hi > lo ? (hi - lo) * (long long)sizeof(T) / 16 : 0;
@@ -213,7 +205,7 @@ __global__ void __launch_bounds__(RNR_BLOCK_THREADS)
     meet<S>(a.flags, n, r, b * RNR_FLAG_WORDS + RNR_ARR, a.epoch * (unsigned)(n - 1), a.dl);
 }
 
-template <typename T, RnrScope S>
+template <typename T, RnrScope S = kRingScope>
 static const void* ring_fn(int n) {
   switch (n) {
     case 2: return reinterpret_cast<const void*>(ring_kernel<T, 2, S>);
@@ -227,21 +219,10 @@ static const void* ring_fn(int n) {
   }
 }
 
-// This source builds two libraries (ops/_build.py): the one-process one
-// instantiates the kernels at kRingScope only, the one across processes
-// (-DRNR_ACROSS=1) at kSys only, so that each nvcc compiles half of them.
-#ifndef RNR_ACROSS
-#define RNR_ACROSS 0
-#endif
-
-// The kernel for n ranks of `dtype`, one process (kRingScope) or one rank a
-// process (`across`: kSys, the bounded waits), or null for another dtype or
-// the other library's launch.
-static const void* kernel_for(int n, int dtype, int across) {
-  constexpr RnrScope S = RNR_ACROSS ? kSys : kRingScope;
-  if (across != RNR_ACROSS) return nullptr;
-  if (dtype == RNR_DTYPE_F32) return ring_fn<float, S>(n);
-  if (dtype == RNR_DTYPE_BF16) return ring_fn<__nv_bfloat16, S>(n);
+// The kernel for n ranks of `dtype`, or null for another dtype.
+static const void* kernel_for(int n, int dtype) {
+  if (dtype == RNR_DTYPE_F32) return ring_fn<float>(n);
+  if (dtype == RNR_DTYPE_BF16) return ring_fn<__nv_bfloat16>(n);
   return nullptr;
 }
 
@@ -250,33 +231,28 @@ static const void* kernel_for(int n, int dtype, int across) {
 // reduce-scatter on the H100 and no slower for the other modes,
 // bench/bench_kernel_variants.py), on the current device. Returns lanes
 // (> 0) or -cudaError.
-static int ring_lanes(int n, long long per, int dtype, int across) {
-  const void* fn = kernel_for(n, dtype, across);
+extern "C" int rnr_ring_lanes(int n, long long per, int dtype) {
+  const void* fn = kernel_for(n, dtype);
   if (n < 2 || n > RNR_MAX_RANKS || per <= 0 || fn == nullptr)
     return -(int)cudaErrorInvalidValue;
   return rnr_lanes(fn, n, per);
 }
 
-extern "C" int rnr_ring_lanes(int n, long long per, int dtype) {
-  return ring_lanes(n, per, dtype, 0);
-}
-
-// The same for the launch across processes (its kSys kernel's occupancy).
-extern "C" int rnr_ring_lanes_across(int n, long long per, int dtype) {
-  return ring_lanes(n, per, dtype, 1);
-}
-
-// Fills `a` from the tables and launches `blocks` blocks on `device`.
-static int launch(RingArgs& a, const void* const* src, void* const* dst,
-                  void* const* flags, int n, long long per, int lanes,
-                  int dtype, int mode, unsigned epoch, int sync, int across,
-                  int device, void* stream) {
-  const void* fn = kernel_for(n, dtype, across);
+// One launch of the ring kernel in `mode` (RNR_MODE_*) on `device`, every
+// rank's blocks. `epoch` counts the launches of this flag buffer, this one
+// included; `sync` 0 skips the barrier and the arrivals and leaves the flags
+// alone.
+extern "C" int rnr_ring(const void* const* src, void* const* dst,
+                        void* const* flags, int n, long long per, int lanes,
+                        int dtype, int mode, unsigned epoch, int sync,
+                        int device, void* stream) {
+  const void* fn = kernel_for(n, dtype);
   const int itemsize = dtype == RNR_DTYPE_BF16 ? 2 : 4;
   if (n < 2 || n > RNR_MAX_RANKS || lanes < 1 || per <= 0 ||
       per * itemsize % 16 || mode < RNR_MODE_AR || mode > RNR_MODE_AG ||
       fn == nullptr)
     return (int)cudaErrorInvalidValue;
+  RingArgs a = {};
   for (int r = 0; r < n; ++r) {
     a.src[r] = src[r];
     a.dst[r] = dst[r];
@@ -289,48 +265,13 @@ static int launch(RingArgs& a, const void* const* src, void* const* dst,
   a.epoch = epoch;
   a.per = per;
   a.lane = rnr_lane_elems(per, lanes);
-  const unsigned blocks = (unsigned)(across ? lanes : n * lanes);
+  const unsigned blocks = (unsigned)(n * lanes);
   void* args[] = {&a};
   return rnr_on_device(device, [&] {
     return (int)cudaLaunchCooperativeKernel(
         fn, dim3(blocks), dim3(RNR_BLOCK_THREADS), args, 0,
         reinterpret_cast<cudaStream_t>(stream));
   });
-}
-
-// One launch of the ring kernel in `mode` (RNR_MODE_*) on `device`, every
-// rank's blocks. `epoch` counts the launches of this flag buffer, this one
-// included; `sync` 0 skips the barrier and the arrivals and leaves the flags
-// alone.
-extern "C" int rnr_ring(const void* const* src, void* const* dst,
-                        void* const* flags, int n, long long per, int lanes,
-                        int dtype, int mode, unsigned epoch, int sync,
-                        int device, void* stream) {
-  RingArgs a = {};
-  a.rank = -1;
-  return launch(a, src, dst, flags, n, per, lanes, dtype, mode, epoch, sync, 0,
-                device, stream);
-}
-
-// One launch of rank `rank`'s `lanes` blocks across processes: the tables
-// hold every rank's rows and flags (peers' mapped from CUDA IPC handles).
-// Each wait gives up after `timeout_ns` (0: never), writing its record into
-// `diag` (mapped host words, RNR_DIAG_WORDS) before the launch traps.
-extern "C" int rnr_ring_rank(const void* const* src, void* const* dst,
-                             void* const* flags, int n, long long per, int lanes,
-                             int dtype, int mode, unsigned epoch, int rank,
-                             unsigned long long timeout_ns, void* diag,
-                             int device, void* stream) {
-  if (rank < 0 || rank >= n) return (int)cudaErrorInvalidValue;
-  RingArgs a = {};
-  a.rank = rank;
-  a.dl.timeout_ns = timeout_ns;
-  a.dl.diag = static_cast<unsigned*>(diag);
-  a.dl.rank = rank;
-  a.dl.kernel = mode;
-  a.dl.epoch = epoch;
-  return launch(a, src, dst, flags, n, per, lanes, dtype, mode, epoch, 1, 1,
-                device, stream);
 }
 
 extern "C" const char* rnr_ring_error(int code) {

@@ -1,35 +1,37 @@
 """The CUDA IPC workspace of the kernels across processes.
 
 On a 1-D mesh that spans processes (``rank_mesh(n, group=g)``, one rank a
-process) the ring and alltoall kernels read and write the peers' rows
-directly, as in one process, through pointers that CUDA IPC maps into
-this process (``ops/csrc/ipc.cu``): on this card, or on another over
-NVLink. Each process owns one device allocation, its ``Workspace``, laid
-out as
+process) the kernels across processes store into the peers' rows
+directly, through pointers that CUDA IPC maps into this process
+(``ops/csrc/ipc.cu``): on this card, or on another over NVLink. Each
+process owns one device allocation, its ``Workspace``, laid out as
 
-- flag words: for each kernel (``ring``, ``push``) and each lane count L
-  up to its ``max_lanes``, a region of L * ``FLAG_WORDS[kernel]`` words,
-  zeroed once at the allocation and epoch-counted per (kernel, L) as the
-  one-process wrappers count theirs (a launch e waits for e*(n-1) on each
-  word);
+- flag words: for each kernel (``push``, ``reduce``) and each lane count
+  L up to its ``max_lanes``, a region of L * ``FLAG_WORDS[kernel]``
+  words, zeroed once at the allocation and epoch-counted per (kernel, L)
+  as the one-process wrappers count theirs (a launch e waits for e*(n-1)
+  on each word);
 - the input row and the output row, ``capacity`` bytes each.
 
-The ring kernel (``rnr_ring_rank``: allreduce, reduce_scatter) pulls: a
-call copies this process's row into its input row, launches its rank's
-blocks with the tables of every rank's input rows, output rows and flag
-region, and copies its result out of its output row, all on the current
-stream. The push kernel (``rnr_push_rank``: allgather, alltoall,
-``ops/push_cuda.py``) reads this process's row where the caller holds it
-and stores into the peers' output rows, and drains its own output row into
-the caller's result inside the launch: it takes the tables of the output
-rows and flag regions only. Then every call waits on the host
-(``finish``), so that a bounded wait that expired surfaces at the call
-that ran it, as ``PeerWaitExpired``. Only the barriers and the arrivals of
-the kernels order the peers: a peer reads this input row, and writes this
-output row, only between this process's entry into a launch and its exit
-from it, and this process's copies happen before and after on its own
-stream (the protocol models of ``tests/test_torch_ring.py`` and
-``tests/test_torch_push.py``).
+Both kernels read this process's row where the caller holds it and only
+store remotely (``ops/push_cuda.py``). The push kernel (``rnr_push_rank``:
+allgather, alltoall) stores into the peers' output rows and drains its own
+output row into the caller's result inside the launch: it takes the tables
+of the output rows and flag regions. The reduce kernel
+(``rnr_reduce_rank``: allreduce, reduce_scatter) stores the chunks its
+peers own into their input rows, folds its own chunk from its input row
+into the caller's result and, for the allreduce, stores the folded chunk
+into the peers' output rows and drains its own: it takes the tables of the
+input rows, the output rows and the flag regions. The push kernel's
+wrappers stage a row they cannot read in place in this process's input
+row, on the current stream before the launch. Then every call waits on
+the host (``finish``), so that a bounded wait that expired surfaces at the
+call that ran it, as ``PeerWaitExpired``. Only the barriers and the
+arrivals of the kernels order the peers: a peer writes this process's
+rows only between this process's entry into a launch and its exit from
+it, since every launch starts with a barrier of all ranks, and each
+launch reads the rows only after their arrivals (the protocol models of
+``tests/test_torch_push.py`` and ``tests/test_torch_reduce.py``).
 
 The handles are exchanged once, with a header, by one all-gather on the
 span's cross group (gloo while the processes share a card), and each
@@ -62,22 +64,26 @@ from rocnrdma_tpu_torch.ops import _build
 
 # the bounded wait's deadline: a peer missing this long fails the launch
 WAIT_TIMEOUT_S = 5.0
-# per lane: ring.cu's RNR_FLAG_WORDS, push_across.cu's RNR_PUSH_WORDS; the
-# flag regions in the workspace's order
-FLAG_WORDS = {"ring": 2, "push": 9}
+# per lane: push_across.cu's RNR_PUSH_WORDS, reduce_across.cu's
+# RNR_RED_WORDS; the flag regions in the workspace's order
+FLAG_WORDS = {"push": 9, "reduce": 17}
 KERNELS = tuple(FLAG_WORDS)
-_ERRORS = {"ring": "rnr_ring_error", "push": "rnr_push_error"}
+_ERRORS = {"push": "rnr_push_error", "reduce": "rnr_reduce_error"}
 # the row tables (0 input, 1 output) each kernel's C entry takes before its flags
-_ROW_TABLES = {"ring": (0, 1), "push": (1,)}
+_ROW_TABLES = {"push": (1,), "reduce": (0, 1)}
+# sub-steps a lane at most, each with its arrival word (the reduce kernel:
+# a reduce word and an allgather word): RNR_PUSH_MAX_STEPS, RNR_RED_MAX_STEPS
+MAX_STEPS = 8
 DIAG_WORDS = 8  # common.cuh's RNR_DIAG_WORDS, its RNR_DIAG_* below
 _STATE, _RANK, _LANE, _WORD, _SEEN, _TARGET, _EPOCH, _KERNEL = range(DIAG_WORDS)
-# RNR_DIAG_KERNEL: ring.cu's modes, push_across.cu's RNR_KERNEL_PUSH
-KERNEL_NAMES = {0: "ring (allreduce)", 1: "ring (reduce_scatter)",
-                4: "push (allgather, alltoall)"}
+# RNR_DIAG_KERNEL: push_across.cu's RNR_KERNEL_PUSH, reduce_across.cu's
+# RNR_KERNEL_REDUCE plus its mode (0 allreduce, 1 reduce_scatter)
+KERNEL_NAMES = {4: "push (allgather, alltoall)", 5: "reduce (allreduce)",
+                6: "reduce (reduce_scatter)"}
 _PUSH_CODE = 4
-# the push kernel's lanes with a card to itself: at most this many blocks an
+# the lanes of a kernel with a card to itself: at most this many blocks an
 # SM (ops/push_cuda.py's geometry stays within it)
-PUSH_BLOCKS_PER_SM = 4
+BLOCKS_PER_SM_CAP = 4
 _ALIGN = 256  # bytes, every region's start
 _GRAIN = 2 << 20  # capacity grows in whole 2 MiB
 _HANDLE_WORDS = 8  # int64 words of the header holding the 64-byte handle
@@ -138,9 +144,11 @@ def expired(timeout_s: float = WAIT_TIMEOUT_S) -> PeerWaitExpired | None:
         return None
     w = list(_DIAG[0])
     word = w[_WORD]
-    per = FLAG_WORDS["push" if w[_KERNEL] == _PUSH_CODE else "ring"]
-    what = ("entry barrier" if word % per == 0 else "exit arrivals" if per == 2
-            else f"arrivals of sub-step {word % per - 1}")
+    push = w[_KERNEL] == _PUSH_CODE
+    k = word % FLAG_WORDS["push" if push else "reduce"] - 1
+    what = ("entry barrier" if k < 0 else f"arrivals of sub-step {k}" if push
+            else f"reduce arrivals of sub-step {k}" if k < MAX_STEPS
+            else f"allgather arrivals of sub-step {k - MAX_STEPS}")
     return PeerWaitExpired(
         f"the {KERNEL_NAMES.get(w[_KERNEL], w[_KERNEL])} kernel across processes "
         f"gave up after {timeout_s:g} s: rank {w[_RANK]}, lane {w[_LANE]}, flag word "
@@ -152,13 +160,13 @@ def expired(timeout_s: float = WAIT_TIMEOUT_S) -> PeerWaitExpired | None:
 
 def max_lanes(n: int, sms: int, per_card: int) -> dict:
     """The most lanes each kernel may launch with, on a card of ``sms``
-    SMs that ``per_card`` of the span's n processes share: the ring
-    kernel's cap (common.cuh, rnr_lanes: about 4 blocks an SM over all n
-    ranks, which must fit one card together); the push kernel's the same
-    on a shared card and ``PUSH_BLOCKS_PER_SM`` blocks an SM on a card of
-    its own (its peers' grids are on their own cards)."""
-    shared = -(-4 * sms // n)
-    return {"ring": shared, "push": shared if per_card > 1 else PUSH_BLOCKS_PER_SM * sms}
+    SMs that ``per_card`` of the span's n processes share: on a shared card
+    the one-process ring kernel's cap (common.cuh, rnr_lanes: about 4
+    blocks an SM over all n ranks, which must fit one card together), on a
+    card of its own ``BLOCKS_PER_SM_CAP`` blocks an SM (its peers' grids
+    are on their own cards)."""
+    cap = -(-4 * sms // n) if per_card > 1 else BLOCKS_PER_SM_CAP * sms
+    return dict.fromkeys(KERNELS, cap)
 
 
 def _triangle(kernel: str, lanes: int) -> int:
@@ -190,7 +198,7 @@ class Workspace:
         self.launches = 0
         self._tables: dict = {}
         self._rows = None
-        _build.build(("ipc", "ring_across", "push_across"))
+        _build.build(("ipc", "push_across", "reduce_across"))
         _LIVE.append(self)
 
     # -- layout --------------------------------------------------------
@@ -206,7 +214,7 @@ class Workspace:
 
     def tables(self, kernel: str, lanes: int) -> tuple:
         """``kernel``'s tables: every rank's rows it takes (``_ROW_TABLES``:
-        the ring kernel's input and output rows, the push kernel's output
+        the push kernel's output rows, the reduce kernel's input and output
         rows), then every rank's flag region of ``kernel`` at ``lanes``, each
         a C array of n pointers."""
         key = (kernel, lanes)
@@ -267,7 +275,7 @@ class Workspace:
                 raise WorkspaceMismatch(
                     f"rank {q}'s IPC workspace header {h[:body]} differs from rank "
                     f"{self.rank}'s {mine[:body]} (rank, device, capacity, flag bytes, "
-                    f"max lanes of the ring and push kernels, launches so far, kernel, "
+                    f"max lanes of the push and reduce kernels, launches so far, kernel, "
                     f"dtype code, chunk, lanes): the "
                     f"processes made other calls; no kernel was launched")
         bases = []
@@ -291,7 +299,7 @@ class Workspace:
 
     def launch(self, kernel: str, lanes: int, lib, fn: str, *args) -> None:
         """One launch of this rank's blocks on the current stream: ``lib``'s
-        C entry ``fn`` (``rnr_ring_rank`` or ``rnr_push_rank``) with the
+        C entry ``fn`` (``rnr_push_rank`` or ``rnr_reduce_rank``) with the
         tables of ``kernel`` at ``lanes``, then ``args``, then this launch's
         epoch, the rank, the deadline, the diagnostic words, the device and
         the stream. The epoch advances only when the launch went in."""

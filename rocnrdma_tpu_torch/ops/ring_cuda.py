@@ -26,17 +26,21 @@ Across processes, one rank a process (a 1-D mesh that spans processes,
 process's row ``(1, ...)`` and the span, and return this process's row of
 the one-process wrapper's result, bit for bit: the chunk geometry comes
 from the span's n, so padding, chunk ownership and fold order are the one
-process's. On a CUDA tensor the allreduce and the reduce-scatter copy the
-row into this process's IPC workspace (``ops/ipc.py``), launch their
-rank's blocks of the same kernel at ``kSys`` with every rank's rows and
-flags mapped from CUDA IPC handles, and copy their row of the result out.
-The allgather runs the push kernel across processes instead
-(``ops/push_cuda.py``): it reads a contiguous, 16-byte-aligned row of
-whole vectors where it lies and drains the gathered row into a new tensor
-inside the launch; any other row is staged and its padded result sliced,
-both counted in ``STAGED_BYTES``. Each has a plain version across
-processes for a CPU tensor: every rank's row gathered on the span's cross
-group, the one-process plain version, this process's row.
+process's. On a CUDA tensor they launch this rank's blocks of a kernel
+across processes (``ops/push_cuda.py``), which reads the row where the
+caller holds it and stores into the peers' IPC workspace rows
+(``ops/ipc.py``): the allreduce and the reduce-scatter the reduce kernel
+(``ops/csrc/reduce_across.cu``: chunk d pushed to rank d, chunk r folded
+where its operands land, in the ring's order, straight into the result;
+the allreduce's folded chunk pushed to every peer and theirs drained, all
+inside the launch), the allgather the push kernel
+(``ops/csrc/push_across.cu``). A row that is not contiguous, 16-byte
+aligned and exactly its padded chunks long is staged first (the reduce
+kernel: into a new buffer; the push kernel: into the workspace input row),
+and a padded result sliced or copied back, counted in ``STAGED_BYTES``: an
+aligned row stages nothing. Each has a plain version across processes for
+a CPU tensor: every rank's row gathered on the span's cross group, the
+one-process plain version, this process's row.
 
 The TPU ring relays chunk c around the ring, each hop adding one rank's
 value to the running sum, starting at rank c (allreduce) or rank c+1
@@ -66,10 +70,12 @@ LAUNCHES = {"ring_allreduce": 0, "hbm_ring_allreduce": 0,
             "ring_reduce_scatter": 0, "ring_allgather": 0,
             "ring_allreduce_across": 0, "hbm_ring_allreduce_across": 0,
             "ring_reduce_scatter_across": 0, "ring_allgather_across": 0}
-# bytes ring_allgather_across copied into the workspace input row (staged a
-# row that was not contiguous, aligned and of whole vectors) and out of the
-# kernel's output after it (sliced a padded result), since the last reset
-STAGED_BYTES = {"ring_allgather_across_in": 0, "ring_allgather_across_out": 0}
+# bytes each wrapper across processes (by its LAUNCHES name) staged in (a
+# row that was not contiguous, aligned and of whole chunks, copied before
+# the kernel) and out (a padded result sliced, or copied into an in-place
+# row, after it), since the last reset
+STAGED_BYTES = {f"{w}_{way}": 0 for w in LAUNCHES if w.endswith("_across")
+                for way in ("in", "out")}
 
 LANES = 128
 MAX_RANKS = 32
@@ -399,55 +405,54 @@ def ring_allgather_across_plain(x: torch.Tensor, span,
     return _mine(ring_allgather_plain(_gathered(x, span), tile_rows), span)
 
 
-@functools.lru_cache(maxsize=256)
-def _lanes_across(device: int, n: int, per: int, code: int) -> int:
-    """The across launch's lanes for n ranks of ``per``-element chunks: the
-    same in every process of a job on like cards."""
-    lib = _build.load("ring_across")
-    with torch.cuda.device(device):
-        lanes = lib.rnr_ring_lanes_across(n, per, code)
-    _build.check(lib, "rnr_ring_error", min(lanes, 0), "ring lane query")
-    return lanes
-
-
-def _run_across(x: torch.Tensor, span, mode: int, per: int, in_elems: int,
-                out_elems: int, fill) -> tuple:
-    """One launch of this rank's blocks in ``mode`` over chunks of ``per``
-    elements: ``fill(inp)`` writes this process's input row (``in_elems``),
-    then the kernel runs. Returns the workspace and its output row
-    (``out_elems``), which the caller copies out before ``finish``."""
-    lib = _build.load("ring_across")
-    n, code = span.size, DTYPE_CODES[x.dtype]
-    lanes = _lanes_across(x.get_device(), n, per, code)
+def _reduce_across(x: torch.Tensor, span, mode: int, per: int, size: int,
+                   res: torch.Tensor | None, counter: str) -> torch.Tensor:
+    """One launch of the reduce kernel in ``mode`` on this process's CUDA
+    row ``x`` of ``size`` elements, chunks of ``per`` (16-byte multiples):
+    read in place when it is contiguous, aligned and exactly ``n * per``
+    long, else staged into a new buffer. AR: into ``res`` (which may be
+    ``x``: in place) or a new tensor when ``x`` is read in place, else in
+    place on the staged buffer; RS: into a new ``(1, per)``. Returns the
+    result, the padded one as it is; staged bytes count to ``counter``."""
+    n, code, isz = span.size, DTYPE_CODES[x.dtype], x.element_size()
+    if _aligned(x, n * per):
+        src = x
+    else:
+        src = x.new_zeros(n * per)
+        src[:size] = x.reshape(-1)
+        STAGED_BYTES[f"{counter}_in"] += size * isz
+    if mode == MODE_RS:
+        res = x.new_empty((1, per))
+    elif src is not x:
+        res = src
+    elif res is None:
+        res = torch.empty_like(x)
+    pv = per * isz // push_cuda.VEC
+    geo = push_cuda.geometry_for(x.get_device(), n, pv, span.per_card, kernel="reduce",
+                                 code=code)
     ws = span.workspace(x.device)
-    inp, out = ws.rows(x.dtype, in_elems, out_elems, (mode, code, per, lanes))
-    fill(inp)
-    ws.launch("ring", lanes, lib, "rnr_ring_rank", n, per, lanes, code, mode)
-    return ws, out
-
-
-def _copy_row(x: torch.Tensor, size: int):
-    """``fill`` of a row of ``size`` elements from ``x``, zero-padded."""
-    def fill(inp: torch.Tensor) -> None:
-        inp[:size].copy_(x.reshape(-1))
-        inp[size:].zero_()
-    return fill
+    ws.rows(x.dtype, n * per, n * per if mode == MODE_AR else 0, (mode, code, per, geo.lanes))
+    push_cuda.launch_reduce(ws, geo, src, res, pv, code, mode)
+    return res
 
 
 def _allreduce_across(x: torch.Tensor, span, align: int, counter: str,
                       into: torch.Tensor | None = None) -> torch.Tensor:
     """The kernel's allreduce of this process's CUDA row ``x`` with chunks
-    padded to ``align``, into ``into`` or a new tensor; counts one launch of
-    ``counter``."""
+    padded to ``align``, into ``into`` (``x`` itself: in place) or a new
+    tensor; counts one launch of ``counter``."""
     n, size, per = _geometry(x, align, span.size)
     if n == 1 or size == 0:
         return x.clone() if into is None else into
-    ws, out = _run_across(x, span, MODE_AR, per, n * per, n * per, _copy_row(x, size))
-    res = torch.empty_like(x) if into is None else into
-    res.copy_(out[:size].view(x.shape))
-    ws.finish()
+    res = _reduce_across(x, span, MODE_AR, per, size, into, counter)
+    if into is None:  # a padded result: its first size elements, a view
+        res = res.reshape(-1)[:size].view(x.shape)
+    elif res is not into:  # staged: the result copied back into x
+        into.copy_(res[:size].view(x.shape))
+        STAGED_BYTES[f"{counter}_out"] += size * x.element_size()
+    span.workspace(x.device).finish()
     LAUNCHES[counter] += 1
-    return res
+    return res if into is None else into
 
 
 def ring_allreduce_across(x: torch.Tensor, span) -> torch.Tensor:
@@ -489,9 +494,9 @@ def ring_reduce_scatter_across(x: torch.Tensor, span,
         return x.reshape(1, -1).clone()
     per = _rs_chunk(x, n)
     _check_tile_rows(tile_rows)
-    ws, out = _run_across(x, span, MODE_RS, per, n * per, per, _copy_row(x, n * per))
-    res = out.clone().view(1, per)
-    ws.finish()
+    res = _reduce_across(x, span, MODE_RS, per, n * per, None,
+                         "ring_reduce_scatter_across")
+    span.workspace(x.device).finish()
     LAUNCHES["ring_reduce_scatter_across"] += 1
     return res
 

@@ -102,9 +102,9 @@ on every row (``_rank_plains``). It prints ``RANKTIMES``, ``RANKERRS``,
 ``RANKCROSS``, on the CPU ``RANKDIGEST``, the ``cuda_ring`` calls' max
 abs err against the plain versions (``RANKPLAINERRS``), the kernels'
 launches across processes (``RANKLAUNCHES``: on the card each call's
-launches, on the CPU none), the bytes the push kernel's wrappers staged
-in and sliced out (``RANKSTAGED``, ``ops.staged_bytes``: 0 for aligned
-rows and on the CPU), and ``OK rank=i/n rank-mesh``. ``--cases
+launches, on the CPU none), the bytes the kernels' wrappers staged in
+and out (``RANKSTAGED``, ``ops.staged_bytes``: 0 for aligned rows and on
+the CPU), and ``OK rank=i/n rank-mesh``. ``--cases
 SIZE:SEED,...`` runs several such cases in one process group (default:
 the one of ``--size`` and ``--seed``), each one's lines after a
 ``RANKCASE SIZE:SEED`` line.

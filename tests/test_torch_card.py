@@ -608,7 +608,7 @@ def test_hierarchical_across_two_processes_on_one_card(cuda_device):
 _ACROSS = """
 import os, sys, time, numpy as np, torch, torch.distributed as dist
 from rocnrdma_tpu_torch import ops
-from rocnrdma_tpu_torch.ops import alltoall_cuda as A, ipc, ring_cuda as R
+from rocnrdma_tpu_torch.ops import alltoall_cuda as A, ipc, push_cuda, ring_cuda as R
 from rocnrdma_tpu_torch.runtime.mesh import rank_mesh
 rank, world, port, case = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
 dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
@@ -628,7 +628,7 @@ def same(name, got, plain):
 
 
 def staged_by(call, wrapper, want_in, want_out):
-    # the bytes the push kernel's wrapper staged in and sliced out for call()
+    # the bytes a wrapper across processes staged in and out for call()
     before = ops.staged_bytes()
     call()
     after = ops.staged_bytes()
@@ -639,18 +639,31 @@ def staged_by(call, wrapper, want_in, want_out):
 if case == "parity":
     for dtype in (torch.float32, torch.bfloat16):
         isz = torch.empty((), dtype=dtype).element_size()
-        x = row((3 * 128 * 8 + 37,), dtype, 1)
         counts = dict(ops.launch_counts())
-        same("allreduce", R.ring_allreduce_across(x, span),
-             R.ring_allreduce_across_plain(x.cpu(), span))
-        same("tiled", R._tiled_allreduce_across(x, span, 8),
-             R._tiled_allreduce_across_plain(x.cpu(), span, 8))
-        y = x.clone()
-        assert R.hbm_ring_allreduce_across(y, span, tile_rows=8) is y
-        same("in place", y, R._tiled_allreduce_across_plain(x.cpu(), span, 8))
+        # the reduce kernel: a padded row (staged in; in place, the result
+        # copied back) and an aligned one of whole 8-row tiles (read in place)
+        for size, seed in ((3 * 128 * 8 + 37, 1), (n * 128 * 8, 9)):
+            x = row((size,), dtype, seed)
+            pad = 0 if size % (n * 128 * 8) == 0 else size * isz
+            staged_by(lambda: same("allreduce", R.ring_allreduce_across(x, span),
+                                   R.ring_allreduce_across_plain(x.cpu(), span)),
+                      "ring_allreduce_across", pad, 0)
+            staged_by(lambda: same("tiled", R._tiled_allreduce_across(x, span, 8),
+                                   R._tiled_allreduce_across_plain(x.cpu(), span, 8)),
+                      "hbm_ring_allreduce_across", pad, 0)
+            y, got = x.clone(), []
+            staged_by(lambda: got.append(R.hbm_ring_allreduce_across(y, span, 8)),
+                      "hbm_ring_allreduce_across", pad, pad)
+            assert got[0] is y
+            same("in place", y, R._tiled_allreduce_across_plain(x.cpu(), span, 8))
         z = row((n * 2 * 128,), dtype, 2)
-        same("reduce_scatter", R.ring_reduce_scatter_across(z, span),
-             R.ring_reduce_scatter_across_plain(z.cpu(), span))
+        staged_by(lambda: same("reduce_scatter", R.ring_reduce_scatter_across(z, span),
+                               R.ring_reduce_scatter_across_plain(z.cpu(), span)),
+                  "ring_reduce_scatter_across", 0, 0)
+        z = row((2 * n * 2 * 128,), dtype, 10)[:, ::2]  # strided: staged in
+        staged_by(lambda: same("reduce_scatter strided", R.ring_reduce_scatter_across(z, span),
+                               R.ring_reduce_scatter_across_plain(z.cpu(), span)),
+                  "ring_reduce_scatter_across", n * 2 * 128 * isz, 0)
         # the push kernel: 700 fp32 are whole 16-byte vectors (read in place),
         # 700 bf16 are not (staged, the result sliced); 704 are in both
         g = row((700,), dtype, 3)
@@ -680,16 +693,35 @@ if case == "parity":
             assert torch.equal(rc.cpu(), want_rc)
         after = ops.launch_counts()
         grew = {k: after[k] - counts[k] for k in after if after[k] != counts[k]}
-        assert grew == {"ring_allreduce_across": 1, "hbm_ring_allreduce_across": 2,
-                        "ring_reduce_scatter_across": 1, "ring_allgather_across": 2,
+        assert grew == {"ring_allreduce_across": 2, "hbm_ring_allreduce_across": 4,
+                        "ring_reduce_scatter_across": 2, "ring_allgather_across": 2,
                         "alltoall_across": 4}, grew
+        # a shared card runs one sub-step a lane: one lane of 8 sub-steps
+        # here (the geometry of a card of its own, 1 SM), aligned rows
+        base = push_cuda.geometry_for
+        push_cuda.geometry_for = lambda dev, n, pv, pc, kernel="push", code=0: \
+            push_cuda.geometry(n, pv, 1, 1, 2, step_bytes=512, kernel=kernel)
+        try:
+            x = row((n * 128 * 64,), dtype, 11)
+            assert push_cuda.geometry_for(0, n, 128 * 64 * isz // 16, 2, "reduce").steps == 8
+            staged_by(lambda: same("allreduce 8 sub-steps", R.ring_allreduce_across(x, span),
+                                   R.ring_allreduce_across_plain(x.cpu(), span)),
+                      "ring_allreduce_across", 0, 0)
+            y = x.clone()
+            R.hbm_ring_allreduce_across(y, span, 8)
+            same("in place 8 sub-steps", y, R._tiled_allreduce_across_plain(x.cpu(), span, 8))
+            same("reduce_scatter 8 sub-steps", R.ring_reduce_scatter_across(x, span),
+                 R.ring_reduce_scatter_across_plain(x.cpu(), span))
+        finally:
+            push_cuda.geometry_for = base
     print(f"OK rank={rank} parity", flush=True)
     span.close()
     dist.destroy_process_group()
     os._exit(0)
-# case "peer-exits-<kernel>": both make one call of the ring (allreduce) or
-# the push kernel (alltoall), so the workspace is exchanged, then the last
-# rank exits before its next launch; the others' launch gives up
+# case "peer-exits-<kernel>": both make one call of the reduce kernel
+# (allreduce; the case keeps its name "ring") or the push kernel (alltoall),
+# so the workspace is exchanged, then the last rank exits before its next
+# launch; the others' launch gives up
 x = row((n, 4096), torch.float32, 7)
 verb = ((lambda: R.ring_allreduce_across(x.reshape(1, -1), span))
         if case == "peer-exits-ring" else (lambda: A.alltoall_across(x, span)))
@@ -735,19 +767,21 @@ def test_kernels_across_two_processes_on_one_card_equal_their_plain_versions(cud
     launching its rank's blocks with the other's rows and flags mapped
     through CUDA IPC, every result bitwise the plain version across
     processes (gather, the one-process plain version, own row), fp32 and
-    bf16, each wrapper counted once a call; the push kernel's allgather,
-    alltoall and alltoallv on aligned rows (nothing staged) and padded ones
-    (staged in and sliced out, counted)."""
+    bf16, each wrapper counted once a call; the reduce kernel's allreduce
+    (out of place, tiled, in place) and reduce_scatter and the push
+    kernel's allgather, alltoall and alltoallv, on aligned rows (nothing
+    staged) and padded or strided ones (staged and counted); the reduce
+    kernel also at 8 sub-steps a lane, which a shared card never picks."""
     for rank, (rc, out, err) in enumerate(_across(2, "parity")):
         assert rc == 0 and f"OK rank={rank} parity" in out, out + err[-3000:]
 
 
 @pytest.mark.parametrize("kernel", ["ring", "push"])
 def test_a_peer_that_never_launches_expires_the_bounded_wait(cuda_device, kernel):
-    """A peer that exits before its launch of the ring kernel (allreduce) or
-    the push kernel (alltoall): the other process's launch gives up at its
-    deadline (2 s here) with ``ipc.PeerWaitExpired``, naming the kernel,
-    the lane and the flag word, never a hang."""
+    """A peer that exits before its launch of the reduce kernel (allreduce,
+    case "ring") or the push kernel (alltoall): the other process's launch
+    gives up at its deadline (2 s here) with ``ipc.PeerWaitExpired``, naming
+    the kernel, the lane and the flag word, never a hang."""
     import re
 
     (rc, out, err), _ = _across(2, f"peer-exits-{kernel}")
@@ -756,5 +790,5 @@ def test_a_peer_that_never_launches_expires_the_bounded_wait(cuda_device, kernel
     assert m, out + err[-3000:]
     assert 2.0 <= float(m.group(1)) < 2.0 + 5.0
     assert re.search(r"rank 0, lane \d+, flag word \d+ \(entry barrier\)", m.group(2))
-    assert ("push (allgather, alltoall)" if kernel == "push" else "ring (allreduce)") \
+    assert ("push (allgather, alltoall)" if kernel == "push" else "reduce (allreduce)") \
         in m.group(2)

@@ -375,10 +375,11 @@ def test_push_geometry_lanes_follow_the_layout():
     sms, resident = 132, 8 * 132
     big = 64 << 20  # vectors a piece: 1 GiB
     own = push_cuda.geometry(4, big, 1, sms, resident)
-    assert own.lanes == push_cuda.BLOCKS_PER_SM * sms
-    # a card shared by the span's processes keeps the ring kernel's cap
+    assert own.lanes == push_cuda.KNOBS["push"][0] * sms
+    # a card shared by the span's processes keeps the one-process ring kernel's cap
     shared = push_cuda.geometry(4, big, 2, sms, resident)
     assert shared.lanes == ipc.max_lanes(4, sms, 2)["push"] == -(-4 * sms // 4)
+    assert (shared.steps, shared.step) == (1, shared.lane) and own.steps > 1
     assert push_cuda.geometry(8, big, 8, sms, resident).lanes == -(-4 * sms // 8)
     # never more than the card holds, nor than the workspace's flag region
     assert push_cuda.geometry(4, big, 1, sms, 100).lanes == 100
@@ -410,11 +411,13 @@ def test_push_geometry_is_a_pure_function_and_small_rows_take_few_lanes():
 def test_workspace_flag_regions_hold_every_lane_count_of_both_kernels():
     for n, pc in ((2, 1), (4, 1), (4, 4), (8, 8)):
         caps = ipc.max_lanes(n, 132, pc)
-        assert caps["ring"] == -(-4 * 132 // n)
-        assert caps["push"] == (ipc.PUSH_BLOCKS_PER_SM * 132 if pc == 1 else caps["ring"])
-        # the regions of lanes 1..cap tile without overlap
-        ends = [ipc._triangle("push", L) for L in range(caps["push"] + 1)]
-        assert all(ends[L] - ends[L - 1] == L * WORDS * 4 for L in range(1, len(ends)))
+        shared = -(-4 * 132 // n)  # the one-process ring kernel's cap
+        for kernel in ("push", "reduce"):
+            assert caps[kernel] == (ipc.BLOCKS_PER_SM_CAP * 132 if pc == 1 else shared)
+            # the regions of lanes 1..cap tile without overlap
+            words = ipc.FLAG_WORDS[kernel]
+            ends = [ipc._triangle(kernel, L) for L in range(caps[kernel] + 1)]
+            assert all(ends[L] - ends[L - 1] == L * words * 4 for L in range(1, len(ends)))
 
 
 # ---------------------------------------------------------------------------
@@ -563,7 +566,7 @@ def test_push_lanes_follow_per_card(fake):
     for pc in (1, 2):
         A._alltoall_across_kernel(x, span(2, pc), 2, per, per)
         lanes[pc] = _launched(lib)[7]
-    assert lanes[1] == min(push_cuda.BLOCKS_PER_SM * lib.sms, lib.resident)
+    assert lanes[1] == min(push_cuda.KNOBS["push"][0] * lib.sms, lib.resident)
     assert lanes[2] == min(-(-4 * lib.sms // 2), lib.resident // 2) == 3
     assert lanes[1] != lanes[2]
 
@@ -596,6 +599,6 @@ def test_expired_names_the_push_kernels_words(monkeypatch):
     assert f"rank 1, lane 3, flag word {3 * WORDS + 4} (arrivals of sub-step 3)" in msg
     words[3] = 2 * WORDS
     assert "(entry barrier)" in str(ipc.expired(2.0))
-    words[7], words[3] = 0, 5  # the ring kernel's exit arrivals
-    assert "ring (allreduce) kernel" in str(ipc.expired(2.0))
-    assert "(exit arrivals)" in str(ipc.expired(2.0))
+    words[7], words[3] = 5, 2 * ipc.FLAG_WORDS["reduce"] + 2  # the reduce kernel's
+    assert "reduce (allreduce) kernel" in str(ipc.expired(2.0))
+    assert "(reduce arrivals of sub-step 1)" in str(ipc.expired(2.0))

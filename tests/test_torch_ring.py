@@ -13,8 +13,9 @@ allreduce, reduce-scatter and allgather modes of ``ops/csrc/ring.cu``.
   since the kernel itself runs only on the card.
 - Across processes, one rank a process: the plain version that a CPU row
   takes, in 3 gloo processes, stacked, against the Pallas ring allreduce;
-  and the protocol model with each rank's workspace rows copied in and out
-  on its own stream, and with a rank that never launches.
+  and the model of the reduce kernel that runs there
+  (``tests/_reduce_model.py``), on back-to-back launches, with two unsafe
+  orders, and with a rank that never launches.
 - The kernels themselves run on the card: ``tests/test_torch_card.py``.
 """
 
@@ -35,6 +36,7 @@ from rocnrdma_tpu.ops import (
 from rocnrdma_tpu_torch import ops as T
 from rocnrdma_tpu_torch.collectives.schedule import sim_ring_allreduce
 
+import _reduce_model as M
 from _marks import needs_tpu_interpret
 
 RANK = rt.mesh.RANK_AXIS
@@ -249,46 +251,23 @@ def _lane_program(mode, n, r, e):
             + [("signal", "arr"), ("wait", "arr", e * (n - 1)), ("leave",)])
 
 
-def _run_protocol(launches, lanes, seed, program=_lane_program, across=False,
-                  missing=None):
+def _run_protocol(launches, lanes, seed, program=_lane_program):
     """Run ``launches``, a list of (mode, x, in_place): x the ranks' inputs,
     (n, n, per) for "ar"/"rs", (n, 1, per) for "ag". Returns each launch's
-    outputs: (n, n, per), or (n, 1, per) for "rs".
-
-    ``across``: one rank a process. Each rank owns one input and one output
-    row (its IPC workspace), reused by every launch, and its stream runs
-    ``copy_in(e)`` (its input into its workspace row), launch e's blocks and
-    ``copy_out(e)`` (its output row out) in that order; the model asserts
-    that no peer reads a rank's input row outside its copy of launch e, nor
-    writes its output row before its launch e or after its copy out, and
-    that ``copy_out(e)`` reads only landed chunks. ``missing=(rank, e)``:
-    that rank never launches e (it dies first); the run must end with every
-    other rank's lanes stuck in a bounded wait, returned as the expiries
-    (rank, lane, flag word) in place of the outputs."""
+    outputs: (n, n, per), or (n, 1, per) for "rs"."""
     n, per = launches[0][1].shape[0], launches[0][1].shape[2]
     w = per // lanes
     ins, outs = [], []
     for mode, x, in_place in launches:
         ins.append(x.copy())
-        outs.append(ins[-1] if in_place and not across else
+        outs.append(ins[-1] if in_place else
                     np.full((n, 1 if mode == "rs" else n, per), np.nan, np.float32))
-    # across: the workspace rows, and the launch each rank's stream has
-    # copied in, released to its blocks, and copied out
-    ws_in = np.full((n, n, per), np.nan, np.float32)
-    ws_out = np.full((n, n, per), np.nan, np.float32)
-    staged, released, copied = np.zeros(n, int), np.zeros(n, int), np.zeros(n, int)
-    left = np.zeros((n, lanes), int)  # the last launch a (rank, lane) left
     progs, pcs, acc = {}, {}, {}
     for r in range(n):
         prog = [(e, act) for e, (mode, _, _) in enumerate(launches, 1)
-                for act in ([("gate",)] if across else []) + program(mode, n, r, e)]
+                for act in program(mode, n, r, e)]
         for b in range(lanes):
             progs[(r, b)], pcs[(r, b)] = prog, 0
-        if across:
-            last = len(launches) if missing is None or missing[0] != r else missing[1] - 1
-            progs[("stream", r)] = [(e, (act,)) for e in range(1, last + 1)
-                                    for act in ("copy_in", "release", "join", "copy_out")]
-            pcs[("stream", r)] = 0
     flags = {}
     # the launch whose part a (rank, lane) is in, 0 between its parts
     inside = np.zeros((n, lanes), int)
@@ -299,10 +278,6 @@ def _run_protocol(launches, lanes, seed, program=_lane_program, across=False,
         if pcs[key] == len(progs[key]):
             return False
         e, act = progs[key][pcs[key]]
-        if key[0] == "stream":
-            return act[0] != "join" or (left[key[1]] >= e).all()
-        if act[0] == "gate":
-            return released[key[0]] >= e
         return act[0] != "wait" or flags.get((act[1], key[0], key[1]), 0) >= act[2]
 
     while True:
@@ -313,26 +288,8 @@ def _run_protocol(launches, lanes, seed, program=_lane_program, across=False,
         e, act = progs[key][pcs[key]]
         mode = launches[e - 1][0]
         pcs[key] += 1
-        if key[0] == "stream":
-            r = key[1]
-            rows = 1 if mode == "rs" else n
-            if act[0] == "copy_in":
-                ws_in[r, :ins[e - 1].shape[1]] = ins[e - 1][r]
-                staged[r] = e
-            elif act[0] == "release":
-                released[r] = e
-            elif act[0] == "copy_out":
-                for c in range(rows):
-                    for b in range(lanes):
-                        assert landed.get((r, c, b)) == e, \
-                            f"rank {r} copied out launch {e} before chunk {c} lane {b} landed"
-                outs[e - 1][r] = ws_out[r, :rows]
-                copied[r] = e
-            continue
         r, b = key
         lo, hi = b * w, (b + 1) * w
-        src = ws_in if across else ins[e - 1]
-        dst = ws_out if across else outs[e - 1]
         if act[0] == "enter":
             inside[r, b] = e
         elif act[0] == "signal":
@@ -342,38 +299,20 @@ def _run_protocol(launches, lanes, seed, program=_lane_program, across=False,
         elif act[0] == "load":
             _, p, k = act
             assert inside[p, b] == e, f"read rank {p}'s input outside launch {e}"
-            if across:
-                assert staged[p] == e, f"read rank {p}'s input row before its copy_in({e})"
-            v = src[p, 0 if mode == "ag" else r, lo:hi]
+            v = ins[e - 1][p, 0 if mode == "ag" else r, lo:hi]
             acc[key] = v.copy() if k == 0 else v + acc[key]
         elif act[0] == "store":
             _, d, c = act
             assert inside[d, b] == e, f"wrote rank {d}'s output outside launch {e}"
-            if across:
-                assert released[d] == e and copied[d] < e, \
-                    f"wrote rank {d}'s output row outside its launch {e}"
-            dst[d, c, lo:hi] = acc[key]
+            outs[e - 1][d, c, lo:hi] = acc[key]
             landed[(d, c, b)] = e
         elif act[0] == "leave":
-            if not across:
-                for c in range(outs[e - 1].shape[1]):
-                    assert landed.get((r, c, b)) == e, \
-                        f"rank {r} left launch {e} before chunk {c} landed"
+            for c in range(outs[e - 1].shape[1]):
+                assert landed.get((r, c, b)) == e, \
+                    f"rank {r} left launch {e} before chunk {c} landed"
             inside[r, b] = 0
-            left[r, b] = e
 
     stuck = [k for k in progs if pcs[k] != len(progs[k])]
-    if missing is not None:
-        # the bounded waits that expire: each stuck lane's wait, by word
-        # (lane * 2 + 0 for the entry barrier, + 1 for the exit arrivals)
-        expired = []
-        for k in stuck:
-            if k[0] == "stream":
-                continue
-            act = progs[k][pcs[k]][1]
-            if act[0] == "wait":
-                expired.append((k[0], k[1], k[1] * 2 + ("bar", "arr").index(act[1])))
-        return sorted(expired)
     assert not stuck, f"deadlock: blocks {stuck} stuck"
     for r in range(n):
         for b in range(lanes):
@@ -466,35 +405,40 @@ def test_ring_kernel_protocol_model_rejects_unsafe_orders(n, program):
     assert caught > 0
 
 
+# Across processes, one rank a process, the allreduce and the reduce-scatter
+# run the reduce kernel (ops/csrc/reduce_across.cu), whose protocol model is
+# tests/_reduce_model.py (tests/test_torch_reduce.py holds it to the rest).
+
+
 @pytest.mark.parametrize("n", [2, 3, 8])
 def test_ring_kernel_protocol_model_across_processes(n):
-    # one rank a process: each rank's workspace rows reused by every launch,
-    # copied in before its launch and out after it on its own stream; an
-    # allreduce, a reduce-scatter, an allgather and an allreduce again
-    per, lanes = 128, 2
-    rng = np.random.default_rng(100 + n)
-    modes = ["ar", "rs", "ag", "ar"]
-    xs = [_launch_inputs(m, n, per, rng) for m in modes]
-    wants = [_plain(m, x) for m, x in zip(modes, xs)]
+    # one rank a process: each rank pushes the chunks its peers own into
+    # their workspace input rows, folds its own where they land, and pushes
+    # the allreduce's sum into their output rows and drains theirs, all
+    # inside the launch; an allreduce, a reduce-scatter, an allreduce in
+    # place and an allreduce again on one flag region, each bitwise the plain
+    # versions
+    xs = M.inputs(n, 128, 4, 100 + n)
+    launches = [("ar", xs[0], False), ("rs", xs[1], False), ("ar", xs[2], True),
+                ("ar", xs[3], False)]
     for seed in range(10):
-        gots = _run_protocol([(m, x, False) for m, x in zip(modes, xs)], lanes, seed,
-                             across=True)
-        for got, want in zip(gots, wants):
-            np.testing.assert_array_equal(_bits(got), _bits(want))
+        for (mode, x, _), got in zip(launches, M.run(launches, M.geo(128, 2, 2), seed)):
+            np.testing.assert_array_equal(_bits(got), _bits(_plain(mode, x)).reshape(
+                got.shape))
 
 
 @pytest.mark.parametrize("n", [2, 3, 8])
-@pytest.mark.parametrize("program", [_write_before_barrier, _exit_before_arrivals])
+@pytest.mark.parametrize("program", [{"push_early": True},
+                                     {"fold_waits": False, "drain_waits": False}])
 def test_ring_kernel_protocol_model_across_processes_rejects_unsafe_orders(n, program):
-    # a kernel that writes before the barrier, or lets its stream copy out
-    # (and copy the next launch in) before its peers' writes have landed
-    per, lanes = 128, 2
-    rng = np.random.default_rng(120 + n)
-    launches = [(m, _launch_inputs(m, n, per, rng), False) for m in ("ar", "rs", "ar")]
+    # a kernel that pushes before the barrier, or folds and drains before
+    # its peers' pushes have landed
+    xs = M.inputs(n, 128, 3, 120 + n)
+    launches = [("ar", xs[0], False), ("rs", xs[1], False), ("ar", xs[2], False)]
     caught = 0
     for seed in range(10):
         try:
-            _run_protocol(launches, lanes, seed, program, across=True)
+            M.run(launches, M.geo(128, 2, 2), seed, program)
         except AssertionError:
             caught += 1
     assert caught > 0
@@ -505,10 +449,9 @@ def test_ring_kernel_protocol_model_a_rank_that_never_launches_expires_the_other
     # the last rank dies before launch 2: every other rank's every lane ends
     # in the bounded wait of launch 2's entry barrier, on its lane's word,
     # and none finishes it silently
-    per, lanes = 128, 2
-    rng = np.random.default_rng(140 + n)
-    launches = [(m, _launch_inputs(m, n, per, rng), False) for m in ("ar", "ar")]
-    want = [(r, b, 2 * b) for r in range(n - 1) for b in range(lanes)]
+    lanes = 2
+    launches = [("ar", x, False) for x in M.inputs(n, 128, 2, 140 + n)]
+    want = [(r, b, b * M.WORDS) for r in range(n - 1) for b in range(lanes)]
     for seed in range(10):
-        got = _run_protocol(launches, lanes, seed, across=True, missing=(n - 1, 2))
+        got = M.run(launches, M.geo(128, lanes, 2), seed, missing=(n - 1, 2))
         assert got == want, (seed, got)
